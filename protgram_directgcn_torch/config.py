@@ -1,0 +1,154 @@
+"""Configuration of the ``--stages graph,gcn`` slice.
+
+Same field names and defaults as protgram_directgcn_tpu/config.py:89-190 for
+what this slice runs (paths, graph builder, GCN trainer), and the same dotted
+``--set`` overrides.  ``GraphBuilderConfig`` and ``GCNConfig`` keep every
+field of the JAX package, so ``--set`` lines written for it apply here; the
+trainer raises where a setting asks for a path this slice does not have.
+The fields of cluster training, PCA/H5 export, the PPI sanity check and
+in-training checkpoints are read by nothing yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+
+@dataclass
+class PathsConfig:
+    """Filesystem layout (reference: config.py:29-46)."""
+
+    project_root: Path = field(default_factory=lambda: Path(".").resolve())
+    base_data_dir: Optional[Path] = None
+    base_output_dir: Optional[Path] = None
+    input_fasta: Optional[Path] = None
+
+    def __post_init__(self):
+        if self.base_data_dir is None:
+            self.base_data_dir = self.project_root / "data"
+        if self.base_output_dir is None:
+            self.base_output_dir = self.base_data_dir / "results"
+        if self.input_fasta is None:
+            self.input_fasta = self.base_data_dir / "sequences/uniprot_sprot.fasta"
+
+    @property
+    def graph_objects_dir(self) -> Path:
+        return self.base_output_dir / "1_graph_objects"
+
+    @property
+    def gcn_embeddings_dir(self) -> Path:
+        return self.base_output_dir / "2_gcn_embeddings"
+
+    @property
+    def id_mapping_output_file(self) -> Path:
+        return self.base_output_dir / "mappings/gcn_id_mapping.tsv"
+
+
+@dataclass
+class GraphBuilderConfig:
+    """N-gram graph ETL knobs (reference: config.py:60-61, 85)."""
+
+    ngram_max_n: int = 3
+    workers: int = field(default_factory=lambda: max(1, (os.cpu_count() or 2) - 4))
+    propagation_epsilon: float = 1e-9
+    add_boundary_spaces: bool = True
+    sequences_per_shard: int = 50_000
+    # The native C++ ETL is not ported yet: the builder always packs n-grams
+    # with numpy (same graphs, byte for byte).
+    use_native: bool = True
+
+
+@dataclass
+class GCNConfig:
+    """DirectGCN model + hierarchical trainer knobs (reference: config.py:60-113)."""
+
+    hidden_layer_dims: List[int] = field(default_factory=lambda: [256, 128, 64])
+    one_gram_init_dim: int = 512
+    epochs_per_level: int = 500
+    lr: float = 1e-3
+    dropout_rate: float = 0.5
+    weight_decay: float = 1e-4
+    l2_reg_lambda: float = 1e-7
+    use_lr_scheduler: bool = True
+    lr_scheduler_patience: int = 10
+    lr_scheduler_factor: float = 0.5
+    use_early_stopping: bool = True
+    early_stopping_patience: int = 25
+    early_stopping_min_delta: float = 1e-5
+    propagation_epsilon: float = 1e-9
+    max_pe_len: int = 512
+    use_vector_coeffs: bool = True
+    task_types_per_level: Dict[int, str] = field(
+        default_factory=lambda: {1: "next_node", 2: "next_node", 3: "next_node"}
+    )
+    default_task_type: str = "community"
+    closest_aa_k_hops: int = 3
+    use_cluster_training: bool = True
+    cluster_training_threshold_nodes: int = 10_000
+    target_nodes_per_cluster: int = 500
+    min_clusters: int = 2
+    max_clusters: int = 500
+    cluster_device_budget_bytes: int = 4 << 30
+    cluster_dense_max_budget: int = 1024
+    cluster_auto_fullbatch: bool = True
+    apply_pca: bool = True
+    pca_target_dim: int = 64
+    run_sanity_check_ppi: bool = True
+    sanity_check_epochs: int = 10
+    sanity_check_test_split: float = 0.2
+    checkpoint_every_epochs: int = 100
+    compute_dtype: str = "auto"
+    node_param_dtype: str = "auto"
+    node_param_factored: str = "auto"
+    remat: Any = "auto"
+    spmm_mode: str = "auto"
+    oversize_policy: str = "degrade"
+
+
+@dataclass
+class Config:
+    """Top-level configuration (the subset this slice reads)."""
+
+    random_state: int = 42
+    debug_verbose: bool = False
+    paths: PathsConfig = field(default_factory=PathsConfig)
+    graph_builder: GraphBuilderConfig = field(default_factory=GraphBuilderConfig)
+    gcn: GCNConfig = field(default_factory=GCNConfig)
+    id_mapping_mode: str = "regex"  # 'regex' | 'none'
+
+    def apply_overrides(self, overrides: Dict[str, Any]) -> "Config":
+        """Apply dotted-path overrides, e.g. {"gcn.lr": 3e-4}."""
+        for key, value in overrides.items():
+            obj: Any = self
+            parts = key.split(".")
+            for part in parts[:-1]:
+                obj = getattr(obj, part)
+            leaf = parts[-1]
+            if not hasattr(obj, leaf):
+                raise KeyError(f"Unknown config key: {key}")
+            current = getattr(obj, leaf)
+            if isinstance(current, Path) and isinstance(value, str):
+                value = Path(value)
+            setattr(obj, leaf, value)
+        return self
+
+    @classmethod
+    def from_json(cls, path: os.PathLike) -> "Config":
+        with open(path) as f:
+            overrides = json.load(f)
+        return cls().apply_overrides(_flatten(overrides))
+
+
+def _flatten(nested: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    flat: Dict[str, Any] = {}
+    for k, v in nested.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict) and not k.endswith("_per_level"):
+            flat.update(_flatten(v, key + "."))
+        else:
+            flat[key] = v
+    return flat

@@ -1,0 +1,88 @@
+"""Carry parameters and operators over from the JAX package.
+
+Both functions take trees of arrays that ``np.asarray`` reads (numpy arrays,
+or the JAX package's arrays, which convert without this module importing
+JAX) and return torch tensors on ``device``: the card unless the caller asks
+for the CPU (``utils.device.resolve_device``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Union
+
+import numpy as np
+import torch
+
+from protgram_directgcn_torch.ops.hypercube import HypercubeAdj
+from protgram_directgcn_torch.utils.device import resolve_device
+
+
+def _tensor(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def params_from_jax(tree: Any, device: Union[str, torch.device] = "cuda") -> Any:
+    """``init_directgcn_params``'s pytree as the port's parameters: the same
+    nested dicts and lists, by the names of directgcn.py:114-180 (``w_*``,
+    ``b_*``, the gates ``c_in``/``c_out``/``c_directed``/``c_undirected``/
+    ``c_all``, ``constant``, ``res_projs``, ``decoder``, ``pe_table``).  A
+    constant stored rg ``[A, G, out]`` (the JAX trainer's hypercube levels)
+    comes back flat ``[A*G, out]``, the port's storage layout."""
+    return _params(tree, resolve_device(device))
+
+
+def _params(tree: Any, device: torch.device) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        out = {k: _params(v, device) for k, v in tree.items()}
+        const = out.get("constant")
+        if isinstance(const, torch.Tensor) and const.dim() == 3:
+            out["constant"] = const.reshape(-1, const.shape[-1])
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [_params(v, device) for v in tree]
+    return _tensor(tree, device)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The port's parameters as a tree of float32 numpy arrays (for handing
+    them to the JAX package)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().float().cpu().numpy()
+
+
+def hyper_from_jax(adj: Any, device: Union[str, torch.device] = "cuda",
+                   dtype: Optional[torch.dtype] = None) -> HypercubeAdj:
+    """A JAX ``HypercubeAdj`` in any bank layout (hypercube.py:67-99) as the
+    port's r-major banks ``[A, G, A]``:
+
+    - "dual"/"rs": ``wf_rs``/``wb_rs`` are already r-major (the g-major copies
+      are dropped);
+    - "pk": ``[A*A, G]`` with row ``r*A + c`` is reshaped ``[A, A, G]`` and
+      permuted to ``[r, g, c]``.
+    """
+    device = resolve_device(device)
+    d = np.asarray(adj.d, np.float32)
+    a, g = d.shape
+    banks = []
+    for w in (adj.wf_rs, adj.wb_rs):
+        t = _tensor(w, "cpu")
+        if t.dim() == 2:  # packed [A*A, G]
+            t = t.reshape(a, a, g).permute(0, 2, 1)
+        banks.append(t.contiguous().to(device=device, dtype=dtype or t.dtype))
+    return HypercubeAdj(
+        d=torch.from_numpy(d.copy()).to(device),
+        wf_rs=banks[0],
+        wb_rs=banks[1],
+        node_map=torch.from_numpy(np.asarray(adj.node_map).astype(np.int64)).to(device),
+    )

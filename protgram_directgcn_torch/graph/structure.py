@@ -1,0 +1,152 @@
+"""N-gram graph containers: host arrays and the device propagation operators.
+
+Port of protgram_directgcn_tpu/graph/structure.py:53-213.  ``NgramGraph`` and
+its ``.npz`` format are the JAX package's, so either package reads the
+other's graphs.  ``DeviceGraph`` holds torch operators: ``DenseAdj`` or
+``HypercubeAdj`` for each of 𝒜_in, 𝒜_out and the undirected sym-norm matrix,
+recomputed from the raw edges at load time
+(reference: protgram_directgcn_trainer.py:294-299).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from protgram_directgcn_torch.graph import transforms
+from protgram_directgcn_torch.ops.hypercube import HypercubeAdj
+from protgram_directgcn_torch.ops.spmm import DenseAdj
+
+Adjacency = Union[DenseAdj, HypercubeAdj]
+
+
+@dataclasses.dataclass
+class DeviceGraph:
+    """Device propagation operators for one n-gram level.
+
+    ``num_nodes`` is the node space the operators act on: the padded
+    character hypercube [alphabet^n] for ``HypercubeAdj``, whose ``node_map``
+    then holds the hypercube id of each real node (None for dense).
+    """
+
+    p_in: Adjacency  # from 𝒜_in  (built from A_in_w = A_out_wᵀ)
+    p_out: Adjacency  # from 𝒜_out (built from A_out_w)
+    p_und: Adjacency  # undirected sym-norm matrix
+    num_nodes: int = 0
+    node_map: Optional[torch.Tensor] = None
+
+    @property
+    def route(self) -> str:
+        return "hypercube" if isinstance(self.p_in, HypercubeAdj) else "dense"
+
+
+@dataclasses.dataclass
+class NgramGraph:
+    """Directed weighted n-gram transition graph (host side)."""
+
+    n: int
+    vocab: np.ndarray  # [N] of str, sorted ascending; id == index
+    src: np.ndarray  # [E] int32 unique edge sources
+    tgt: np.ndarray  # [E] int32 unique edge targets
+    weight: np.ndarray  # [E] float32 transition counts
+    epsilon_propagation: float = 1e-9
+
+    _node_to_idx: Optional[Dict[str, int]] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.vocab)
+
+    @property
+    def num_edges(self) -> int:
+        return len(self.src)
+
+    @property
+    def node_to_idx(self) -> Dict[str, int]:
+        if self._node_to_idx is None:
+            self._node_to_idx = {s: i for i, s in enumerate(self.vocab.tolist())}
+        return self._node_to_idx
+
+    def a_out_w(self):
+        return transforms.coalesce_coo(self.src, self.tgt, self.weight, self.num_nodes)
+
+    def mathcal_a_out(self):
+        return transforms.directgcn_propagation_matrix(self.a_out_w(), self.epsilon_propagation)
+
+    def mathcal_a_in(self):
+        # A_in_w = A_out_wᵀ (reference: graph_utils.py:158)
+        return transforms.directgcn_propagation_matrix(
+            self.a_out_w().T.tocsr(), self.epsilon_propagation
+        )
+
+    def undirected_norm(self):
+        return transforms.undirected_normalized_matrix(self.src, self.tgt, self.num_nodes)
+
+    def to_device(self, mode: str = "dense", dtype: torch.dtype = torch.float32,
+                  device: Union[str, torch.device] = "cuda",
+                  hbm_budget: int = 10 << 30) -> DeviceGraph:
+        """Materialise the three propagation operators on ``device``.
+
+        ``mode``: "hypercube" (gather-free banks over [alphabet^n], n >= 2;
+        the three matrices share ``hbm_budget``) or "dense".  The 𝒜 matrices
+        are symmetric-pattern by construction, so (row→col) edges feed the
+        (src→tgt, aggregate-at-tgt) operator directly
+        (reference: protgram_directgcn_trainer.py:362-367).
+        """
+        from protgram_directgcn_torch.ops.hypercube import build_hypercube, vocab_char_codes
+        from protgram_directgcn_torch.ops.spmm import build_dense
+
+        mats = (self.mathcal_a_in(), self.mathcal_a_out(), self.undirected_norm())
+        if mode == "hypercube":
+            codes, alpha = vocab_char_codes(self.vocab)
+            ops = [
+                build_hypercube(*transforms.csr_to_coo_arrays(m), codes, alpha,
+                                max_block_bytes=hbm_budget // 3, weights_dtype=dtype,
+                                device=device)
+                for m in mats
+            ]
+            return DeviceGraph(*ops, num_nodes=ops[0].n_out, node_map=ops[0].node_map)
+        if mode != "dense":
+            raise NotImplementedError(
+                f"adjacency mode {mode!r} is not ported yet (ELL/COO/block: ROADMAP Queue 1)"
+            )
+        n = self.num_nodes
+        ops = [build_dense(*transforms.csr_to_coo_arrays(m), n, dtype=dtype, device=device)
+               for m in mats]
+        return DeviceGraph(*ops, num_nodes=n)
+
+    def lookup(self, ngrams: np.ndarray) -> np.ndarray:
+        """Map n-gram strings to ids; -1 where absent."""
+        pos = np.searchsorted(self.vocab, ngrams)
+        pos = np.clip(pos, 0, self.num_nodes - 1)
+        found = self.vocab[pos] == ngrams
+        return np.where(found, pos, -1).astype(np.int64)
+
+
+def save_graph(graph: NgramGraph, path: os.PathLike) -> None:
+    os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
+    np.savez_compressed(
+        path,
+        n=np.int64(graph.n),
+        vocab=graph.vocab.astype(np.str_),
+        src=graph.src.astype(np.int32),
+        tgt=graph.tgt.astype(np.int32),
+        weight=graph.weight.astype(np.float32),
+        epsilon=np.float64(graph.epsilon_propagation),
+    )
+
+
+def load_graph(path: os.PathLike) -> NgramGraph:
+    with np.load(path, allow_pickle=False) as z:
+        return NgramGraph(
+            n=int(z["n"]),
+            vocab=z["vocab"],
+            src=z["src"],
+            tgt=z["tgt"],
+            weight=z["weight"],
+            epsilon_propagation=float(z["epsilon"]),
+        )

@@ -1,0 +1,101 @@
+"""The port's package rules: what it imports, and no silent CPU fallback.
+
+Imports are read from the source (an AST scan): JAX is already imported in
+this test process, so ``sys.modules`` cannot tell what the port imports.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from protgram_directgcn_torch.config import Config
+from protgram_directgcn_torch.ops import hyper_kernels as hk
+from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
+from protgram_directgcn_torch.utils.device import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "sklearn", "protgram_directgcn_tpu")
+PORT_FILES = sorted((ROOT / "protgram_directgcn_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    assert path.exists()
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_every_import_form(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import jax.numpy as jnp\nfrom flax import struct\n"
+        "def f():\n    import h5py\n    __import__('optax')\n"
+        "    importlib.import_module('sklearn.decomposition')\n"
+        "from protgram_directgcn_tpu.ops import spmm\n"
+    )
+    assert {m.split(".")[0] for m in _imported_modules(probe)} == {
+        "jax", "flax", "h5py", "optax", "sklearn", "protgram_directgcn_tpu"}
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, toy_fasta, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HierarchicalTrainer(Config())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    from protgram_directgcn_torch.__main__ import main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--fasta", str(toy_fasta), "--out", str(tmp_path), "--stages", "graph,gcn"])
+    assert not (tmp_path / "1_graph_objects").exists()  # failed before any work
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_convert_defaults_to_the_card(monkeypatch):
+    import numpy as np
+
+    from protgram_directgcn_torch import convert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.params_from_jax(tree)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.hyper_from_jax(None)
+    assert convert.params_from_jax(tree, device="cpu")["w"].device == torch.device("cpu")
+
+
+def test_kernel_wrappers_never_fall_back_off_cpu():
+    x = torch.zeros(3, 4, 5, device="meta")
+    w = torch.zeros(3, 4, 3, device="meta")
+    d = torch.zeros(3, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        hk.k1(w, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hk.k2(d, w, x, x)
+
+
+def test_build_artifacts_are_ignored_by_git():
+    ignored = (ROOT / ".gitignore").read_text().splitlines()
+    assert "protgram_directgcn_torch/_build/" in ignored
+    assert hk.BUILD_DIR == ROOT / "protgram_directgcn_torch" / "_build"

@@ -1,0 +1,234 @@
+"""Port parity: the train step, the trainer's helpers and ``run()``.
+
+Three steps of the JAX package's ``make_train_step`` (optax Adam, L2 in the
+gradient) against three of the port's (``torch.optim.Adam``) from the same
+parameters and inputs, float32, dropout 0: losses and parameters held at
+rtol 1e-4, atol 1e-5 * max|leaf| (float32 Adam updates of gradients summed
+in another order).  ``run()`` end to end on the CPU at narrow widths.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from protgram_directgcn_torch import convert
+from protgram_directgcn_torch.__main__ import main as t_main
+from protgram_directgcn_torch.config import Config as TConfig
+from protgram_directgcn_torch.graph.builder import NgramGraphBuilder as TBuilder
+from protgram_directgcn_torch.models import directgcn as t_model
+from protgram_directgcn_torch.pipeline import trainer as t_trainer
+from protgram_directgcn_torch.pipeline.labels import next_node_labels
+from protgram_directgcn_torch.utils.io import parse_fasta
+from protgram_directgcn_tpu.config import Config as JConfig
+from protgram_directgcn_tpu.graph.builder import NgramGraphBuilder as JBuilder
+from protgram_directgcn_tpu.models import directgcn as j_model
+from protgram_directgcn_tpu.pipeline import trainer as j_trainer
+from tests.test_torch_graph import write_seeded_fasta
+
+SEQS = [
+    ("P1", "MKTAYIAKQRQISFVKSHFSRQLEERLGLIEVQ"),
+    ("P2", "MKLVTAYIAKQRRQISFVK"),
+    ("P3", "GLIEVQAPILSRVGDGTQDNLSGAEKAVQ"),
+]
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return JBuilder(n_max=3).build_from_sequences(SEQS), TBuilder(n_max=3).build_from_sequences(SEQS)
+
+
+def _leaves(tree, path=()):
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [lp for k in sorted(tree) for lp in _leaves(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [lp for i, v in enumerate(tree) for lp in _leaves(v, path + (i,))]
+    return [(path, tree)]
+
+
+@pytest.mark.parametrize("kind", ["dense", "hypercube"])
+@pytest.mark.parametrize("l2_lambda,wd", [(1e-3, 0.0), (0.0, 1e-2)])
+def test_three_train_steps_match(graphs, kind, l2_lambda, wd):
+    jg, tg = graphs
+    level = 1 if kind == "dense" else 3
+    j_dev = jg[level - 1].to_device(mode=kind)
+    t_dev = tg[level - 1].to_device(mode=kind, device="cpu")
+    n, real = t_dev.num_nodes, tg[level - 1].num_nodes
+    dims = (10, 8, 6)
+    common = dict(layer_dims=dims, num_nodes=n, num_classes=real, n_gram_len=level,
+                  one_gram_dim=dims[0] if level == 1 else 0, max_pe_len=8,
+                  dropout=0.0, decoder_dropout=0.0)
+    jcfg, tcfg = j_model.DirectGCNConfig(**common), t_model.DirectGCNConfig(**common)
+    rng = np.random.default_rng(level)
+    x = rng.normal(size=(n, dims[0])).astype(np.float32)
+    y = np.zeros(n, np.int64)
+    mask = np.zeros(n, np.float32)
+    labels, _ = next_node_labels(tg[level - 1])
+    node_map = np.arange(real) if t_dev.node_map is None else t_dev.node_map.numpy()
+    y[node_map] = labels
+    mask[node_map] = 1.0
+
+    jp = j_model.init_directgcn_params(jax.random.PRNGKey(4), jcfg)
+    tp = convert.params_from_jax(jp, device="cpu")
+    for p in t_model.param_leaves(tp):
+        p.requires_grad_(True)
+    opt_j = j_trainer.make_optimizer(1e-2, wd)
+    opt_state = opt_j.init(jp)
+    step_j = j_trainer.make_train_step(jcfg, opt_j, l2_lambda)
+    step_t = t_trainer.make_train_step(tcfg, t_trainer.make_optimizer(tp, 1e-2, wd), l2_lambda)
+    xt, yt, mt = torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(mask)
+    for _ in range(3):
+        jp, opt_state, j_loss, j_primary = step_j(
+            jp, opt_state, j_dev, jnp.asarray(x), jnp.asarray(y, jnp.int32), jnp.asarray(mask),
+            jnp.float32(1.0), jax.random.PRNGKey(0), None)
+        t_loss, t_primary = step_t(tp, t_dev, xt, yt, mt, 1.0, None)
+        np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-4)
+        np.testing.assert_allclose(float(t_primary), float(j_primary), rtol=1e-4)
+    j_leaves = dict(_leaves(jp))
+    for path, t in _leaves(tp):
+        j = np.asarray(j_leaves[path]).reshape(tuple(t.shape))
+        np.testing.assert_allclose(t.detach().numpy(), j, rtol=1e-4,
+                                   atol=1e-5 * max(1.0, float(np.abs(j).max())),
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_initial_features_match(graphs, level):
+    jg, tg = graphs
+    jt = j_trainer.HierarchicalTrainer(JConfig())
+    tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
+    if level == 1:
+        prev_vocab = prev = None
+    else:
+        prev_vocab = tg[level - 2].vocab
+        prev = np.random.default_rng(0).normal(size=(len(prev_vocab), 4)).astype(np.float32)
+    xj = jt._initial_features(jg[level - 1], prev_vocab, prev, seed=9)
+    xt = tt._initial_features(tg[level - 1], prev_vocab, prev, seed=9)
+    np.testing.assert_array_equal(xt, xj)
+
+
+def test_plateau_scheduler_and_early_stopper_match():
+    losses = [5.0, 4.0, 4.0, 4.0, 3.9999, 4.1, 4.2, 3.0, 3.0, 3.0, 3.0, 3.0]
+    js, ts = j_trainer.PlateauScheduler(1.0, 2, 0.5), t_trainer.PlateauScheduler(1.0, 2, 0.5)
+    je, te = j_trainer.EarlyStopper(3, 1e-3), t_trainer.EarlyStopper(3, 1e-3)
+    for loss in losses:
+        assert ts.step(loss) == js.step(loss)
+        assert te.should_stop(loss) == je.should_stop(loss)
+
+
+def test_level_routes_and_plan(graphs):
+    _, tg = graphs
+    tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
+    plan = tt._level_plan(tg[2], 16)
+    assert isinstance(plan, int) and plan >= tt._MIN_BANK
+    assert tt._to_device_graph(tg[0], plan).route == "dense"
+    # The trigram toy graph's hypercube is > 4x its vocabulary: dense unless forced.
+    assert tt._to_device_graph(tg[2], plan).route == "dense"
+    tt.gcn.spmm_mode = "hypercube"
+    assert tt._to_device_graph(tg[2], plan).route == "hypercube"
+    tt.gcn.spmm_mode = "ell"
+    with pytest.raises(NotImplementedError):
+        tt._to_device_graph(tg[2], plan)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("compute_dtype", "bfloat16"), ("node_param_dtype", "bfloat16"),
+    ("node_param_factored", "on"), ("remat", True),
+])
+def test_level_plan_refuses_unported_tiers(graphs, knob, value):
+    _, tg = graphs
+    tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
+    setattr(tt.gcn, knob, value)
+    with pytest.raises(NotImplementedError):
+        tt._level_plan(tg[2], 16)
+
+
+def test_level_plan_raises_when_tier0_does_not_fit(graphs):
+    _, tg = graphs
+    tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
+    tt._hbm_override = 1 << 30
+    with pytest.raises(NotImplementedError, match="tier 0"):
+        tt._level_plan(tg[2], 16)
+
+
+def _small_cfg(tmp_path, fasta):
+    cfg = TConfig()
+    cfg.apply_overrides({
+        "gcn.hidden_layer_dims": [12, 8], "gcn.one_gram_init_dim": 16,
+        "gcn.epochs_per_level": 3, "gcn.run_sanity_check_ppi": False,
+    })
+    cfg.paths.input_fasta = fasta
+    cfg.paths.base_output_dir = tmp_path / "out"
+    return cfg
+
+
+def test_run_end_to_end_on_cpu(tmp_path):
+    fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=80, lo=40, hi=120)
+    cfg = _small_cfg(tmp_path, fasta)
+    TBuilder(cfg).run()
+    tt = t_trainer.HierarchicalTrainer(cfg, device="cpu")
+    pooled = tt.run()
+    assert len(pooled) == 80
+    vecs = np.stack(list(pooled.values()))
+    assert vecs.shape == (80, 8) and np.isfinite(vecs).all()
+    assert [tt.level_stats[n]["route"] for n in (1, 2, 3)] == ["dense", "hypercube", "hypercube"]
+    for n in (1, 2, 3):
+        st = tt.level_stats[n]
+        assert st["epochs"] == 3 and np.isfinite(st["losses"]).all()
+        assert (cfg.paths.gcn_embeddings_dir / "level_checkpoints" / f"level_{n}.npz").exists()
+    # A second run resumes every level from its checkpoint and pools the same.
+    again = t_trainer.HierarchicalTrainer(cfg, device="cpu")
+    pooled2 = again.run()
+    assert again.level_stats == {}
+    for k in pooled:
+        np.testing.assert_array_equal(pooled2[k], pooled[k])
+
+
+def test_cli_graph_and_gcn_on_cpu(tmp_path):
+    fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=30, lo=20, hi=60)
+    result = t_main([
+        "--fasta", str(fasta), "--out", str(tmp_path / "out"), "--stages", "graph,gcn",
+        "--set", "gcn.hidden_layer_dims=[8,4]", "--set", "gcn.one_gram_init_dim=8",
+        "--set", "gcn.epochs_per_level=2", "--set", "gcn.run_sanity_check_ppi=false",
+        "--device", "cpu",
+    ])
+    assert len(result["graphs"]) == 3
+    assert len(result["pooled"]) == 30
+    assert all(np.isfinite(v).all() and v.shape == (4,) for v in result["pooled"].values())
+    only_graph = t_main(["--fasta", str(fasta), "--out", str(tmp_path / "g"), "--stages",
+                         "graph"])
+    assert only_graph["trainer"] is None and len(only_graph["graphs"]) == 3
+    with pytest.raises(NotImplementedError):
+        t_main(["--fasta", str(fasta), "--stages", "graph,gcn,ppi", "--device", "cpu"])
+
+
+def test_hypercube_over_budget_falls_back_to_dense(tmp_path):
+    fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=80, lo=40, hi=120)
+    graph = TBuilder(n_max=2).build_from_sequences(list(parse_fasta(fasta)))[1]
+    tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
+    plan = tt._level_plan(graph, 16)
+    assert tt._to_device_graph(graph, plan).route == "hypercube"
+    tiny = 1024
+    assert tt._to_device_graph(graph, tiny).route == "dense"
+    tt.gcn.spmm_mode = "hypercube"
+    with pytest.raises(t_trainer.BlockStructureError):
+        tt._to_device_graph(graph, tiny)
+
+
+def test_cluster_training_is_refused_off_the_hypercube(graphs):
+    _, tg = graphs
+    cfg = TConfig()
+    cfg.apply_overrides({"gcn.cluster_training_threshold_nodes": 10,
+                         "gcn.hidden_layer_dims": [4], "gcn.epochs_per_level": 1})
+    tt = t_trainer.HierarchicalTrainer(cfg, device="cpu")
+    g3 = tg[2]  # dense route: its hypercube is > 4x the vocabulary
+    x = np.zeros((g3.num_nodes, 4), np.float32)
+    y, classes = next_node_labels(g3)
+    with pytest.raises(NotImplementedError, match="cluster training"):
+        tt.train_level(g3, x, y, classes)
+    tt.gcn.spmm_mode = "hypercube"  # full batch on the hypercube route
+    _, emb, _, _ = tt.train_level(g3, x, y, classes)
+    assert emb.shape == (g3.num_nodes, 4) and np.isfinite(emb).all()
