@@ -6,7 +6,8 @@
 Phases, each printing one JSON line as it ends:
 
 0. device: the card's name and power limit (as nvidia-smi prints them), and
-   the nvcc build of the K1/K2 kernels (csrc/hyper.cu) with its time;
+   the nvcc builds of csrc/hyper.cu (K1/K2) and csrc/ell.cu (the ELL
+   kernels), started together, with their times;
 1. kernels: K1 and K2, forward and the bank-swapped backward, held against
    their plain PyTorch versions at the main path's shapes (A=21, G=441 and
    21, F=256/128/64, float32 and bfloat16) and at the 5-gram hypercube
@@ -17,10 +18,25 @@ Phases, each printing one JSON line as it ends:
 2. main path: ``python -m protgram_directgcn_torch --stages graph,gcn``'s
    entry point on a seeded synthetic FASTA of Swiss-Prot-like size (20,000
    sequences, lengths 50-1,000), dims [256, 128, 64], n = 1..3, five epochs a
-   level, with the kernels' launch counts set to 0 before and read after;
+   level, with the K1/K2 launch counts set to 0 before and read after;
 3. reference: the model's forward and gradients on the card against the
    port's CPU path (which the CPU tests hold against the JAX package) on a
-   small n = 3 hypercube graph.
+   small n = 3 hypercube graph;
+4. ell path: the same entry point on the same FASTA with
+   ``gcn.spmm_mode=pallas`` (ELL operators at every level), n = 1..4
+   (``gcn.use_cluster_training=false``: the n = 4 level trains full batch;
+   ``gcn.default_task_type=closest_aa`` for the n = 4 level, whose default
+   task, Louvain communities, is not ported; ``next_node`` there would need
+   a [N, N] decoder output, 150 GB at 194,481 nodes),
+   with the ELL kernels' launch counts set to 0 before and read after:
+   levels 1-3 must run ``ell_resident`` and level 4 ``ell_hbm``, forward and
+   backward;
+5. ell kernels: ``ell_resident`` at the ell path's n = 3 operator and
+   ``ell_hbm`` at its n = 4 operator (𝒜_in, K as built), F = 64, 128, 256,
+   f32, forward and the transpose-orientation backward, held against their
+   plain versions and timed like K1/K2, beside one ``torch.sparse.mm`` on a
+   CSR copy of the operator;
+6. ell reference: phase 3 on ELL operators through the ELL kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -46,10 +62,18 @@ F32_TOL = (1e-5, 1e-5)  # rtol, atol
 BF16_REL_TO_MAX = 0.05  # max |err| <= 0.05 * max |ref| (tests/test_hypercube.py:160)
 MAIN_SHAPES = [(21, g, f) for g in (441, 21) for f in (256, 128, 64)]
 LARGE_SHAPE = (21, 194_481, 128)
-SOURCE = "protgram_directgcn_torch/csrc/hyper.cu"
+ELL_WIDTHS = (64, 128, 256)
+SOURCES = {
+    "hyper_k1": "protgram_directgcn_torch/csrc/hyper.cu",
+    "hyper_k2": "protgram_directgcn_torch/csrc/hyper.cu",
+    "ell_resident": "protgram_directgcn_torch/csrc/ell.cu",
+    "ell_hbm": "protgram_directgcn_torch/csrc/ell.cu",
+}
 REPLACES = {
     "hyper_k1": "protgram_directgcn_tpu/ops/pallas_hyper.py:217",
     "hyper_k2": "protgram_directgcn_tpu/ops/pallas_hyper.py:245",
+    "ell_resident": "protgram_directgcn_tpu/ops/pallas_spmm.py:72",
+    "ell_hbm": "protgram_directgcn_tpu/ops/pallas_spmm.py:204",
 }
 
 
@@ -222,12 +246,35 @@ def write_fasta(path: str, n_seqs: int, seed: int, lo: int, hi: int) -> int:
     return int(lens.sum())
 
 
-def run_main_path(torch, hk, workdir: str):
+def _finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def _drive(torch, argv):
+    """The CLI's entry point on ``argv``; returns (result, wall seconds)."""
     from protgram_directgcn_torch.__main__ import main
 
-    fasta = os.path.join(workdir, "synthetic_sprot.fasta")
-    residues = write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
-    emit("main_path_input", sequences=N_SEQS, residues=residues)
+    t0 = time.monotonic()
+    result = main(argv)
+    torch.cuda.synchronize()
+    return result, time.monotonic() - t0
+
+
+def _pooled(result, dim: int) -> dict:
+    """Check one finite ``dim``-wide pooled vector per protein."""
+    import numpy as np
+
+    pooled = result["pooled"]
+    vecs = np.stack(list(pooled.values()))
+    if len(pooled) != N_SEQS or vecs.shape != (N_SEQS, dim) or not np.isfinite(vecs).all():
+        fail(f"pooled embeddings: {len(pooled)} proteins, shape {vecs.shape}, "
+             f"finite={bool(np.isfinite(vecs).all())}")
+    return {"proteins": len(pooled), "pooled_dim": int(vecs.shape[1]),
+            "stage_seconds": result["seconds"],
+            "pool_seconds": result["trainer"].pool_seconds}
+
+
+def run_main_path(torch, hk, fasta: str, workdir: str):
     argv = ["--fasta", fasta, "--out", os.path.join(workdir, "out"), "--stages", "graph,gcn",
             "--set", "gcn.hidden_layer_dims=[256,128,64]",
             "--set", "graph_builder.ngram_max_n=3",
@@ -235,19 +282,15 @@ def run_main_path(torch, hk, workdir: str):
             "--set", "gcn.run_sanity_check_ppi=false",
             "--device", DEVICE]
     hk.reset_launches()
-    t0 = time.monotonic()
-    result = main(argv)
-    torch.cuda.synchronize()
-    seconds = time.monotonic() - t0
+    result, seconds = _drive(torch, argv)
     counts = hk.launch_counts()
 
-    trainer = result["trainer"]
-    stats = trainer.level_stats
+    stats = result["trainer"].level_stats
     for n in (1, 2, 3):
         if n not in stats:
             fail(f"level n={n} did not train")
         st = stats[n]
-        if not all(map(lambda v: v == v and abs(v) != float("inf"), st["losses"])):
+        if not _finite(st["losses"]):
             fail(f"level n={n} has non-finite losses {st['losses']}")
         emit("main_path_level", level=n, **st)
     if stats[1]["route"] != "dense":
@@ -260,27 +303,152 @@ def run_main_path(torch, hk, workdir: str):
             for direction in ("fwd", "bwd"):
                 if st["launches"][k][direction] <= 0:
                     fail(f"level n={n}: {k} {direction} was never launched")
-    pooled = result["pooled"]
-    import numpy as np
-
-    vecs = np.stack(list(pooled.values()))
-    if len(pooled) != N_SEQS or vecs.shape != (N_SEQS, 64) or not np.isfinite(vecs).all():
-        fail(f"pooled embeddings: {len(pooled)} proteins, shape {vecs.shape}, "
-             f"finite={bool(np.isfinite(vecs).all())}")
-    emit("main_path", seconds=seconds, launches=counts, proteins=len(pooled),
-         pooled_dim=int(vecs.shape[1]))
+    emit("main_path", seconds=seconds, launches=counts, **_pooled(result, 64))
     return counts
 
 
 # -----------------------------------------------------------------------------
-# Phase 3: reference on a small input
+# Phase 4: ell path
 # -----------------------------------------------------------------------------
 
 
-def check_reference(torch, workdir: str):
+def run_ell_path(torch, ek, fasta: str, workdir: str):
+    """``--stages graph,gcn`` with ``gcn.spmm_mode=pallas`` at n = 1..4.
+    Returns (ELL launch counts, graph artifact paths)."""
+    argv = ["--fasta", fasta, "--out", os.path.join(workdir, "ell_out"),
+            "--stages", "graph,gcn",
+            "--set", "graph_builder.ngram_max_n=4",
+            "--set", "gcn.spmm_mode=pallas",
+            "--set", "gcn.use_cluster_training=false",
+            "--set", "gcn.default_task_type=closest_aa",
+            "--set", "gcn.hidden_layer_dims=[256,128,64]",
+            "--set", "gcn.epochs_per_level=5",
+            "--set", "gcn.run_sanity_check_ppi=false",
+            "--device", DEVICE]
+    ek.reset_launches()
+    result, seconds = _drive(torch, argv)
+    counts = ek.launch_counts()
+
+    stats = result["trainer"].level_stats
+    for n in (1, 2, 3, 4):
+        if n not in stats:
+            fail(f"ell path: level n={n} did not train")
+        st = stats[n]
+        if st["route"] != "ell":
+            fail(f"ell path: level n={n} took the {st['route']} route, not ell")
+        if not _finite(st["losses"]):
+            fail(f"ell path: level n={n} has non-finite losses {st['losses']}")
+        kernel, other = ("ell_resident", "ell_hbm") if n <= 3 else ("ell_hbm", "ell_resident")
+        for direction in ("fwd", "bwd"):
+            if st["launches"][kernel][direction] <= 0:
+                fail(f"ell path: level n={n}: {kernel} {direction} was never launched")
+            if st["launches"][other][direction] != 0:
+                fail(f"ell path: level n={n} launched {other} ({direction})")
+        emit("ell_path_level", level=n, **st)
+    if ek.resident_supported(stats[4]["nodes"]):
+        fail(f"ell path: the n = 4 level's {stats[4]['nodes']} nodes are in the resident regime")
+    emit("ell_path", seconds=seconds, launches=counts, level4_nodes=stats[4]["nodes"],
+         **_pooled(result, 64))
+    return counts, result["graphs"]
+
+
+# -----------------------------------------------------------------------------
+# Phase 5: ell kernels
+# -----------------------------------------------------------------------------
+
+
+def _ell_bound(n_out: int, k: int, n_in: int, f: int):
+    """idx and w read once, x once, out written once at the HBM rate; or
+    2 * N_out * K * F f32 operations at the f32 rate; the larger."""
+    nbytes = n_out * k * 8 + n_in * f * 4 + n_out * f * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * n_out * k * f / PEAK_OPS_PER_S["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ell_err(got, ref, src, k: int):
+    """Max abs error, and whether every element is within rtol 1e-5 and
+    atol 1e-6 * max|input| * K (f32 sums of K products, fmaf on the card)."""
+    err = (got - ref).abs()
+    atol = 1e-6 * float(src.abs().max()) * k
+    return float(err.max()), bool((err <= atol + 1e-5 * ref.abs()).all())
+
+
+def _csr(torch, adj, n_in: int):
+    """The operator as a CSR tensor (the stored slots with w != 0)."""
+    n_out, k = adj.idx.shape
+    rows = torch.arange(n_out, device=adj.idx.device).repeat_interleave(k)
+    keep = adj.w.reshape(-1) != 0
+    ind = torch.stack([rows[keep], adj.idx.reshape(-1).long()[keep]])
+    coo = torch.sparse_coo_tensor(ind, adj.w.reshape(-1)[keep], (n_out, n_in))
+    return coo.coalesce().to_sparse_csr()
+
+
+def check_ell_kernels(torch, ek, graph_paths):
+    """``ell_resident`` at the n = 3 operator and ``ell_hbm`` at the n = 4
+    one (𝒜_in as the ell path builds it), forward and the transpose
+    backward through autograd, against the plain versions; timed."""
+    from protgram_directgcn_torch.graph import transforms
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.ops import spmm
+
+    records = []
+    for level, name in ((3, "ell_resident"), (4, "ell_hbm")):
+        graph = load_graph(graph_paths[level - 1])
+        src, tgt, val = transforms.csr_to_coo_arrays(graph.mathcal_a_in())
+        adj = spmm.build_ell(src, tgt, val, graph.num_nodes, device=DEVICE)
+        n_out, k = adj.idx.shape
+        n_in, k_t = adj.idx_t.shape
+        if ek.resident_supported(n_in) != (name == "ell_resident"):
+            fail(f"n={level}: {n_in} source nodes are outside the {name} regime")
+        kernel, plain = getattr(ek, name), getattr(ek, f"{name}_plain")
+        csr = _csr(torch, adj, n_in)
+        for f in ELL_WIDTHS:
+            gen = torch.Generator(device=DEVICE).manual_seed(level * 1000 + f)
+            x = torch.randn(n_in, f, device=DEVICE, generator=gen)
+            cot = torch.randn(n_out, f, device=DEVICE, generator=gen)
+            out = kernel(adj.idx, adj.w, x)
+            xg = x.clone().requires_grad_(True)
+            y = spmm.propagate(adj, xg, use_pallas=True)
+            y.backward(cot)
+            torch.cuda.synchronize()
+            ref = plain(adj.idx, adj.w, x)
+            rec = {"name": name, "level": level, "n_out": n_out, "k": k, "n_in": n_in,
+                   "k_t": k_t, "nnz": len(src), "f": f, "dtype": "float32"}
+            for tag, got, want, inp, kk in (
+                    ("fwd", out, ref, x, k), ("autograd_fwd", y.detach(), ref, x, k),
+                    ("bwd", xg.grad, plain(adj.idx_t, adj.w_t, cot), cot, k_t)):
+                err, ok = _ell_err(got, want, inp, kk)
+                rec[f"{tag}_max_abs_err"] = err
+                if not ok or not bool(torch.isfinite(got).all()):
+                    fail(f"{name} {tag} disagrees with its plain version at n={level} "
+                         f"F={f}: max abs err {err}")
+            iters = 20 if level == 4 else 200
+            fns = {"ms": lambda: kernel(adj.idx, adj.w, x),
+                   "plain_ms": lambda: plain(adj.idx, adj.w, x),
+                   "library_ms": lambda: torch.sparse.mm(csr, x)}
+            for key, fn in fns.items():
+                rec[key] = _device_ms(torch, fn, iters)
+            rec["wrapper_ms"] = _wrapper_ms(torch, fns["ms"], iters)
+            rec["bound_ms"], rec["bound_by"] = _ell_bound(n_out, k, n_in, f)
+            emit("ell_kernels", **rec)
+            records.append(rec)
+            del x, cot, out, xg, y, ref, fns
+        del adj, csr
+        torch.cuda.empty_cache()
+    return records
+
+
+# -----------------------------------------------------------------------------
+# Phases 3 and 6: reference on a small input
+# -----------------------------------------------------------------------------
+
+
+def check_reference(torch, ek, workdir: str, mode: str):
     """Forward and gradients of the model on the card against the port's
-    CPU path, on a small n = 3 hypercube graph (rtol 1e-4, atol 1e-5 *
-    max|leaf|: float32 with TF32 off, summed in another order)."""
+    CPU path, on a small n = 3 graph with ``mode`` operators ("hypercube";
+    or "ell" through the ELL kernels) (rtol 1e-4, atol 1e-5 * max|leaf|:
+    float32 with TF32 off, summed in another order)."""
     import numpy as np
 
     from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
@@ -294,11 +462,12 @@ def check_reference(torch, workdir: str):
     from protgram_directgcn_torch import convert
 
     params_cpu = None
+    ek.reset_launches()
     for dev in (DEVICE, "cpu"):
-        dg = graph.to_device(mode="hypercube", device=dev)
+        dg = graph.to_device(mode=mode, device=dev)
         cfg = directgcn.DirectGCNConfig(layer_dims=(32, 64, 32, 16), num_nodes=dg.num_nodes,
                                         num_classes=40, n_gram_len=3, dropout=0.0,
-                                        decoder_dropout=0.0)
+                                        decoder_dropout=0.0, use_pallas=mode == "ell")
         if params_cpu is None:
             params_cpu = directgcn.init_directgcn_params(torch.Generator().manual_seed(3), cfg,
                                                          "cpu")
@@ -312,50 +481,31 @@ def check_reference(torch, workdir: str):
         (torch.sum(ls * r) + torch.sum(emb)).backward()
         outs[dev] = [ls.detach().cpu(), emb.detach().cpu()] + [p.grad.cpu() for p in
                                                                  directgcn.param_leaves(params)]
+    counts = ek.launch_counts()
+    if mode == "ell" and not (counts["ell_resident"]["fwd"] and counts["ell_resident"]["bwd"]):
+        fail(f"ell reference: the ELL kernels did not run on the card ({counts})")
     worst = 0.0
     for got, ref in zip(outs[DEVICE], outs["cpu"]):
         if not bool(torch.isfinite(got).all()):
-            fail("non-finite model output or gradient on the card")
+            fail(f"{mode} reference: non-finite model output or gradient on the card")
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
         err = (got - ref).abs()
         if not bool((err <= tol + 1e-4 * ref.abs()).all()):
-            fail(f"card and CPU disagree: max abs err {float(err.max())}")
+            fail(f"{mode} reference: card and CPU disagree: max abs err {float(err.max())}")
         worst = max(worst, float(err.max()))
-    emit("reference", nodes=graph.num_nodes, hypercube_nodes=int(outs["cpu"][0].shape[0]),
-         tensors_compared=len(outs["cpu"]), max_abs_err=worst)
+    emit("reference" if mode == "hypercube" else "ell_reference", nodes=graph.num_nodes,
+         device_nodes=int(outs["cpu"][0].shape[0]), tensors_compared=len(outs["cpu"]),
+         max_abs_err=worst, ell_launches=counts)
 
 
 # -----------------------------------------------------------------------------
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
-        return 1
-    from protgram_directgcn_torch.ops import hyper_kernels as hk
-    from protgram_directgcn_torch.ops import hypercube as hyper
-    from protgram_directgcn_torch.utils.device import resolve_device
-
-    resolve_device(DEVICE)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    info = hk.build()
-    ptxas = [ln.strip() for ln in str(info["log"]).splitlines() if "registers" in ln]
-    emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-         build_seconds=info["seconds"], built=info["built"], ptxas=ptxas)
-
-    records = check_kernels(torch, hk, hyper)
-    with tempfile.TemporaryDirectory(prefix="protgram_smoke_") as workdir:
-        counts = run_main_path(torch, hk, workdir)
-        check_reference(torch, workdir)
-
-    # One entry per kernel: its numbers at the main path's widest shape, then
-    # the 5-gram shape's and the worst error of each type over every shape.
+def _kernels_line(records, counts, ell_records, ell_counts):
+    """One entry per kernel.  K1/K2: their numbers at the main path's widest
+    shape, the 5-gram shape's, and the worst error of each type over every
+    shape.  ELL: their numbers at F = 256 on their level's operator, and
+    every F under ``by_f``."""
     main_rec = next(r for r in records if r["shape"] == [21, 441, 256] and r["dtype"] == "float32")
     large_rec = next(r for r in records
                      if r["shape"] == list(LARGE_SHAPE) and r["dtype"] == "bfloat16")
@@ -368,7 +518,7 @@ def main() -> int:
             if cur is None or r[f"{k}_max_abs_err"] > cur["max_abs_err"]:
                 worst[r["dtype"]] = {"max_abs_err": r[f"{k}_max_abs_err"], "shape": r["shape"]}
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": counts[k]["fwd"] + counts[k]["bwd"],
             "launches_fwd": counts[k]["fwd"], "launches_bwd": counts[k]["bwd"],
             "shape": main_rec["shape"], "dtype": main_rec["dtype"],
@@ -383,6 +533,68 @@ def main() -> int:
             | {"shape": large_rec["shape"], "dtype": large_rec["dtype"]},
             "worst_max_abs_err_by_dtype": worst,
         })
+    timed = ("ms", "plain_ms", "library_ms", "wrapper_ms", "bound_ms")
+    for name in ("ell_resident", "ell_hbm"):
+        recs = [r for r in ell_records if r["name"] == name]
+        top = next(r for r in recs if r["f"] == max(ELL_WIDTHS))
+        errs = ("fwd_max_abs_err", "autograd_fwd_max_abs_err", "bwd_max_abs_err")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": ell_counts[name]["fwd"] + ell_counts[name]["bwd"],
+            "launches_fwd": ell_counts[name]["fwd"], "launches_bwd": ell_counts[name]["bwd"],
+            "shape": {key: top[key] for key in ("level", "n_out", "k", "n_in", "k_t", "nnz", "f")},
+            "dtype": "float32", "max_abs_err": max(top[e] for e in errs),
+            "tolerance": "rtol 1e-5, atol 1e-6 * max|input| * K",
+            **{key: top[key] for key in timed}, "bound_by": top["bound_by"],
+            "by_f": {str(r["f"]): {key: r[key] for key in timed + errs} for r in recs},
+        })
+    return kernels
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    from concurrent.futures import ThreadPoolExecutor
+
+    from protgram_directgcn_torch.ops import ell_kernels as ek
+    from protgram_directgcn_torch.ops import hyper_kernels as hk
+    from protgram_directgcn_torch.ops import hypercube as hyper
+    from protgram_directgcn_torch.utils.device import resolve_device
+
+    resolve_device(DEVICE)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    t_build = time.monotonic()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        infos = dict(zip(("hyper", "ell"), pool.map(lambda build: build(), (hk.build, ek.build))))
+    build_wall = time.monotonic() - t_build
+    ptxas = {name: [ln.strip() for ln in str(info["log"]).splitlines() if "registers" in ln]
+             for name, info in infos.items()}
+    emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
+         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         build_wall_seconds=build_wall,
+         build_seconds={name: info["seconds"] for name, info in infos.items()},
+         built={name: info["built"] for name, info in infos.items()}, ptxas=ptxas)
+
+    records = check_kernels(torch, hk, hyper)
+    with tempfile.TemporaryDirectory(prefix="protgram_smoke_") as workdir:
+        fasta = os.path.join(workdir, "synthetic_sprot.fasta")
+        residues = write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
+        emit("main_path_input", sequences=N_SEQS, residues=residues)
+        counts = run_main_path(torch, hk, fasta, workdir)
+        check_reference(torch, ek, workdir, "hypercube")
+        torch.cuda.empty_cache()
+        ell_counts, graph_paths = run_ell_path(torch, ek, fasta, workdir)
+        torch.cuda.empty_cache()
+        ell_records = check_ell_kernels(torch, ek, graph_paths)
+        check_reference(torch, ek, workdir, "ell")
+
+    kernels = _kernels_line(records, counts, ell_records, ell_counts)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

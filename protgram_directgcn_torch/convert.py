@@ -1,6 +1,6 @@
 """Carry parameters and operators over from the JAX package.
 
-Both functions take trees of arrays that ``np.asarray`` reads (numpy arrays,
+The functions take trees of arrays that ``np.asarray`` reads (numpy arrays,
 or the JAX package's arrays, which convert without this module importing
 JAX) and return torch tensors on ``device``: the card unless the caller asks
 for the CPU (``utils.device.resolve_device``).
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from protgram_directgcn_torch.ops.hypercube import HypercubeAdj
+from protgram_directgcn_torch.ops.spmm import BucketedEllAdj, CooAdj, EllAdj
 from protgram_directgcn_torch.utils.device import resolve_device
 
 
@@ -86,3 +87,25 @@ def hyper_from_jax(adj: Any, device: Union[str, torch.device] = "cuda",
         wb_rs=banks[1],
         node_map=torch.from_numpy(np.asarray(adj.node_map).astype(np.int64)).to(device),
     )
+
+
+def ell_from_jax(adj: Any, device: Union[str, torch.device] = "cuda"
+                 ) -> Union[EllAdj, BucketedEllAdj, CooAdj]:
+    """A JAX ``EllAdj``, ``BucketedEllAdj`` or ``CooAdj`` (spmm.py:100-153)
+    as the port's, array for array (told apart by their fields: ``inv_perm``
+    for bucketed, ``src`` for COO)."""
+    device = resolve_device(device)
+    if hasattr(adj, "inv_perm"):
+        return BucketedEllAdj(
+            idx=tuple(_tensor(a, device) for a in adj.idx),
+            w=tuple(_tensor(a, device) for a in adj.w),
+            inv_perm=_tensor(adj.inv_perm, device),
+            idx_t=tuple(_tensor(a, device) for a in adj.idx_t),
+            w_t=tuple(_tensor(a, device) for a in adj.w_t),
+            inv_perm_t=_tensor(adj.inv_perm_t, device),
+        )
+    if hasattr(adj, "src"):
+        return CooAdj(**{k: _tensor(getattr(adj, k), device)
+                         for k in ("src", "tgt", "w", "src_t", "tgt_t", "w_t")},
+                      n_out=int(adj.n_out), n_in=int(adj.n_in))
+    return EllAdj(**{k: _tensor(getattr(adj, k), device) for k in ("idx", "w", "idx_t", "w_t")})

@@ -2,9 +2,9 @@
 
 Port of protgram_directgcn_tpu/graph/structure.py:53-213.  ``NgramGraph`` and
 its ``.npz`` format are the JAX package's, so either package reads the
-other's graphs.  ``DeviceGraph`` holds torch operators: ``DenseAdj`` or
-``HypercubeAdj`` for each of 𝒜_in, 𝒜_out and the undirected sym-norm matrix,
-recomputed from the raw edges at load time
+other's graphs.  ``DeviceGraph`` holds torch operators (ops/spmm.py,
+ops/hypercube.py) for each of 𝒜_in, 𝒜_out and the undirected sym-norm
+matrix, recomputed from the raw edges at load time
 (reference: protgram_directgcn_trainer.py:294-299).
 """
 
@@ -19,9 +19,11 @@ import torch
 
 from protgram_directgcn_torch.graph import transforms
 from protgram_directgcn_torch.ops.hypercube import HypercubeAdj
-from protgram_directgcn_torch.ops.spmm import DenseAdj
+from protgram_directgcn_torch.ops.spmm import BucketedEllAdj, CooAdj, DenseAdj, EllAdj
 
-Adjacency = Union[DenseAdj, HypercubeAdj]
+Adjacency = Union[DenseAdj, EllAdj, BucketedEllAdj, CooAdj, HypercubeAdj]
+_ROUTES = ((DenseAdj, "dense"), (HypercubeAdj, "hypercube"), (EllAdj, "ell"),
+           (BucketedEllAdj, "bucketed"), (CooAdj, "coo"))
 
 
 @dataclasses.dataclass
@@ -30,7 +32,7 @@ class DeviceGraph:
 
     ``num_nodes`` is the node space the operators act on: the padded
     character hypercube [alphabet^n] for ``HypercubeAdj``, whose ``node_map``
-    then holds the hypercube id of each real node (None for dense).
+    then holds the hypercube id of each real node (None for the others).
     """
 
     p_in: Adjacency  # from 𝒜_in  (built from A_in_w = A_out_wᵀ)
@@ -41,7 +43,8 @@ class DeviceGraph:
 
     @property
     def route(self) -> str:
-        return "hypercube" if isinstance(self.p_in, HypercubeAdj) else "dense"
+        """The format of ``p_in``: dense, hypercube, ell, bucketed or coo."""
+        return next(name for cls, name in _ROUTES if isinstance(self.p_in, cls))
 
 
 @dataclasses.dataclass
@@ -86,19 +89,24 @@ class NgramGraph:
     def undirected_norm(self):
         return transforms.undirected_normalized_matrix(self.src, self.tgt, self.num_nodes)
 
-    def to_device(self, mode: str = "dense", dtype: torch.dtype = torch.float32,
+    def to_device(self, mode: str = "auto", feat_dim: int = 128,
+                  dtype: torch.dtype = torch.float32,
                   device: Union[str, torch.device] = "cuda",
                   hbm_budget: int = 10 << 30) -> DeviceGraph:
-        """Materialise the three propagation operators on ``device``.
+        """Materialise the three propagation operators on ``device``
+        (structure.py:100-175 of the JAX package).
 
         ``mode``: "hypercube" (gather-free banks over [alphabet^n], n >= 2;
-        the three matrices share ``hbm_budget``) or "dense".  The 𝒜 matrices
-        are symmetric-pattern by construction, so (row→col) edges feed the
-        (src→tgt, aggregate-at-tgt) operator directly
+        the three matrices share ``hbm_budget``), or a format of
+        ``spmm.build_adjacency``: "auto" (chosen by its byte model for
+        ``feat_dim``-wide features), "dense", "ell" ("pallas" is "ell"),
+        "bucketed" or "coo".  The 𝒜 matrices are symmetric-pattern by
+        construction, so (row→col) edges feed the (src→tgt,
+        aggregate-at-tgt) operator directly
         (reference: protgram_directgcn_trainer.py:362-367).
         """
         from protgram_directgcn_torch.ops.hypercube import build_hypercube, vocab_char_codes
-        from protgram_directgcn_torch.ops.spmm import build_dense
+        from protgram_directgcn_torch.ops.spmm import build_adjacency, ngram_node_keys
 
         mats = (self.mathcal_a_in(), self.mathcal_a_out(), self.undirected_norm())
         if mode == "hypercube":
@@ -110,12 +118,11 @@ class NgramGraph:
                 for m in mats
             ]
             return DeviceGraph(*ops, num_nodes=ops[0].n_out, node_map=ops[0].node_map)
-        if mode != "dense":
-            raise NotImplementedError(
-                f"adjacency mode {mode!r} is not ported yet (ELL/COO/block: ROADMAP Queue 1)"
-            )
         n = self.num_nodes
-        ops = [build_dense(*transforms.csr_to_coo_arrays(m), n, dtype=dtype, device=device)
+        node_keys = ngram_node_keys(self.vocab) if self.n >= 2 and n else None
+        ops = [build_adjacency(*transforms.csr_to_coo_arrays(m), n, mode=mode,
+                               feat_dim=feat_dim, dtype=dtype, node_keys=node_keys,
+                               device=device)
                for m in mats]
         return DeviceGraph(*ops, num_nodes=n)
 

@@ -52,6 +52,7 @@ class DirectGCNConfig:
     l2_eps: float = 1e-12
     leaky_relu_slope: float = 0.01
     decoder_hidden_floor: int = 1
+    use_pallas: bool = False  # ELL operators run the CUDA ELL kernels (spmm.propagate)
 
     def __post_init__(self):
         if len(self.layer_dims) < 2:
@@ -173,7 +174,7 @@ def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig) -> tor
     x_in = x @ (p["w_main_in"] + p["w_shared"])
     x_out = x @ (p["w_main_out"] + p["w_shared"])
     x_und = x @ (p["w_und"] + p["w_shared"])
-    pi, po, pu = propagate3(graph, x_in, x_out, x_und)
+    pi, po, pu = propagate3(graph, x_in, x_out, x_und, cfg.use_pallas)
     ic = pi + (p["b_main_in"] + p["b_shared_in"])
     oc = po + (p["b_main_out"] + p["b_shared_out"])
     uc = pu + (p["b_und"] + p["b_shared_und"])

@@ -13,32 +13,22 @@ computes, for an rg-layout carry ``x [A, G, F]`` and r-major banks
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a plain-C shared
 library under ``protgram_directgcn_torch/_build/`` at first use, again only
-when the source's hash changes, and loaded with ``ctypes``.  CPU tensors take
-the plain PyTorch versions below; CUDA tensors launch the kernels or raise.
+when the source's hash changes (``ops/_nvcc.py``), and loaded with
+``ctypes``.  CPU tensors take the plain PyTorch versions below; CUDA tensors
+launch the kernels or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "hyper.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from protgram_directgcn_torch.ops import _nvcc
+
+BUILD_DIR = _nvcc.BUILD_DIR
 
 # Launches per kernel and direction ("fwd": forward product, "bwd": the
 # bank-swapped transpose product of the backward pass).  The wrappers add one
@@ -63,51 +53,17 @@ def launch_counts() -> Dict[str, Dict[str, int]]:
     return {name: dict(per_dir) for name, per_dir in LAUNCHES.items()}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found (needed to build csrc/hyper.cu for sm_90a)")
-
-
 def build() -> Dict[str, object]:
-    """Compile and load the kernel library (idempotent).
+    """Compile (``ops/_nvcc.py``) and load the kernel library (idempotent).
 
-    Returns ``{"path", "seconds", "built", "log"}``: ``seconds`` is the
-    nvcc wall time (0 when a library for this source hash already existed)
-    and ``log`` the compiler's output (ptxas register/shared-memory report).
+    Returns ``{"path", "seconds", "built", "log", "max_alphabet"}``.
     """
     global _lib
     with _lib_lock:
         if _lib is not None:
             return BUILD_INFO
-        digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        path = BUILD_DIR / f"libhyper_{digest[:16]}.so"
-        info: Dict[str, object] = {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(BUILD_DIR))
-            os.close(fd)
-            t0 = time.monotonic()
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True, timeout=600,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stdout}{proc.stderr}"
-                    )
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            info.update(seconds=time.monotonic() - t0, built=True, log=proc.stdout + proc.stderr)
-        lib = ctypes.CDLL(str(path))
+        info = _nvcc.compile_source("hyper")
+        lib = ctypes.CDLL(str(info["path"]))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for dt in ("f32", "bf16"):
             k1 = getattr(lib, f"hyper_k1_{dt}")
@@ -132,28 +88,17 @@ def build() -> Dict[str, object]:
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype} != expected {dtype}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_inputs(x: torch.Tensor, banks, d: Optional[torch.Tensor] = None):
     if x.dim() != 3:
         raise ValueError(f"x must be rg [A, G, F], got shape {tuple(x.shape)}")
     a, g, f = x.shape
     if x.dtype not in _SUFFIX:
         raise TypeError(f"x dtype {x.dtype} unsupported (float32 or bfloat16)")
-    _check("x", x, (a, g, f), x.dtype, x.device)
+    _nvcc.check_tensor("x", x, (a, g, f), x.dtype, x.device)
     for name, w in banks:
-        _check(name, w, (a, g, a), x.dtype, x.device)
+        _nvcc.check_tensor(name, w, (a, g, a), x.dtype, x.device)
     if d is not None:
-        _check("d", d, (a, g), torch.float32, x.device)
+        _nvcc.check_tensor("d", d, (a, g), torch.float32, x.device)
     return a, g, f
 
 
@@ -165,15 +110,6 @@ def _library(a: int) -> ctypes.CDLL:
             f"alphabet {a} > {BUILD_INFO['max_alphabet']}, the kernels' per-thread column"
         )
     return _lib
-
-
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
 # -----------------------------------------------------------------------------
@@ -210,7 +146,8 @@ def k1(w1: torch.Tensor, x: torch.Tensor, direction: str = "fwd") -> torch.Tenso
     lib = _library(a)
     z = torch.empty((g, a, f), dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"hyper_k1_{_SUFFIX[x.dtype]}")
-    _raise_on(fn(w1.data_ptr(), x.data_ptr(), z.data_ptr(), a, g, f, _stream_ptr(x)), "K1")
+    rc = fn(w1.data_ptr(), x.data_ptr(), z.data_ptr(), a, g, f, _nvcc.stream_ptr(x))
+    _nvcc.raise_on(rc, "K1")
     LAUNCHES["k1"][direction] += 1
     return z
 
@@ -220,7 +157,7 @@ def k2(d: torch.Tensor, w2: torch.Tensor, z_rg: torch.Tensor, x: torch.Tensor,
     """K2 on ``x [A, G, F]``, bank ``w2 [A, G, A]``, ``z_rg [A, G, F]`` and
     diagonal ``d [A, G]`` f32; returns ``out [A, G, F]``."""
     a, g, f = _check_inputs(x, [("w2", w2)], d)
-    _check("z", z_rg, (a, g, f), x.dtype, x.device)
+    _nvcc.check_tensor("z", z_rg, (a, g, f), x.dtype, x.device)
     if x.device.type == "cpu":
         return k2_plain(d, w2, z_rg, x, scale, shift)
     if x.device.type != "cuda":
@@ -229,8 +166,8 @@ def k2(d: torch.Tensor, w2: torch.Tensor, z_rg: torch.Tensor, x: torch.Tensor,
     out = torch.empty_like(x)
     fn = getattr(lib, f"hyper_k2_{_SUFFIX[x.dtype]}")
     rc = fn(d.data_ptr(), w2.data_ptr(), z_rg.data_ptr(), x.data_ptr(), out.data_ptr(),
-            a, g, f, float(scale), float(shift), _stream_ptr(x))
-    _raise_on(rc, "K2")
+            a, g, f, float(scale), float(shift), _nvcc.stream_ptr(x))
+    _nvcc.raise_on(rc, "K2")
     LAUNCHES["k2"][direction] += 1
     return out
 

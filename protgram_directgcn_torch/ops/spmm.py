@@ -1,23 +1,40 @@
-"""Propagation operators: the dispatch over adjacency formats.
+"""Propagation operators: adjacency formats, their builders and the dispatch.
 
-Port of protgram_directgcn_tpu/ops/spmm.py:90-100, 200-218, 580-698 for the
-formats of this slice.  ``propagate(adj, x)[i] = sum over edges (j -> i) of
+Port of protgram_directgcn_tpu/ops/spmm.py:89-721 without the SDDMM
+edge-gradient path.  ``propagate(adj, x)[i] = sum over edges (j -> i) of
 w * x[j]`` (reference: protgram_directgcn.py:100-140, PyG aggr='add').
 
-- ``DenseAdj``: Aᵀ stored dense, one ``torch.matmul`` (the n = 1 level; the
-  JAX package leaves this product to XLA as well);
+- ``DenseAdj``: Aᵀ stored dense, one ``torch.matmul``;
+- ``EllAdj``: padded neighbour lists ``[N, K]`` in both orientations; with
+  ``use_pallas`` the product runs the CUDA ELL kernels (ops/ell_kernels.py),
+  else plain torch, as the JAX package leaves it to XLA;
+- ``BucketedEllAdj``: degree-bucketed ELL for degree-skewed graphs;
+- ``CooAdj``: target-sorted COO and a segment sum (``index_add``);
 - ``HypercubeAdj``: the gather-free K1/K2 pair (ops/hypercube.py).
 
-ELL, bucketed ELL, COO and the block format are not ported yet.
+The builders are the JAX package's numpy code and give the same arrays byte
+for byte.  Every format's backward reads its stored transpose orientation
+(no scatter over the forward's indices); the graph gets no gradient.  The
+block format (ops/block.py of the JAX package) is not ported: where the JAX
+package's ``build_adjacency`` would return it, the port raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from protgram_directgcn_torch.ops import ell_kernels
+
+Device = Union[str, torch.device]
+
+
+# ----------------------------------------------------------------------------
+# Device adjacency formats
+# ----------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -31,9 +48,101 @@ class DenseAdj:
         return self.at.shape[0]
 
 
+@dataclasses.dataclass
+class EllAdj:
+    """Padded neighbour lists, both orientations: ``idx[i, k]`` is the k-th
+    source feeding target i with weight ``w[i, k]`` (padding slots have
+    w == 0 and idx == 0); ``idx_t/w_t`` list the targets of each source."""
+
+    idx: torch.Tensor  # [n_out, K] int32
+    w: torch.Tensor  # [n_out, K] f32
+    idx_t: torch.Tensor  # [n_in, Kt] int32
+    w_t: torch.Tensor  # [n_in, Kt] f32
+
+    @property
+    def n_out(self) -> int:
+        return self.idx.shape[0]
+
+
+@dataclasses.dataclass
+class CooAdj:
+    """Sorted-by-target COO with the transpose orientation for backward."""
+
+    src: torch.Tensor  # [nnz] int32
+    tgt: torch.Tensor  # [nnz] int32 (sorted ascending)
+    w: torch.Tensor  # [nnz] f32
+    src_t: torch.Tensor  # transpose orientation, sorted by its own target (=src)
+    tgt_t: torch.Tensor
+    w_t: torch.Tensor
+    n_out: int = 0
+    n_in: int = 0
+
+
+@dataclasses.dataclass
+class BucketedEllAdj:
+    """Degree-bucketed ELL: rows grouped by degree into per-bucket ELL
+    tables; ``inv_perm`` maps the concatenated bucket output back to node
+    order.  Both orientations are bucketed independently."""
+
+    idx: Tuple[torch.Tensor, ...]  # per-bucket [rows_b, K_b] int32 source ids
+    w: Tuple[torch.Tensor, ...]  # per-bucket [rows_b, K_b] f32
+    inv_perm: torch.Tensor  # [n_out] int32: out = concat(buckets)[inv_perm]
+    idx_t: Tuple[torch.Tensor, ...]
+    w_t: Tuple[torch.Tensor, ...]
+    inv_perm_t: torch.Tensor
+
+    @property
+    def n_out(self) -> int:
+        return self.inv_perm.shape[0]
+
+
+# ----------------------------------------------------------------------------
+# Host-side builders (spmm.py:164-380, byte-exact)
+# ----------------------------------------------------------------------------
+
+
+def _dev(a: np.ndarray, device: Device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _ell_one_sided(src: np.ndarray, tgt: np.ndarray, w: np.ndarray, n_out: int,
+                   pad_multiple: int = 4):
+    """Group (src, w) by tgt into padded [n_out, K] arrays."""
+    src = np.asarray(src, dtype=np.int64)
+    tgt = np.asarray(tgt, dtype=np.int64)
+    w = np.asarray(w, dtype=np.float32)
+    deg = np.bincount(tgt, minlength=n_out) if len(tgt) else np.zeros(n_out, dtype=np.int64)
+    k = max(1, int(deg.max()) if len(deg) else 1)
+    k = _round_up(k, pad_multiple)
+    idx = np.zeros((n_out, k), dtype=np.int32)
+    wm = np.zeros((n_out, k), dtype=np.float32)
+    if len(tgt):
+        order = np.argsort(tgt, kind="stable")
+        ts, ss, ws = tgt[order], src[order], w[order]
+        starts = np.zeros(n_out + 1, dtype=np.int64)
+        np.cumsum(deg, out=starts[1:])
+        offsets = np.arange(len(ts), dtype=np.int64) - starts[ts]
+        idx[ts, offsets] = ss.astype(np.int32)
+        wm[ts, offsets] = ws
+    return idx, wm
+
+
+def build_ell(src: np.ndarray, tgt: np.ndarray, w: np.ndarray, n_out: int,
+              n_in: Optional[int] = None, device: Device = "cuda") -> EllAdj:
+    n_in = n_out if n_in is None else n_in
+    idx, wm = _ell_one_sided(src, tgt, w, n_out)
+    idx_t, wm_t = _ell_one_sided(tgt, src, w, n_in)
+    return EllAdj(idx=_dev(idx, device), w=_dev(wm, device), idx_t=_dev(idx_t, device),
+                  w_t=_dev(wm_t, device))
+
+
 def build_dense(src: np.ndarray, tgt: np.ndarray, w: np.ndarray, n_out: int,
                 n_in: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                device: Union[str, torch.device] = "cuda") -> DenseAdj:
+                device: Device = "cuda") -> DenseAdj:
     n_in = n_out if n_in is None else n_in
     at = np.zeros((n_out, n_in), dtype=np.float32)
     if len(src):
@@ -42,10 +151,239 @@ def build_dense(src: np.ndarray, tgt: np.ndarray, w: np.ndarray, n_out: int,
     return DenseAdj(at=torch.from_numpy(at).to(device=device, dtype=dtype))
 
 
-def propagate(adj, x: torch.Tensor) -> torch.Tensor:
-    """Sum-aggregate weighted source features at each target node."""
+# Few buckets (spmm.py:215-217).
+_BUCKET_KS = (8, 16, 64)
+
+
+def _bucketed_one_sided(src, tgt, w, n_out, device: Device):
+    """Group rows (targets) by degree bucket; returns (idx_list, w_list, inv_perm)."""
+    src = np.asarray(src, np.int64)
+    tgt = np.asarray(tgt, np.int64)
+    w = np.asarray(w, np.float32)
+    deg = np.bincount(tgt, minlength=n_out) if len(tgt) else np.zeros(n_out, np.int64)
+    order = np.argsort(deg, kind="stable")
+    inv = np.empty(n_out, np.int64)
+    inv[order] = np.arange(n_out)
+    tgt_p = inv[tgt]
+    sorted_deg = deg[order]
+    bounds = []
+    start = 0
+    for kb in _BUCKET_KS:
+        end = int(np.searchsorted(sorted_deg, kb, side="right"))
+        if end > start:
+            bounds.append((start, end))
+        start = end
+        if start >= n_out:
+            break
+    if start < n_out:
+        bounds.append((start, n_out))
+    if not bounds:
+        bounds = [(0, n_out)]
+    idx_list, w_list = [], []
+    for s_, e_ in bounds:
+        m = (tgt_p >= s_) & (tgt_p < e_)
+        bi, bw = _ell_one_sided(src[m], tgt_p[m] - s_, w[m], e_ - s_)
+        idx_list.append(_dev(bi, device))
+        w_list.append(_dev(bw, device))
+    return tuple(idx_list), tuple(w_list), _dev(inv.astype(np.int32), device)
+
+
+def build_bucketed_ell(src, tgt, w, n_out: int, n_in: Optional[int] = None,
+                       device: Device = "cuda") -> BucketedEllAdj:
+    n_in = n_out if n_in is None else n_in
+    idx, wm, inv = _bucketed_one_sided(src, tgt, w, n_out, device)
+    idx_t, wm_t, inv_t = _bucketed_one_sided(tgt, src, w, n_in, device)
+    return BucketedEllAdj(idx=idx, w=wm, inv_perm=inv, idx_t=idx_t, w_t=wm_t, inv_perm_t=inv_t)
+
+
+def build_coo(src: np.ndarray, tgt: np.ndarray, w: np.ndarray, n_out: int,
+              n_in: Optional[int] = None, device: Device = "cuda") -> CooAdj:
+    n_in = n_out if n_in is None else n_in
+    src = np.asarray(src, np.int32)
+    tgt = np.asarray(tgt, np.int32)
+    w = np.asarray(w, np.float32)
+    order = np.argsort(tgt, kind="stable")
+    order_t = np.argsort(src, kind="stable")
+    return CooAdj(
+        src=_dev(src[order], device),
+        tgt=_dev(tgt[order], device),
+        w=_dev(w[order], device),
+        src_t=_dev(tgt[order_t], device),
+        tgt_t=_dev(src[order_t], device),
+        w_t=_dev(w[order_t], device),
+        n_out=int(n_out),
+        n_in=int(n_in),
+    )
+
+
+def choose_format(n_out: int, n_in: int, nnz: int, feat_dim: int = 128) -> str:
+    """Pick the adjacency format minimising bytes moved per propagation
+    (spmm.py:281-298): dense moves ~2·n_out·n_in bytes, ELL ~4·F·nnz·1.25."""
+    if nnz == 0:
+        return "dense" if n_out * n_in <= 4_000_000 else "coo"
+    deg = float(nnz) / max(n_out, 1)
+    dense_bytes = 2.0 * n_out * n_in
+    ell_pad_factor = 1.25  # typical padding for bounded-degree n-gram graphs
+    ell_bytes = 4.0 * feat_dim * nnz * ell_pad_factor
+    if dense_bytes <= ell_bytes and n_out * n_in * 4 <= 2 << 30:
+        return "dense"
+    return "ell" if deg >= 1.0 else "coo"
+
+
+# ----------------------------------------------------------------------------
+# The block format's selection rule (the format itself is not ported)
+# ----------------------------------------------------------------------------
+
+
+def ngram_node_keys(vocab: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Prefix/suffix (n-1)-gram key ids for a sorted equal-length vocabulary
+    (protgram_directgcn_tpu/ops/block.py:74-96)."""
+    vocab = np.asarray(vocab)
+    n_nodes = len(vocab)
+    if n_nodes == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), 0
+    n = len(str(vocab[0]))
+    if n < 2:
+        z = np.zeros(n_nodes, np.int64)
+        return z, z, 1
+    arr = vocab.astype(f"U{n}")
+    chars = arr.view("U1").reshape(n_nodes, n)
+    prefix = np.ascontiguousarray(chars[:, :-1]).view(f"U{n - 1}").reshape(n_nodes)
+    suffix = np.ascontiguousarray(chars[:, 1:]).view(f"U{n - 1}").reshape(n_nodes)
+    keys, inv = np.unique(np.concatenate([prefix, suffix]), return_inverse=True)
+    return inv[:n_nodes], inv[n_nodes:], len(keys)
+
+
+def _block_structure_fits(src, tgt, pk, sk, num_keys: int, max_block: int = 64) -> bool:
+    """Whether the JAX package's ``build_block_ngram`` (block.py:117-177)
+    would succeed: key groups of at most ``max_block`` nodes, and every
+    off-diagonal edge in the A pattern (sk[src] == pk[tgt]) or the Aᵀ
+    pattern (pk[src] == sk[tgt])."""
+    pk = np.asarray(pk, np.int64)
+    sk = np.asarray(sk, np.int64)
+    for key in (pk, sk):
+        counts = np.bincount(key, minlength=num_keys)
+        if max(1, int(counts.max()) if num_keys else 1) > max_block:
+            return False
+    src = np.asarray(src, np.int64)
+    tgt = np.asarray(tgt, np.int64)
+    off = src != tgt
+    s, t = src[off], tgt[off]
+    return bool(((sk[s] == pk[t]) | (pk[s] == sk[t])).all())
+
+
+def build_adjacency(
+    src: np.ndarray,
+    tgt: np.ndarray,
+    w: np.ndarray,
+    n_out: int,
+    n_in: Optional[int] = None,
+    mode: str = "auto",
+    feat_dim: int = 128,
+    dtype: torch.dtype = torch.float32,
+    node_keys: Optional[Tuple[np.ndarray, np.ndarray, int]] = None,
+    device: Device = "cuda",
+) -> Union[DenseAdj, EllAdj, BucketedEllAdj, CooAdj]:
+    """The device adjacency in the requested or auto-selected format, by the
+    JAX package's rule (spmm.py:301-381).  Raises NotImplementedError where
+    that rule picks the block format (``node_keys`` given, ROADMAP Queue 1,
+    item 4).  The hypercube format is built by ``NgramGraph.to_device``."""
+    n_in = n_out if n_in is None else n_in
+    if mode in ("auto", "block") and node_keys is not None and n_out == n_in and len(src):
+        pk, sk, num_keys = node_keys
+        counts_s = np.bincount(np.asarray(sk, np.int64), minlength=num_keys)
+        r_est = int(counts_s.max()) if len(counts_s) else 1
+        block_rows = num_keys * r_est + n_out  # random rows per pass
+        worthwhile = block_rows < 0.9 * len(src) and r_est <= 64
+        picks_block = mode == "block" or (
+            worthwhile and choose_format(n_out, n_in, len(src), feat_dim) != "dense"
+            and _block_structure_fits(src, tgt, pk, sk, num_keys))
+        if picks_block:
+            raise NotImplementedError(
+                "the block adjacency format (ops/block.py) is not ported yet "
+                "(ROADMAP Queue 1, item 4); the JAX package would use it here"
+            )
+    if mode == "auto":
+        mode = choose_format(n_out, n_in, len(src), feat_dim)
+        if mode == "ell" and len(tgt):
+            # Degree skew: single-K ELL wastes padded slots, use degree buckets.
+            deg = np.bincount(np.asarray(tgt, np.int64), minlength=n_out)
+            deg_t = np.bincount(np.asarray(src, np.int64), minlength=n_in)
+            kmax = max(int(deg.max()), int(deg_t.max()))
+            if kmax * max(n_out, n_in) > 2 * len(src):
+                mode = "bucketed"
+    if mode == "dense":
+        return build_dense(src, tgt, w, n_out, n_in, dtype=dtype, device=device)
+    if mode in ("ell", "pallas"):
+        return build_ell(src, tgt, w, n_out, n_in, device=device)
+    if mode == "bucketed":
+        return build_bucketed_ell(src, tgt, w, n_out, n_in, device=device)
+    if mode == "coo":
+        return build_coo(src, tgt, w, n_out, n_in, device=device)
+    raise ValueError(f"Unknown adjacency mode: {mode}")
+
+
+# ----------------------------------------------------------------------------
+# Propagation
+# ----------------------------------------------------------------------------
+
+
+class _LinearOp(torch.autograd.Function):
+    """``y = M x`` for a constant operator given as two functions, ``M`` and
+    ``Mᵀ``: the backward applies ``Mᵀ`` to the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, apply: Callable, apply_t: Callable):
+        ctx.apply_t = apply_t
+        return apply(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.apply_t(grad), None, None
+
+
+def _bucketed_apply(idx_tuple, w_tuple, inv_perm, x):
+    outs = [ell_kernels.ell_plain(i, wv, x) for i, wv in zip(idx_tuple, w_tuple)]
+    return torch.cat(outs, dim=0)[inv_perm.long()]
+
+
+def _coo_apply(src, tgt, w, x, n_out):
+    msgs = w[:, None] * x[src.long()].to(w.dtype)
+    out = torch.zeros((n_out, x.shape[1]), dtype=msgs.dtype, device=x.device)
+    return out.index_add_(0, tgt.long(), msgs)
+
+
+def _swap(adj):
+    """The same operator in the transpose orientation."""
+    if isinstance(adj, EllAdj):
+        return EllAdj(idx=adj.idx_t, w=adj.w_t, idx_t=adj.idx, w_t=adj.w)
+    if isinstance(adj, BucketedEllAdj):
+        return BucketedEllAdj(idx=adj.idx_t, w=adj.w_t, inv_perm=adj.inv_perm_t,
+                              idx_t=adj.idx, w_t=adj.w, inv_perm_t=adj.inv_perm)
+    return CooAdj(src=adj.src_t, tgt=adj.tgt_t, w=adj.w_t, src_t=adj.src, tgt_t=adj.tgt,
+                  w_t=adj.w, n_out=adj.n_in, n_in=adj.n_out)
+
+
+def _edge_apply(adj, x: torch.Tensor) -> torch.Tensor:
+    """The plain product of an edge-list format (spmm.py:397-433, 498-546)."""
+    if isinstance(adj, EllAdj):
+        return ell_kernels.ell_plain(adj.idx, adj.w, x)
+    if isinstance(adj, BucketedEllAdj):
+        return _bucketed_apply(adj.idx, adj.w, adj.inv_perm, x)
+    return _coo_apply(adj.src, adj.tgt, adj.w, x, adj.n_out)
+
+
+def propagate(adj, x: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
+    """Sum-aggregate weighted source features at each target node.
+    ``use_pallas`` sends an ``EllAdj`` through the ELL kernels."""
     if isinstance(adj, DenseAdj):
         return adj.at @ x.to(adj.at.dtype)
+    if isinstance(adj, EllAdj) and use_pallas:
+        return ell_kernels.propagate_ell_kernel(adj, x)
+    if isinstance(adj, (EllAdj, BucketedEllAdj, CooAdj)):
+        adj_t = _swap(adj)
+        return _LinearOp.apply(x, lambda v: _edge_apply(adj, v),
+                               lambda g: _edge_apply(adj_t, g))
     from protgram_directgcn_torch.ops import hypercube
 
     if isinstance(adj, hypercube.HypercubeAdj):
@@ -53,11 +391,14 @@ def propagate(adj, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"Unknown adjacency type: {type(adj)}")
 
 
-def propagate_transpose(adj, x: torch.Tensor) -> torch.Tensor:
+def propagate_transpose(adj, x: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
     """The transpose product ``Mᵀ x`` (out[j] = sum over edges (j -> i) of
-    w * x[i]), computed directly; differentiate :func:`propagate` instead."""
+    w * x[i]), computed directly from the stored transpose orientation;
+    differentiate :func:`propagate` instead."""
     if isinstance(adj, DenseAdj):
         return adj.at.T @ x.to(adj.at.dtype)
+    if isinstance(adj, (EllAdj, BucketedEllAdj, CooAdj)):
+        return propagate(_swap(adj), x, use_pallas)
     from protgram_directgcn_torch.ops import hypercube
 
     if isinstance(adj, hypercube.HypercubeAdj):
@@ -65,10 +406,21 @@ def propagate_transpose(adj, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"propagate_transpose: unsupported adjacency {type(adj)}")
 
 
-def propagate3(graph, x_in: torch.Tensor, x_out: torch.Tensor, x_und: torch.Tensor):
+def propagate3(graph, x_in: torch.Tensor, x_out: torch.Tensor, x_und: torch.Tensor,
+               use_pallas: bool = False):
     """The three per-path propagations of a DirectGCN layer."""
     return (
-        propagate(graph.p_in, x_in),
-        propagate(graph.p_out, x_out),
-        propagate(graph.p_und, x_und),
+        propagate(graph.p_in, x_in, use_pallas),
+        propagate(graph.p_out, x_out, use_pallas),
+        propagate(graph.p_und, x_und, use_pallas),
     )
+
+
+def propagate_affine(adj, x: torch.Tensor, scale: float, shift: float) -> torch.Tensor:
+    """Fused ``scale * propagate(adj, x) + shift``: inside K2's epilogue on
+    the hypercube, an elementwise pass on every other format."""
+    from protgram_directgcn_torch.ops import hypercube
+
+    if isinstance(adj, hypercube.HypercubeAdj):
+        return hypercube.propagate_hyper_affine(adj, x, scale, shift)
+    return propagate(adj, x) * scale + shift

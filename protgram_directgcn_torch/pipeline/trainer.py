@@ -5,9 +5,11 @@ Port of protgram_directgcn_tpu/pipeline/trainer.py:54-110, 138-237,
 1271-1374, 1455-1634, 1816-2182 (reference:
 src/pipeline/protgram_directgcn_trainer.py:68-426) for the full-batch,
 single-device, tier-0 plan: float32 compute, float32 node parameters, no
-remat, Adam.  Levels n >= 2 whose character hypercube is at most 4x the
-vocabulary train on the K1/K2 hypercube operators; the others (the n = 1
-level) on a dense product.
+remat, Adam.  Under ``gcn.spmm_mode="auto"`` levels n >= 2 whose character
+hypercube is at most 4x the vocabulary train on the K1/K2 hypercube
+operators, and the others on the format ``spmm.build_adjacency`` picks (the
+n = 1 level: dense).  ``spmm_mode="pallas"`` trains every level on ELL
+operators through the CUDA ELL kernels.
 
 Not ported yet (ROADMAP Queue 1): the memory tiers 1-4 (remat, bf16 node
 parameters, factored moments, the staged step), cluster training, the
@@ -32,7 +34,7 @@ from protgram_directgcn_torch.models.directgcn import (
     init_directgcn_params,
     param_leaves,
 )
-from protgram_directgcn_torch.ops import hyper_kernels
+from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.pipeline.labels import generate_labels
 from protgram_directgcn_torch.utils import embeddings as emb_utils
@@ -133,8 +135,11 @@ def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_l
 # Auto-select the gather-free hypercube format when the padded node space
 # [alphabet^n] stays within this multiple of the real vocabulary.
 _HYPERCUBE_MAX_RATIO = 4.0
-# Largest dense Aᵀ the non-hypercube levels may take (one of three matrices).
-_DENSE_MAX_BYTES = 2 << 30
+
+
+def _launch_counts() -> Dict[str, Dict[str, int]]:
+    """Launches so far of every kernel, per direction (K1/K2 and ELL)."""
+    return {**hyper_kernels.launch_counts(), **ell_kernels.launch_counts()}
 
 
 class HierarchicalTrainer:
@@ -154,8 +159,9 @@ class HierarchicalTrainer:
         self.gcn = self.config.gcn
         self.device = resolve_device(device)
         self.id_map: Dict[str, str] = {}
-        # Per level: route, losses, epochs, seconds and K1/K2 launches.
+        # Per level: route, losses, epochs, seconds and kernel launches.
         self.level_stats: Dict[int, dict] = {}
+        self.pool_seconds = 0.0
 
     # ------------------------------------------------------------------
 
@@ -218,10 +224,13 @@ class HierarchicalTrainer:
         logits = 3 * n_hyper * num_classes * 4
         return param_b, opt_b, saves + grads + workspace + logits
 
-    def _level_plan(self, graph: NgramGraph, feat_dim: int) -> int:
+    def _level_plan(self, graph: NgramGraph, feat_dim: int,
+                    num_classes: Optional[int] = None) -> int:
         """Tier 0 of the JAX package's plan (trainer.py:1455-1595): float32
-        compute, float32 node parameters, no remat, Adam.  Returns the device
-        bytes left for the level's propagation operators.  Raises
+        compute, float32 node parameters, no remat, Adam.  ``num_classes``
+        sizes the logits (default: one class per node, the next_node task's
+        count).  Returns the device bytes left for the level's propagation
+        operators.  Raises
         NotImplementedError when tier 0 does not fit the device or a knob asks
         for another tier: tiers 1-4 wait (ROADMAP Queue 1, item 6)."""
         gcn = self.gcn
@@ -238,7 +247,8 @@ class HierarchicalTrainer:
         n_hyper = int(alpha) ** graph.n if alpha else graph.num_nodes
         n_nodes = max(n_hyper, graph.num_nodes)
         chip = self._device_memory()
-        pb, ob, db = self._residency(n_nodes, feat_dim, graph.num_nodes)
+        classes = graph.num_nodes if num_classes is None else num_classes
+        pb, ob, db = self._residency(n_nodes, feat_dim, classes)
         if pb + ob + db + self._PLAN_SLACK + self._MIN_BANK > chip:
             raise NotImplementedError(
                 f"level n={graph.n}: tier 0 needs {(pb + ob + db) / 2**30:.1f} GB for "
@@ -248,31 +258,29 @@ class HierarchicalTrainer:
         budget = max(self._MIN_BANK, chip - pb - ob - db - self._PLAN_SLACK)
         return int(budget)
 
-    def _to_device_graph(self, graph: NgramGraph, bank_budget: int) -> DeviceGraph:
-        """The level's propagation operators: hypercube when the padded space
-        is dense enough (trainer.py:1612-1625), else dense."""
-        mode = self.gcn.spmm_mode
-        if mode not in ("auto", "hypercube", "dense"):
-            raise NotImplementedError(
-                f"gcn.spmm_mode={mode!r} is not ported yet (ELL/COO/block: ROADMAP Queue 1)"
-            )
+    def _to_device_graph(self, graph: NgramGraph, bank_budget: int,
+                         feat_dim: int = 128) -> DeviceGraph:
+        """The level's propagation operators (trainer.py:1602-1633):
+        "pallas" means "ell"; under "auto" and "hypercube" the hypercube is
+        tried at n >= 2 ("auto": only while alpha^n <= 4x the vocabulary),
+        and where it is not taken or cannot be built (auto only) the format
+        is ``graph.to_device(mode="auto", feat_dim=...)``'s choice."""
+        mode = self.gcn.spmm_mode if self.gcn.spmm_mode != "pallas" else "ell"
         if graph.n >= 2 and graph.num_nodes and mode in ("auto", "hypercube"):
-            _, alpha = vocab_char_codes(graph.vocab)
-            n_hyper = alpha**graph.n
-            if mode == "hypercube" or 0 < n_hyper <= _HYPERCUBE_MAX_RATIO * graph.num_nodes:
+            want = mode == "hypercube"
+            if not want:
+                _, alpha = vocab_char_codes(graph.vocab)
+                want = 0 < alpha**graph.n <= _HYPERCUBE_MAX_RATIO * graph.num_nodes
+            if want:
                 try:
-                    return graph.to_device(mode="hypercube", device=self.device,
-                                           hbm_budget=bank_budget)
+                    return graph.to_device(mode="hypercube", feat_dim=feat_dim,
+                                           device=self.device, hbm_budget=bank_budget)
                 except BlockStructureError as exc:
                     if mode == "hypercube":
                         raise
-                    logger.info("hypercube format unavailable (%s); using dense", exc)
-        if 3 * 4 * graph.num_nodes**2 > _DENSE_MAX_BYTES:
-            raise NotImplementedError(
-                f"level n={graph.n}: {graph.num_nodes} nodes need a sparse format "
-                "(ELL/COO/block), not ported yet (ROADMAP Queue 1, item 4)"
-            )
-        return graph.to_device(mode="dense", device=self.device)
+                    logger.info("hypercube format unavailable (%s); falling back", exc)
+        return graph.to_device(mode="auto" if mode == "hypercube" else mode, feat_dim=feat_dim,
+                               device=self.device)
 
     # ------------------------------------------------------------------
 
@@ -285,7 +293,10 @@ class HierarchicalTrainer:
         n_val = graph.n
         feat_dim = x_np.shape[1]
         layer_dims = tuple([feat_dim] + list(gcn.hidden_layer_dims))
-        full_graph = self._to_device_graph(graph, self._level_plan(graph, feat_dim))
+        budget = self._level_plan(graph, feat_dim, num_classes)
+        t_ops = time.monotonic()
+        full_graph = self._to_device_graph(graph, budget, feat_dim)
+        operator_seconds = time.monotonic() - t_ops
         node_map = None if full_graph.node_map is None else full_graph.node_map.cpu().numpy()
         total_nodes = full_graph.num_nodes
 
@@ -317,6 +328,7 @@ class HierarchicalTrainer:
             max_pe_len=gcn.max_pe_len,
             dropout=gcn.dropout_rate,
             use_vector_coeffs=gcn.use_vector_coeffs,
+            use_pallas=gcn.spmm_mode == "pallas",
         )
         init_gen = torch.Generator(device=dev).manual_seed(self.config.random_state + n_val)
         params = init_directgcn_params(init_gen, model_cfg, device=dev)
@@ -340,7 +352,7 @@ class HierarchicalTrainer:
         y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
         mask = torch.from_numpy(pad_nodes(np.ones(graph.num_nodes, dtype=np.float32))).to(dev)
 
-        launches0 = hyper_kernels.launch_counts()
+        launches0 = _launch_counts()
         losses = []
         t0 = time.monotonic()
         for epoch in range(1, gcn.epochs_per_level + 1):
@@ -353,12 +365,13 @@ class HierarchicalTrainer:
                 logger.info("early stop at epoch %d (best %.5f)", epoch, stopper.best_loss)
                 break
         seconds = time.monotonic() - t0
-        launches1 = hyper_kernels.launch_counts()
+        launches1 = _launch_counts()
         logger.info("n=%d full-batch training on %s (%s): %d epochs in %.2fs (final loss %.5f)",
                     n_val, dev, full_graph.route, len(losses), seconds,
                     losses[-1] if losses else float("nan"))
 
         # Eval-mode embeddings on the full graph (reference: models_utils.py:264-273).
+        t_eval = time.monotonic()
         with torch.no_grad():
             _, embeds = directgcn_apply(params, full_graph,
                                         torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev),
@@ -366,13 +379,16 @@ class HierarchicalTrainer:
         embeds = embeds.cpu().numpy()
         if node_map is not None:
             embeds = embeds[node_map]
+        eval_seconds = time.monotonic() - t_eval
         self.level_stats[n_val] = {
             "route": full_graph.route,
             "nodes": graph.num_nodes,
             "device_nodes": total_nodes,
             "epochs": len(losses),
             "losses": losses,
+            "operator_seconds": operator_seconds,  # host build + copy of the operators
             "train_seconds": seconds,
+            "eval_seconds": eval_seconds,  # eval pass and copy of the embeddings to the host
             "launches": {k: {d: launches1[k][d] - launches0[k][d] for d in launches1[k]}
                          for k in launches1},
         }
@@ -420,6 +436,7 @@ class HierarchicalTrainer:
                 logger.info("resumed n=%d from checkpoint (%s)", n_val, ckpt_path)
                 continue
 
+            t_level = time.monotonic()
             task = self.gcn.task_types_per_level.get(n_val, self.gcn.default_task_type)
             logger.info("=== level n=%d: %d nodes, task=%s ===", n_val, graph.num_nodes, task)
             prev_vocab = level_vocab.get(n_val - 1)
@@ -433,6 +450,8 @@ class HierarchicalTrainer:
             _, embeds, _, _ = self.train_level(graph, x, y, num_classes)
             level_embeds[n_val] = embeds
             np.savez_compressed(ckpt_path, embeddings=embeds)
+            # Features, labels, operators, training, eval pass and checkpoint.
+            self.level_stats[n_val]["level_seconds"] = time.monotonic() - t_level
 
         if n_max not in level_embeds or level_embeds[n_max].size == 0:
             logger.error("final level n=%d embeddings missing; cannot pool", n_max)
@@ -440,11 +459,13 @@ class HierarchicalTrainer:
 
         # Pool n-gram embeddings to proteins and rename ids
         # (reference: protgram_directgcn_trainer.py:387-421).
+        t_pool = time.monotonic()
         sequences = list(parse_fasta(fasta_path))
         pooled = emb_utils.pool_ngram_embeddings_for_proteins(
             sequences, n_max, level_vocab[n_max], level_embeds[n_max]
         )
         if self.id_map:
             pooled = {self.id_map.get(k, k): v for k, v in pooled.items()}
+        self.pool_seconds = time.monotonic() - t_pool
         logger.info("pooled n=%d embeddings for %d proteins", n_max, len(pooled))
         return pooled

@@ -111,11 +111,20 @@ def test_next_node_labels_match(fasta, level):
     np.testing.assert_array_equal(yt, yj)
 
 
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("k_hops", [0, 3])
+def test_closest_aa_labels_match(fasta, level, k_hops):
+    jg, tg = _both_graphs(fasta)
+    yj, cj = j_labels.closest_aa_labels(jg[level - 1], k_hops, seed=7)
+    yt, ct = t_labels.generate_labels(tg[level - 1], "closest_aa", k_hops, seed=7)
+    assert ct == cj == k_hops + 1
+    np.testing.assert_array_equal(yt, yj)
+
+
 def test_unported_label_tasks_raise(toy_fasta):
     _, tg = _both_graphs(toy_fasta)
-    for task in ("community", "closest_aa"):
-        with pytest.raises(NotImplementedError):
-            t_labels.generate_labels(tg[1], task)
+    with pytest.raises(NotImplementedError):
+        t_labels.generate_labels(tg[1], "community")
 
 
 @pytest.mark.parametrize("n_val", [1, 2, 3])

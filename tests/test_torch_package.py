@@ -85,6 +85,20 @@ def test_convert_defaults_to_the_card(monkeypatch):
     assert convert.params_from_jax(tree, device="cpu")["w"].device == torch.device("cpu")
 
 
+def test_ell_from_jax_defaults_to_the_card(monkeypatch):
+    import numpy as np
+
+    from protgram_directgcn_torch import convert
+    from protgram_directgcn_torch.ops import spmm
+
+    adj = spmm.build_ell(np.array([0, 1]), np.array([1, 0]), np.ones(2, np.float32), 2,
+                         device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.ell_from_jax(adj)
+    assert convert.ell_from_jax(adj, device="cpu").idx.device == torch.device("cpu")
+
+
 def test_kernel_wrappers_never_fall_back_off_cpu():
     x = torch.zeros(3, 4, 5, device="meta")
     w = torch.zeros(3, 4, 3, device="meta")

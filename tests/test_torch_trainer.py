@@ -49,19 +49,22 @@ def _leaves(tree, path=()):
     return [(path, tree)]
 
 
-@pytest.mark.parametrize("kind", ["dense", "hypercube"])
+@pytest.mark.parametrize("kind", ["dense", "hypercube", "ell"])
 @pytest.mark.parametrize("l2_lambda,wd", [(1e-3, 0.0), (0.0, 1e-2)])
 def test_three_train_steps_match(graphs, kind, l2_lambda, wd):
+    """"ell": the port under spmm_mode="pallas" (ELL operators through the
+    kernels' entry points) against the JAX package under spmm_mode="ell"."""
     jg, tg = graphs
     level = 1 if kind == "dense" else 3
     j_dev = jg[level - 1].to_device(mode=kind)
-    t_dev = tg[level - 1].to_device(mode=kind, device="cpu")
+    t_dev = tg[level - 1].to_device(mode="pallas" if kind == "ell" else kind, device="cpu")
     n, real = t_dev.num_nodes, tg[level - 1].num_nodes
     dims = (10, 8, 6)
     common = dict(layer_dims=dims, num_nodes=n, num_classes=real, n_gram_len=level,
                   one_gram_dim=dims[0] if level == 1 else 0, max_pe_len=8,
                   dropout=0.0, decoder_dropout=0.0)
-    jcfg, tcfg = j_model.DirectGCNConfig(**common), t_model.DirectGCNConfig(**common)
+    jcfg = j_model.DirectGCNConfig(**common)
+    tcfg = t_model.DirectGCNConfig(**common, use_pallas=kind == "ell")
     rng = np.random.default_rng(level)
     x = rng.normal(size=(n, dims[0])).astype(np.float32)
     y = np.zeros(n, np.int64)
@@ -129,9 +132,9 @@ def test_level_routes_and_plan(graphs):
     assert tt._to_device_graph(tg[2], plan).route == "dense"
     tt.gcn.spmm_mode = "hypercube"
     assert tt._to_device_graph(tg[2], plan).route == "hypercube"
-    tt.gcn.spmm_mode = "ell"
-    with pytest.raises(NotImplementedError):
-        tt._to_device_graph(tg[2], plan)
+    for mode in ("ell", "pallas"):  # "pallas" builds ELL operators (trainer.py:1610)
+        tt.gcn.spmm_mode = mode
+        assert [tt._to_device_graph(g, plan).route for g in tg] == ["ell"] * 3
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -152,6 +155,20 @@ def test_level_plan_raises_when_tier0_does_not_fit(graphs):
     tt._hbm_override = 1 << 30
     with pytest.raises(NotImplementedError, match="tier 0"):
         tt._level_plan(tg[2], 16)
+
+
+def test_level_plan_sizes_the_logits_by_the_task(graphs):
+    """The logits take num_classes columns: one per node under next_node
+    (the default), k + 1 = 4 under closest_aa."""
+    _, tg = graphs
+    tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
+    g3 = tg[2]
+    _, alpha = t_trainer.vocab_char_codes(g3.vocab)
+    need = sum(tt._residency(alpha**3, 16, 4)) + tt._PLAN_SLACK + tt._MIN_BANK
+    tt._hbm_override = need
+    assert tt._level_plan(g3, 16, num_classes=4) == tt._MIN_BANK
+    with pytest.raises(NotImplementedError, match="tier 0"):
+        tt._level_plan(g3, 16)
 
 
 def _small_cfg(tmp_path, fasta):
@@ -185,6 +202,63 @@ def test_run_end_to_end_on_cpu(tmp_path):
     assert again.level_stats == {}
     for k in pooled:
         np.testing.assert_array_equal(pooled2[k], pooled[k])
+
+
+def test_run_ell_path_on_cpu(tmp_path):
+    """The ELL path end to end: spmm_mode="pallas" at n = 1..4, cluster
+    training off, closest_aa labels at n = 4 (its default task, Louvain
+    communities, is not ported)."""
+    fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=40, lo=40, hi=120)
+    cfg = _small_cfg(tmp_path, fasta)
+    cfg.apply_overrides({"graph_builder.ngram_max_n": 4, "gcn.spmm_mode": "pallas",
+                         "gcn.use_cluster_training": False,
+                         "gcn.default_task_type": "closest_aa"})
+    TBuilder(cfg).run()
+    tt = t_trainer.HierarchicalTrainer(cfg, device="cpu")
+    pooled = tt.run()
+    assert len(pooled) == 40
+    vecs = np.stack(list(pooled.values()))
+    assert vecs.shape == (40, 8) and np.isfinite(vecs).all()
+    assert [tt.level_stats[n]["route"] for n in (1, 2, 3, 4)] == ["ell"] * 4
+    for n in (1, 2, 3, 4):
+        st = tt.level_stats[n]
+        assert st["epochs"] == 3 and np.isfinite(st["losses"]).all()
+        assert st["device_nodes"] == st["nodes"]  # no padded node space off the hypercube
+        # CPU tensors take the plain versions: no kernel launch is counted.
+        assert all(v == 0 for per_dir in st["launches"].values() for v in per_dir.values())
+
+
+@pytest.mark.parametrize("feat_dim", [4, 64, 256])
+@pytest.mark.parametrize("level", [2, 3])
+def test_hypercube_failure_falls_back_like_jax(tmp_path, monkeypatch, level, feat_dim):
+    """When the hypercube cannot be built, both trainers fall back to
+    ``graph.to_device(mode="auto", feat_dim=...)`` (trainer.py:1626-1633):
+    the port takes the JAX package's format, or raises where that is the
+    block format, which is not ported."""
+    from protgram_directgcn_torch.ops import hypercube as t_hyper
+    from protgram_directgcn_tpu.ops import block as j_block
+    from protgram_directgcn_tpu.ops import hypercube as j_hyper
+
+    def fail_t(*a, **k):
+        raise t_trainer.BlockStructureError("forced")
+
+    def fail_j(*a, **k):
+        raise j_block.BlockStructureError("forced")
+
+    monkeypatch.setattr(t_hyper, "build_hypercube", fail_t)
+    monkeypatch.setattr(j_hyper, "build_hypercube", fail_j)
+    fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=80, lo=40, hi=120)
+    seqs = list(parse_fasta(fasta))
+    jgraph = JBuilder(n_max=level).build_from_sequences(seqs)[level - 1]
+    tgraph = TBuilder(n_max=level).build_from_sequences(seqs)[level - 1]
+    want = type(j_trainer.HierarchicalTrainer(JConfig())._to_device_graph(jgraph, feat_dim).p_in)
+    tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
+    plan = tt._level_plan(tgraph, feat_dim)
+    if want.__name__ == "BlockNgramAdj":
+        with pytest.raises(NotImplementedError, match="block"):
+            tt._to_device_graph(tgraph, plan, feat_dim)
+    else:
+        assert type(tt._to_device_graph(tgraph, plan, feat_dim).p_in).__name__ == want.__name__
 
 
 def test_cli_graph_and_gcn_on_cpu(tmp_path):
