@@ -6,8 +6,8 @@
 Phases, each printing one JSON line as it ends:
 
 0. device: the card's name and power limit (as nvidia-smi prints them), and
-   the nvcc builds of csrc/hyper.cu (K1/K2) and csrc/ell.cu (the ELL
-   kernels), started together, with their times;
+   the nvcc builds of csrc/hyper.cu (K1/K2), csrc/ell.cu (the ELL kernels)
+   and csrc/retile.cu (pack/unpack), started together, with their times;
 1. kernels: K1 and K2, forward and the bank-swapped backward, held against
    their plain PyTorch versions at the main path's shapes (A=21, G=441 and
    21, F=256/128/64, float32 and bfloat16) and at the 5-gram hypercube
@@ -36,7 +36,26 @@ Phases, each printing one JSON line as it ends:
    f32, forward and the transpose-orientation backward, held against their
    plain versions and timed like K1/K2, beside one ``torch.sparse.mm`` on a
    CSR copy of the operator;
-6. ell reference: phase 3 on ELL operators through the ELL kernels.
+6. ell reference: phase 3 on ELL operators through the ELL kernels;
+7. tier reference: phase 3 at memory tiers 1, 2 and 3 (remat; bf16 compute
+   and node tables; per-path remat with the packed carry, so pack and
+   unpack run on the card), card against the port's CPU path;
+8. retile kernels: pack and unpack at the 5-gram tier-3 carry (A = 21,
+   G = 194,481 padded to 194,482, f = 64), float32 and bfloat16, the
+   exact-width and the 128-padded pack input, forward and the autograd
+   backward, held bit for bit against their plain versions; timed like
+   K1/K2, beside one PyTorch call of the same function;
+9. tier path: the entry point with ``graph_builder.ngram_max_n=5``, dims
+   [256, 128, 64], ``gcn.default_task_type=closest_aa`` and the plan's
+   device budget pinned to 32 GiB (``HierarchicalTrainer._hbm_override``),
+   at which the plan keeps n = 1..4 at tier 0 and puts the 5-gram level
+   (4,084,101 hypercube nodes) at tier 3; each level's plan and peak
+   device allocation, and K1/K2/pack/unpack launches in the n = 5 level's
+   training;
+10. tier plan from free memory: the 5-gram level trained again through
+   ``HierarchicalTrainer.train_level`` with no pin, at the tier the plan
+   picks from the card's real free memory; its plan, each tier's residency
+   estimate and the measured peak beside the tier-3 peak of phase 9.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -63,17 +82,27 @@ BF16_REL_TO_MAX = 0.05  # max |err| <= 0.05 * max |ref| (tests/test_hypercube.py
 MAIN_SHAPES = [(21, g, f) for g in (441, 21) for f in (256, 128, 64)]
 LARGE_SHAPE = (21, 194_481, 128)
 ELL_WIDTHS = (64, 128, 256)
+RETILE_CARRY = (21, 194_481, 64)  # A, G, f: the 5-gram level's last layer at [256, 128, 64]
+TIER_N = 5
+TIER_DIMS = (256, 128, 64)
+TIER_PIN = 32 << 30  # n = 1..4 fit tier 0 and the 5-gram level tier 3 (PERF.md)
+TIER_CLASSES = 4  # closest_aa with closest_aa_k_hops = 3
+BF16_GRAD_NORM_REL = 0.25  # tests/test_torch_tiers.py
 SOURCES = {
     "hyper_k1": "protgram_directgcn_torch/csrc/hyper.cu",
     "hyper_k2": "protgram_directgcn_torch/csrc/hyper.cu",
     "ell_resident": "protgram_directgcn_torch/csrc/ell.cu",
     "ell_hbm": "protgram_directgcn_torch/csrc/ell.cu",
+    "retile_unpack": "protgram_directgcn_torch/csrc/retile.cu",
+    "retile_pack": "protgram_directgcn_torch/csrc/retile.cu",
 }
 REPLACES = {
     "hyper_k1": "protgram_directgcn_tpu/ops/pallas_hyper.py:217",
     "hyper_k2": "protgram_directgcn_tpu/ops/pallas_hyper.py:245",
     "ell_resident": "protgram_directgcn_tpu/ops/pallas_spmm.py:72",
     "ell_hbm": "protgram_directgcn_tpu/ops/pallas_spmm.py:204",
+    "retile_unpack": "protgram_directgcn_tpu/ops/pallas_retile.py:78",
+    "retile_pack": "protgram_directgcn_tpu/ops/pallas_retile.py:109",
 }
 
 
@@ -499,13 +528,295 @@ def check_reference(torch, ek, workdir: str, mode: str):
 
 
 # -----------------------------------------------------------------------------
+# Phase 7: tier reference on a small input
+# -----------------------------------------------------------------------------
 
 
-def _kernels_line(records, counts, ell_records, ell_counts):
+def _tree_to(torch, tree, dev):
+    """A parameter tree copied to ``dev``, each leaf keeping its type."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_to(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(torch, v, dev) for v in tree]
+    return tree.detach().clone().to(dev)
+
+
+def check_tier_reference(torch, rt, workdir: str):
+    """The model's outputs and gradients at tiers 1-3 on the card against
+    the port's CPU path (which tests/test_torch_tiers.py holds against the
+    JAX package), on the small n = 3 hypercube graph of phase 3.  Tier 1
+    (float32): rtol 1e-4, atol 1e-5 * max|leaf| (phase 3's tolerance).
+    Tiers 2-3 (bf16): outputs within 5% of max|ref|; each gradient leaf
+    finite, of its parameter's type and within 25% of the reference's norm
+    (the CPU tests' bf16 rule), with the objective on the real nodes."""
+    import numpy as np
+
+    from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
+    from protgram_directgcn_torch.models import directgcn
+    from protgram_directgcn_torch.pipeline.trainer import TIER_LEVERS, _node_params_to_rg
+    from protgram_directgcn_torch.utils.io import parse_fasta
+
+    fasta = os.path.join(workdir, "small_tiers.fasta")
+    write_fasta(fasta, 300, seed=7, lo=20, hi=200)
+    graph = NgramGraphBuilder(n_max=3).build_from_sequences(list(parse_fasta(fasta)))[2]
+    result = {}
+    for tier in (1, 2, 3):
+        cd, nd, rm, _, rp = TIER_LEVERS[tier]
+        rt.reset_launches()
+        dtype = getattr(torch, cd)
+        outs, params_cpu = {}, None
+        for dev in (DEVICE, "cpu"):
+            dg = graph.to_device(mode="hypercube", dtype=dtype, device=dev)
+            cfg = directgcn.DirectGCNConfig(
+                layer_dims=(32, 64, 32, 16), num_nodes=dg.num_nodes, num_classes=40,
+                n_gram_len=3, dropout=0.0, decoder_dropout=0.0, compute_dtype=cd,
+                node_param_dtype=nd, remat=rm, remat_paths=rp)
+            if params_cpu is None:
+                params_cpu = _node_params_to_rg(directgcn.init_directgcn_params(
+                    torch.Generator().manual_seed(3), cfg, "cpu"), dg)
+            params = _tree_to(torch, params_cpu, dev)
+            for p in directgcn.param_leaves(params):
+                p.requires_grad_(True)
+            rng = np.random.default_rng(5)
+            real = np.zeros((dg.num_nodes, 1), np.float32)
+            real[dg.node_map.cpu().numpy()] = 1.0
+            x = torch.from_numpy(rng.normal(size=(dg.num_nodes, 32)).astype(np.float32)).to(dev)
+            r = torch.from_numpy(rng.normal(size=(dg.num_nodes, 40)).astype(np.float32)
+                                 * real).to(dev)
+            r_emb = torch.from_numpy(rng.normal(size=(dg.num_nodes, 16)).astype(np.float32)
+                                     * real).to(dev)
+            ls, emb = directgcn.directgcn_apply(params, dg, x, cfg, train=True)
+            (torch.sum(ls.float() * r) + torch.sum(emb * r_emb)).backward()
+            outs[dev] = [ls.detach().cpu(), emb.detach().cpu()] + [
+                p.grad.cpu() for p in directgcn.param_leaves(params)]
+        counts = rt.launch_counts()
+        if rp and not all(counts[k][d] for k in counts for d in ("fwd", "bwd")):
+            fail(f"tier reference: tier {tier} did not run pack and unpack on the card ({counts})")
+        worst = 0.0
+        for i, (got, ref) in enumerate(zip(outs[DEVICE], outs["cpu"])):
+            if got.dtype != ref.dtype or not bool(torch.isfinite(got.float()).all()):
+                fail(f"tier reference: tier {tier} tensor {i}: {got.dtype} on the card, "
+                     f"{ref.dtype} on the CPU, or not finite")
+            got, ref = got.float(), ref.float()
+            err = (got - ref).abs()
+            if cd == "float32":
+                ok = bool((err <= 1e-5 * max(1.0, float(ref.abs().max())) + 1e-4 * ref.abs()).all())
+                rel = float(err.max())
+            elif i < 2:
+                rel = float(err.max()) / max(float(ref.abs().max()), 1e-30)
+                ok = rel <= BF16_REL_TO_MAX
+            else:
+                rel = float(torch.linalg.vector_norm(got - ref)) / max(
+                    float(torch.linalg.vector_norm(ref)), 1e-30)
+                ok = rel <= BF16_GRAD_NORM_REL
+            if not ok:
+                fail(f"tier reference: tier {tier} tensor {i}: card and CPU disagree ({rel})")
+            worst = max(worst, rel)
+        result[tier] = {"compute": cd, "node_params": nd, "remat": rm, "remat_paths": rp,
+                        "tensors_compared": len(outs["cpu"]), "worst": worst,
+                        "retile_launches": counts}
+    emit("tier_reference", nodes=graph.num_nodes, device_nodes=int(outs["cpu"][0].shape[0]),
+         worst_is="tier 1: max abs err; tiers 2-3: the larger of the outputs' max err / "
+                  "max|ref| and the gradients' norm of err / norm of ref",
+         tiers=result)
+
+
+# -----------------------------------------------------------------------------
+# Phase 8: retile kernels
+# -----------------------------------------------------------------------------
+
+
+def _retile_bound(kind: str, a: int, gp: int, f: int, itemsize: int):
+    """Bytes only (a copy does no arithmetic).  unpack reads the packed
+    [A, GP, 128] and writes [A, GP*k, 128]; pack needs the f lanes of each
+    of the A*GP*k input rows, whatever the input's row width, and writes
+    [A, GP, 128]."""
+    k = 128 // f
+    if kind == "unpack":
+        nbytes = (a * gp * 128 + a * gp * k * 128) * itemsize
+    else:
+        nbytes = (a * gp * k * f + a * gp * 128) * itemsize
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_retile_kernels(torch, rt):
+    """Pack and unpack at the 5-gram tier-3 carry, held bit for bit against
+    their plain versions (forward, and the autograd backward through the
+    other kernel), and timed."""
+    import torch.nn.functional as F
+
+    a, g, f = RETILE_CARRY
+    k = 128 // f
+    g8 = -(-g // k) * k
+    gp = g8 // k
+    records = []
+    for dt in ("bfloat16", "float32"):
+        tdt = getattr(torch, dt)
+        gen = torch.Generator(device=DEVICE).manual_seed(55)
+
+        def rand(*shape):
+            return torch.randn(*shape, device=DEVICE, generator=gen).to(tdt)
+
+        packed, exact, padded = rand(a, gp, 128), rand(a, g8, f), rand(a, g8, 128)
+        cot_u, cot_p = rand(a, g8, 128), rand(a, gp, 128)
+        checks = {
+            "unpack": (rt.unpack(packed, f), rt.unpack_plain(packed, f)),
+            "pack_exact": (rt.pack(exact, f), rt.pack_plain(exact, f)),
+            "pack_padded": (rt.pack(padded, f), rt.pack_plain(padded, f)),
+        }
+        xu = packed.clone().requires_grad_(True)
+        yu = rt.unpack_pad_rg(xu, f)
+        yu.backward(cot_u)
+        checks["unpack_autograd_fwd"] = (yu.detach(), checks["unpack"][1])
+        checks["unpack_autograd_bwd"] = (xu.grad, rt.pack_plain(cot_u, f))
+        for form, src in (("exact", exact), ("padded", padded)):
+            xp = src.clone().requires_grad_(True)
+            yp = rt.pack_rg(xp, f)
+            yp.backward(cot_p)
+            checks[f"pack_{form}_autograd_fwd"] = (yp.detach(), checks[f"pack_{form}"][1])
+            checks[f"pack_{form}_autograd_bwd"] = (
+                xp.grad, rt.unpack_plain(cot_p, f)[..., :src.shape[-1]])
+        torch.cuda.synchronize()
+        rec = {"carry": [a, g, f], "g_padded": g8, "packed_rows": gp, "dtype": dt}
+        for name, (got, ref) in checks.items():
+            rec[f"{name}_max_abs_err"] = float((got.float() - ref.float()).abs().max())
+            if got.shape != ref.shape or not bool(torch.equal(got, ref)):
+                fail(f"retile {name} differs from its plain version ({dt}, "
+                     f"max abs err {rec[f'{name}_max_abs_err']})")
+        del checks, xu, yu, xp, yp
+        iters = 20
+        fns = {
+            "unpack": lambda: rt.unpack(packed, f),
+            "unpack_plain": lambda: rt.unpack_plain(packed, f),
+            "unpack_library": lambda: F.pad(packed.view(a, g8, f), (0, 128 - f)),
+            "pack_padded": lambda: rt.pack(padded, f),
+            "pack_padded_plain": lambda: rt.pack_plain(padded, f),
+            "pack_padded_library": lambda: padded[..., :f].reshape(a, gp, 128),
+            "pack_exact": lambda: rt.pack(exact, f),
+            "pack_exact_plain": lambda: rt.pack_plain(exact, f),
+        }
+        for key, fn in fns.items():
+            rec[f"{key}_ms"] = _device_ms(torch, fn, iters)
+        for key in ("unpack", "pack_padded", "pack_exact"):
+            rec[f"{key}_wrapper_ms"] = _wrapper_ms(torch, fns[key], iters)
+            rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = _retile_bound(
+                key.split("_")[0], a, gp, f, packed.element_size())
+        if not torch.equal(exact.view(a, gp, 128), rt.pack(exact, f)):
+            fail("retile: the exact-width pack is not the reshape view of its input")
+        emit("retile_kernels", **rec)
+        records.append(rec)
+        del packed, exact, padded, cot_u, cot_p, fns
+        torch.cuda.empty_cache()
+    return records
+
+
+# -----------------------------------------------------------------------------
+# Phase 9: tier path
+# -----------------------------------------------------------------------------
+
+
+def run_tier_path(torch, hk, rt, fasta: str, workdir: str):
+    """``--stages graph,gcn`` to n = TIER_N with the plan's budget pinned;
+    returns the K1/K2 and retile launch counts of the run, the run's config
+    and the n = TIER_N graph's path."""
+    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
+
+    dims = ",".join(str(d) for d in TIER_DIMS)
+    argv = ["--fasta", fasta, "--out", os.path.join(workdir, "tier_out"),
+            "--stages", "graph,gcn",
+            "--set", f"graph_builder.ngram_max_n={TIER_N}",
+            "--set", "gcn.default_task_type=closest_aa",
+            "--set", f"gcn.hidden_layer_dims=[{dims}]",
+            "--set", "gcn.epochs_per_level=3",
+            "--set", "gcn.run_sanity_check_ppi=false",
+            "--device", DEVICE]
+    HierarchicalTrainer._hbm_override = TIER_PIN
+    hk.reset_launches()
+    rt.reset_launches()
+    try:
+        result, seconds = _drive(torch, argv)
+    finally:
+        HierarchicalTrainer._hbm_override = None
+    counts = {**hk.launch_counts(), **rt.launch_counts()}
+
+    trainer = result["trainer"]
+    stats = trainer.level_stats
+    for n in range(1, TIER_N + 1):
+        if n not in stats:
+            fail(f"tier path: level n={n} did not train")
+        st = stats[n]
+        plan = st["plan"]
+        if not _finite(st["losses"]):
+            fail(f"tier path: level n={n} has non-finite losses {st['losses']}")
+        if n >= 2 and st["route"] != "hypercube":
+            fail(f"tier path: level n={n} took the {st['route']} route, not hypercube")
+        want = (3, "bfloat16", "bfloat16", True, True, True) if n == TIER_N else (
+            0, "float32", "float32", False, False, False)
+        got = tuple(plan[k] for k in ("tier", "compute_dtype", "node_param_dtype", "remat",
+                                      "remat_paths", "factored"))
+        if got != want:
+            fail(f"tier path: level n={n} planned {got}, expected {want}")
+        emit("tier_path_level", level=n, **st)
+    last = stats[TIER_N]
+    for k in ("k1", "k2", "pack", "unpack"):
+        for direction in ("fwd", "bwd"):
+            if last["launches"][k][direction] <= 0:
+                fail(f"tier path: level n={TIER_N}: {k} {direction} was never launched")
+    emit("tier_path", seconds=seconds, launches=counts, pin_bytes=TIER_PIN,
+         **_pooled(result, TIER_DIMS[-1]))
+
+    return counts, trainer.config, result["graphs"][TIER_N - 1], last["peak_device_bytes"]
+
+
+def run_free_memory_level(torch, config, graph_path: str, tier3_peak: int):
+    """The n = TIER_N level trained through ``train_level`` with the plan
+    from the card's real free memory (no pin), on seeded features of the
+    previous level's width and seeded labels of the tier path's class count
+    (memory does not depend on their values): its plan, each tier's
+    residency estimate and the measured peak."""
+    import numpy as np
+
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.ops.hypercube import vocab_char_codes
+    from protgram_directgcn_torch.pipeline.trainer import TIER_LEVERS, HierarchicalTrainer
+
+    graph = load_graph(graph_path)
+    trainer = HierarchicalTrainer(config, device=DEVICE)
+    budget = trainer._device_memory()
+    _, alpha = vocab_char_codes(graph.vocab)
+    n_hyper = max(alpha**TIER_N, graph.num_nodes)
+    estimates = {tier: sum(trainer._residency(n_hyper, TIER_DIMS[-1], TIER_CLASSES, *lv))
+                 for tier, lv in TIER_LEVERS.items()}
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((graph.num_nodes, TIER_DIMS[-1])).astype(np.float32)
+    y = rng.integers(0, TIER_CLASSES, graph.num_nodes)
+    t0 = time.monotonic()
+    trainer.train_level(graph, x, y, TIER_CLASSES)  # the returned tensors are dropped here
+    seconds = time.monotonic() - t0
+    st = trainer.level_stats[TIER_N]
+    if not _finite(st["losses"]) or st["route"] != "hypercube":
+        fail(f"free-memory level: route {st['route']}, losses {st['losses']}")
+    torch.cuda.empty_cache()
+    emit("tier_plan_free_memory", level=TIER_N, hypercube_nodes=n_hyper,
+         device_budget_bytes=budget, level_seconds=seconds, **st,
+         residency_estimate_bytes_by_tier=estimates,
+         slack_and_min_bank_bytes=trainer._PLAN_SLACK + trainer._MIN_BANK,
+         measured_peak_bytes_at_tier_3=tier3_peak)
+
+
+# -----------------------------------------------------------------------------
+
+
+def _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier_counts):
     """One entry per kernel.  K1/K2: their numbers at the main path's widest
     shape, the 5-gram shape's, and the worst error of each type over every
     shape.  ELL: their numbers at F = 256 on their level's operator, and
-    every F under ``by_f``."""
+    every F under ``by_f``.  Retile: their numbers in bf16 at the 5-gram
+    carry (pack: the 128-padded input, which has a one-call library
+    equivalent; the exact-width input under ``exact_width``), float32 under
+    ``by_dtype``, and their launches on the tier path."""
     main_rec = next(r for r in records if r["shape"] == [21, 441, 256] and r["dtype"] == "float32")
     large_rec = next(r for r in records
                      if r["shape"] == list(LARGE_SHAPE) and r["dtype"] == "bfloat16")
@@ -548,6 +859,31 @@ def _kernels_line(records, counts, ell_records, ell_counts):
             **{key: top[key] for key in timed}, "bound_by": top["bound_by"],
             "by_f": {str(r["f"]): {key: r[key] for key in timed + errs} for r in recs},
         })
+    library_calls = {"retile_unpack": "F.pad(t.view(A, GP*k, f), (0, 128 - f))",
+                     "retile_pack": "t[..., :f].reshape(A, GP, 128) (128-padded input)"}
+    for name, key in (("retile_unpack", "unpack"), ("retile_pack", "pack_padded")):
+        kernel = key.split("_")[0]
+        by_dtype = {}
+        for r in retile_records:
+            errs = [v for e, v in r.items() if e.startswith(kernel) and e.endswith("_max_abs_err")]
+            by_dtype[r["dtype"]] = {
+                "ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
+                "library_ms": r[f"{key}_library_ms"], "wrapper_ms": r[f"{key}_wrapper_ms"],
+                "bound_ms": r[f"{key}_bound_ms"], "max_abs_err": max(errs)}
+            if kernel == "pack":
+                by_dtype[r["dtype"]]["exact_width"] = {
+                    e: r[f"pack_exact_{e}"] for e in ("ms", "plain_ms", "wrapper_ms", "bound_ms")
+                } | {"library_ms": None}
+        top = by_dtype["bfloat16"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": tier_counts[kernel]["fwd"] + tier_counts[kernel]["bwd"],
+            "launches_fwd": tier_counts[kernel]["fwd"], "launches_bwd": tier_counts[kernel]["bwd"],
+            "launches_on": "tier path", "shape": retile_records[0]["carry"], "dtype": "bfloat16",
+            "tolerance": "exact (bitwise equal)", "max_abs_err": top["max_abs_err"],
+            **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "wrapper_ms", "bound_ms")},
+            "bound_by": "bytes", "library_call": library_calls[name], "by_dtype": by_dtype,
+        })
     return kernels
 
 
@@ -562,6 +898,7 @@ def main() -> int:
     from protgram_directgcn_torch.ops import ell_kernels as ek
     from protgram_directgcn_torch.ops import hyper_kernels as hk
     from protgram_directgcn_torch.ops import hypercube as hyper
+    from protgram_directgcn_torch.ops import retile as rt
     from protgram_directgcn_torch.utils.device import resolve_device
 
     resolve_device(DEVICE)
@@ -570,8 +907,9 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     t_build = time.monotonic()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        infos = dict(zip(("hyper", "ell"), pool.map(lambda build: build(), (hk.build, ek.build))))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        infos = dict(zip(("hyper", "ell", "retile"),
+                         pool.map(lambda build: build(), (hk.build, ek.build, rt.build))))
     build_wall = time.monotonic() - t_build
     ptxas = {name: [ln.strip() for ln in str(info["log"]).splitlines() if "registers" in ln]
              for name, info in infos.items()}
@@ -588,13 +926,20 @@ def main() -> int:
         emit("main_path_input", sequences=N_SEQS, residues=residues)
         counts = run_main_path(torch, hk, fasta, workdir)
         check_reference(torch, ek, workdir, "hypercube")
+        check_tier_reference(torch, rt, workdir)
         torch.cuda.empty_cache()
         ell_counts, graph_paths = run_ell_path(torch, ek, fasta, workdir)
         torch.cuda.empty_cache()
         ell_records = check_ell_kernels(torch, ek, graph_paths)
         check_reference(torch, ek, workdir, "ell")
+        torch.cuda.empty_cache()
+        retile_records = check_retile_kernels(torch, rt)
+        tier_counts, tier_config, graph_path, tier3_peak = run_tier_path(
+            torch, hk, rt, fasta, workdir)
+        torch.cuda.empty_cache()
+        run_free_memory_level(torch, tier_config, graph_path, tier3_peak)
 
-    kernels = _kernels_line(records, counts, ell_records, ell_counts)
+    kernels = _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier_counts)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,10 @@ Same field names and defaults as protgram_directgcn_tpu/config.py:89-190 for
 what this slice runs (paths, graph builder, GCN trainer), and the same dotted
 ``--set`` overrides.  ``GraphBuilderConfig`` and ``GCNConfig`` keep every
 field of the JAX package, so ``--set`` lines written for it apply here; the
-trainer raises where a setting asks for a path this slice does not have.
-The fields of cluster training, PCA/H5 export, the PPI sanity check and
-in-training checkpoints are read by nothing yet.
+trainer raises where a setting asks for a path this slice does not have
+(cluster training, whose batch fields are read by nothing yet).  Where
+``apply_pca``, ``run_sanity_check_ppi`` or ``checkpoint_every_epochs`` is
+set, the trainer logs that it does not act on it.
 """
 
 from __future__ import annotations

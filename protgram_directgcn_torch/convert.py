@@ -30,9 +30,10 @@ def params_from_jax(tree: Any, device: Union[str, torch.device] = "cuda") -> Any
     """``init_directgcn_params``'s pytree as the port's parameters: the same
     nested dicts and lists, by the names of directgcn.py:114-180 (``w_*``,
     ``b_*``, the gates ``c_in``/``c_out``/``c_directed``/``c_undirected``/
-    ``c_all``, ``constant``, ``res_projs``, ``decoder``, ``pe_table``).  A
-    constant stored rg ``[A, G, out]`` (the JAX trainer's hypercube levels)
-    comes back flat ``[A*G, out]``, the port's storage layout."""
+    ``c_all``, ``constant``, ``res_projs``, ``decoder``, ``pe_table``).
+    Each leaf keeps its shape and type: a constant stored rg ``[A, G, out]``
+    (both trainers' hypercube levels) stays rg, and bf16 node tables come
+    across bit for bit."""
     return _params(tree, resolve_device(device))
 
 
@@ -40,11 +41,7 @@ def _params(tree: Any, device: torch.device) -> Any:
     if tree is None:
         return None
     if isinstance(tree, dict):
-        out = {k: _params(v, device) for k, v in tree.items()}
-        const = out.get("constant")
-        if isinstance(const, torch.Tensor) and const.dim() == 3:
-            out["constant"] = const.reshape(-1, const.shape[-1])
-        return out
+        return {k: _params(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_params(v, device) for v in tree]
     return _tensor(tree, device)

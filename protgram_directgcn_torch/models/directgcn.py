@@ -1,6 +1,6 @@
 """DirectGCN: dual-path directed GCN with hierarchical gating.
 
-Port of protgram_directgcn_tpu/models/directgcn.py:36-298, 431-460, 584-687
+Port of protgram_directgcn_tpu/models/directgcn.py:36-298, 299-430, 431-687
 (reference: src/models/protgram_directgcn.py:20-222).  Parameters are a
 plain dict of tensors with the JAX package's names and layout (weights stored
 [in, out] and applied as ``x @ w``), so ``convert.params_from_jax`` maps one
@@ -11,29 +11,43 @@ one propagation per edge set (propagation is linear, so
 P(X·W_main) + P(X·W_shared) == P(X·(W_main + W_shared))), the per-path biases
 ``b_main + b_shared``, and the hierarchical gates and per-node constant.  On
 hypercube levels the carry stays in the kernels' rg layout [A, G, F] through
-every layer; per-node parameters are viewed [A, G, ·] to match.
+every layer; per-node parameters are viewed [A, G, ·] to match (a constant
+may also be stored rg, as the trainer does on those levels).
 
-The model is float32 throughout (tier 0 of the trainer's plan).  Not ported
-here: the bfloat16 compute and node-parameter tiers, the literal
-6-propagation layer (``fused=False``), remat, the per-path VJP, the packed
-sub-128 carry and the TPU 128-lane weight padding.
+The memory tiers of the trainer's plan set four fields of the config, with
+the JAX package's numerics: ``compute_dtype="bfloat16"`` runs projections,
+propagations, the residual, the inter-layer carry and the decoder in bf16
+(biases and residual weights cast to the carry type, softmax and the
+embedding norm in f32); ``node_param_dtype="bfloat16"`` stores the gates and
+constants in bf16; ``remat`` recomputes each layer and the decoder in the
+backward pass (``torch.utils.checkpoint``); ``remat_paths`` recomputes each
+of a layer's three gated paths on its own and, on an rg carry, packs a
+sub-128-wide layer output through the retile kernels (ops/retile.py).
+Dropout masks come from per-layer seeds drawn once per forward pass, so a
+recompute replays the forward's masks.  Not ported: the literal
+6-propagation layer (``fused=False``), the manual per-path VJP with its
+optimisation barriers (tier 4's staged step uses it) and the TPU's 128-lane
+weight padding.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from protgram_directgcn_torch.ops import retile
 from protgram_directgcn_torch.ops.hypercube import HypercubeAdj
-from protgram_directgcn_torch.ops.spmm import propagate3
+from protgram_directgcn_torch.ops.spmm import propagate, propagate3
 
 Params = Dict[str, Any]
 
 _GATES = ("c_in", "c_out", "c_directed", "c_undirected", "c_all")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -53,10 +67,17 @@ class DirectGCNConfig:
     leaky_relu_slope: float = 0.01
     decoder_hidden_floor: int = 1
     use_pallas: bool = False  # ELL operators run the CUDA ELL kernels (spmm.propagate)
+    remat: bool = False  # recompute each layer and the decoder in the backward
+    remat_paths: bool = False  # recompute per path; pack sub-128 rg carries
+    compute_dtype: str = "float32"  # or "bfloat16"
+    node_param_dtype: str = "float32"  # gates and constants; or "bfloat16"
 
     def __post_init__(self):
         if len(self.layer_dims) < 2:
             raise ValueError("layer_dims must contain at least input and output dims")
+        for name in ("compute_dtype", "node_param_dtype"):
+            if getattr(self, name) not in _DTYPES:
+                raise ValueError(f"{name} must be one of {sorted(_DTYPES)}")
 
 
 # ----------------------------------------------------------------------------
@@ -78,7 +99,8 @@ def _torch_linear_init(gen, in_dim, out_dim, device):
     return _uniform(gen, (in_dim, out_dim), limit, device), _uniform(gen, (out_dim,), limit, device)
 
 
-def _init_layer(gen, in_dim, out_dim, num_nodes, use_vector_coeffs, device) -> Params:
+def _init_layer(gen, in_dim, out_dim, num_nodes, use_vector_coeffs, device,
+                node_dtype) -> Params:
     p: Params = {
         name: _xavier_uniform(gen, (in_dim, out_dim), in_dim, out_dim, device)
         for name in ("w_main_in", "w_main_out", "w_und", "w_shared")
@@ -87,10 +109,11 @@ def _init_layer(gen, in_dim, out_dim, num_nodes, use_vector_coeffs, device) -> P
         p[name] = torch.zeros(out_dim, device=device)
     gate_shape = (num_nodes, 1) if (use_vector_coeffs and num_nodes > 0) else (1,)
     for name in _GATES:
-        p[name] = torch.ones(gate_shape, device=device)
-    # torch xavier on [N, out]: fan_in = out, fan_out = N (protgram_directgcn.py:90-91).
+        p[name] = torch.ones(gate_shape, device=device, dtype=node_dtype)
+    # torch xavier on [N, out]: fan_in = out, fan_out = N (protgram_directgcn.py:90-91),
+    # drawn in f32 and stored in the node dtype (directgcn.py:139-151).
     p["constant"] = (
-        _xavier_uniform(gen, (num_nodes, out_dim), out_dim, num_nodes, device)
+        _xavier_uniform(gen, (num_nodes, out_dim), out_dim, num_nodes, device).to(node_dtype)
         if num_nodes > 0 else None
     )
     return p
@@ -99,14 +122,17 @@ def _init_layer(gen, in_dim, out_dim, num_nodes, use_vector_coeffs, device) -> P
 def init_directgcn_params(gen: torch.Generator, cfg: DirectGCNConfig,
                           device="cuda") -> Params:
     """Parameters drawn from ``gen`` (a ``torch.Generator`` on ``device``)
-    with the reference's init distributions.  The draws differ from the JAX
-    package's: carry parameters across with ``convert.params_from_jax``."""
+    with the reference's init distributions; gates and constants in
+    ``cfg.node_param_dtype``.  The draws differ from the JAX package's:
+    carry parameters across with ``convert.params_from_jax``."""
     dims = cfg.layer_dims
+    node_dtype = _DTYPES[cfg.node_param_dtype]
     layers: List[Params] = []
     res_projs: List[Optional[Dict[str, torch.Tensor]]] = []
     for i in range(len(dims) - 1):
         layers.append(_init_layer(gen, dims[i], dims[i + 1], cfg.num_nodes,
-                                  cfg.use_vector_coeffs and cfg.num_nodes > 0, device))
+                                  cfg.use_vector_coeffs and cfg.num_nodes > 0, device,
+                                  node_dtype))
         if dims[i] != dims[i + 1]:
             w, b = _torch_linear_init(gen, dims[i], dims[i + 1], device)
             res_projs.append({"w": w, "b": b})
@@ -130,25 +156,72 @@ def init_directgcn_params(gen: torch.Generator, cfg: DirectGCNConfig,
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
     """Every tensor of a parameter tree, in a fixed order."""
-    out: List[torch.Tensor] = []
+    return [t for _, t in named_leaves(params)]
 
-    def walk(t):
+
+def named_leaves(params: Params) -> List[Tuple[str, torch.Tensor]]:
+    """(name of the innermost dict key, tensor) for every tensor of a
+    parameter tree, in :func:`param_leaves`' order."""
+    out: List[Tuple[str, torch.Tensor]] = []
+
+    def walk(t, name):
         if isinstance(t, torch.Tensor):
-            out.append(t)
+            out.append((name, t))
         elif isinstance(t, dict):
             for k in sorted(t):
-                walk(t[k])
+                walk(t[k], k)
         elif isinstance(t, (list, tuple)):
             for v in t:
-                walk(v)
+                walk(v, name)
 
-    walk(params)
+    walk(params, "")
     return out
+
+
+# ----------------------------------------------------------------------------
+# Carry packing (directgcn.py:476-508)
+# ----------------------------------------------------------------------------
+
+
+def pack_rg_carry(t: torch.Tensor, active: bool = True) -> torch.Tensor:
+    """Pack an rg carry ``[A, G, f]`` of a width f in ``retile.WIDTHS`` to
+    128-wide rows ``[A, ceil(G/k), 128]``, k = 128 / f, G zero-padded to a
+    multiple of k; other carries are returned as they are."""
+    if not active or t.dim() != 3 or t.shape[-1] not in retile.WIDTHS:
+        return t
+    a, g, f = t.shape
+    k = retile.LANES // f
+    gp = -(-g // k) * k
+    if gp != g:
+        t = F.pad(t, (0, 0, 0, gp - g))
+    return retile.pack_rg(t, f)
+
+
+def unpack_rg_carry(t: torch.Tensor, f: int, g_real: int) -> torch.Tensor:
+    """Inverse of :func:`pack_rg_carry` (no-op on an unpacked carry)."""
+    if t.dim() != 3 or t.shape[-1] == f:
+        return t
+    return retile.unpack_pad_rg(t, f)[:, :g_real, :f]
 
 
 # ----------------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------------
+
+
+def _maybe_checkpoint(active: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``active`` and
+    autograd is recording."""
+    if active and torch.is_grad_enabled():
+        # The dropout masks come from explicit seeds: no global RNG state to replay.
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _rg_view(lead, t):
+    """A flat per-node table ``[N, ·]`` viewed ``[A, G, ·]``; an rg table or
+    a scalar gate as it is."""
+    return t.reshape(tuple(lead) + tuple(t.shape[-1:])) if getattr(t, "dim", lambda: 0)() == 2 else t
 
 
 def _combine_paths(p: Params, x: torch.Tensor, ic, oc, uc) -> torch.Tensor:
@@ -157,56 +230,123 @@ def _combine_paths(p: Params, x: torch.Tensor, ic, oc, uc) -> torch.Tensor:
     c_in, c_out, c_dir, c_und, c_all = (p[n] for n in _GATES)
     const = p["constant"] if p["constant"] is not None else 0.0
     if x.dim() == 3:
-        # rg carry: per-node params follow the same [N, ·] -> [A, G, ·] view.
-        lead = tuple(x.shape[:2])
-
-        def rg(t):
-            return t.reshape(lead + tuple(t.shape[-1:])) if getattr(t, "dim", lambda: 0)() == 2 else t
-
-        c_in, c_out, c_dir, c_und, c_all, const = map(rg, (c_in, c_out, c_dir, c_und, c_all, const))
+        lead = x.shape[:2]
+        c_in, c_out, c_dir, c_und, c_all, const = (
+            _rg_view(lead, t) for t in (c_in, c_out, c_dir, c_und, c_all, const))
     directed = c_dir * (c_in * ic + c_out * oc)
     undirected = c_und * uc
     return c_all * (undirected + directed) + const
 
 
 def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig) -> torch.Tensor:
-    """One fused DirectGCN layer (reference forward: protgram_directgcn.py:93-135)."""
-    x_in = x @ (p["w_main_in"] + p["w_shared"])
-    x_out = x @ (p["w_main_out"] + p["w_shared"])
-    x_und = x @ (p["w_und"] + p["w_shared"])
+    """One fused DirectGCN layer (reference forward: protgram_directgcn.py:93-135;
+    JAX directgcn.py:206-296)."""
+    ct = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else x.dtype
+    xc = x.to(ct)
+    if x.dim() == 3 and cfg.remat_paths:
+        return _layer_paths_remat(p, graph, xc, cfg, ct)
+    x_in = xc @ (p["w_main_in"] + p["w_shared"]).to(ct)
+    x_out = xc @ (p["w_main_out"] + p["w_shared"]).to(ct)
+    x_und = xc @ (p["w_und"] + p["w_shared"]).to(ct)
     pi, po, pu = propagate3(graph, x_in, x_out, x_und, cfg.use_pallas)
-    ic = pi + (p["b_main_in"] + p["b_shared_in"])
-    oc = po + (p["b_main_out"] + p["b_shared_out"])
-    uc = pu + (p["b_und"] + p["b_shared_und"])
+    # The bias sums are cast to the compute type, so under bf16 the adds
+    # keep the propagated paths bf16 (directgcn.py:263-269).
+    ic = pi + (p["b_main_in"] + p["b_shared_in"]).to(ct)
+    oc = po + (p["b_main_out"] + p["b_shared_out"]).to(ct)
+    uc = pu + (p["b_und"] + p["b_shared_und"]).to(ct)
     return _combine_paths(p, x, ic, oc, uc)
 
 
-def _dropout(t: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+def _layer_paths_remat(p: Params, graph, xc: torch.Tensor, cfg: DirectGCNConfig,
+                       ct: torch.dtype) -> torch.Tensor:
+    """rg-layout layer with each gated path recomputed on its own
+    (directgcn.py:299-430):
+
+        out = (c_all·c_dir·c_in)·IC + (c_all·c_dir·c_out)·OC
+            + (c_all·c_und)·UC + const
+
+    The gate product is folded into each path's checkpoint, so the backward
+    needs one path's propagated output at a time for its gate gradient."""
+    lead = xc.shape[:2]
+    c_in, c_out, c_dir, c_und, c_all = (p[n] for n in _GATES)
+    gate_in = _rg_view(lead, c_dir * c_all * c_in)
+    gate_out = _rg_view(lead, c_dir * c_all * c_out)
+    gate_und = _rg_view(lead, c_und * c_all)
+    const = _rg_view(lead, p["constant"]) if p["constant"] is not None else 0.0
+
+    def path(adj):
+        def contrib(w, b, gate, xv):
+            y = propagate(adj, xv @ w.to(ct), cfg.use_pallas)
+            return gate.to(ct) * (y + b.to(ct))
+        return contrib
+
+    acc = _maybe_checkpoint(True, path(graph.p_in), p["w_main_in"] + p["w_shared"],
+                            p["b_main_in"] + p["b_shared_in"], gate_in, xc)
+    acc = acc + _maybe_checkpoint(True, path(graph.p_out), p["w_main_out"] + p["w_shared"],
+                                  p["b_main_out"] + p["b_shared_out"], gate_out, xc)
+    acc = acc + _maybe_checkpoint(True, path(graph.p_und), p["w_und"] + p["w_shared"],
+                                  p["b_und"] + p["b_shared_und"], gate_und, xc)
+    return acc + const
+
+
+def _dropout(t: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``seed``: the same seed gives
+    the same mask, so a recompute replays the forward's."""
     keep = 1.0 - rate
+    gen = torch.Generator(device=t.device).manual_seed(seed)
     mask = torch.rand(t.shape, generator=gen, device=t.device) < keep
     return torch.where(mask, t / keep, torch.zeros((), dtype=t.dtype, device=t.device))
 
 
+def dropout_seeds(gen: Optional[torch.Generator], count: int) -> List[Optional[int]]:
+    """One mask seed per layer and one for the decoder, drawn from ``gen``
+    (None: no dropout)."""
+    if gen is None:
+        return [None] * count
+    return torch.randint(0, 2**62, (count,), generator=gen, device=gen.device).tolist()
+
+
 def apply_layers(params: Params, graph, h: torch.Tensor, cfg: DirectGCNConfig, *,
-                 train: bool, gen: Optional[torch.Generator]) -> torch.Tensor:
+                 train: bool, seeds: Sequence[Optional[int]],
+                 rg_lead: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The GCN stack on a flat or rg carry: layer, residual, leaky ReLU,
-    dropout (directgcn.py:512-581)."""
-    for p, rp in zip(params["layers"], params["res_projs"]):
-        gcn_out = _layer_apply(p, graph, h, cfg)
-        res_out = h if rp is None else h @ rp["w"] + rp["b"]
-        h = F.leaky_relu(gcn_out + res_out, negative_slope=cfg.leaky_relu_slope)
-        if train and gen is not None and cfg.dropout > 0:
-            h = _dropout(h, cfg.dropout, gen)
+    dropout (directgcn.py:512-581).  Under ``cfg.remat_paths`` an rg carry
+    of a width in ``retile.WIDTHS`` leaves a layer packed, and the next
+    layer (or the caller) unpacks it."""
+    ct = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+    pack = cfg.remat_paths and rg_lead is not None
+
+    def layer_block(layer_p, rp, hh, seed):
+        if pack:
+            hh = unpack_rg_carry(hh, layer_p["w_main_in"].shape[0], rg_lead[1])
+        gcn_out = _layer_apply(layer_p, graph, hh, cfg)
+        # Residual weights cast to the carry type (directgcn.py:547-551).
+        res_out = hh if rp is None else hh @ rp["w"].to(hh.dtype) + rp["b"].to(hh.dtype)
+        # Pack before the activation tail: packing is a permutation with zero
+        # pad slots, which leaky ReLU and dropout keep zero (directgcn.py:556-561).
+        s = pack_rg_carry(gcn_out + res_out, pack)
+        out = F.leaky_relu(s, negative_slope=cfg.leaky_relu_slope)
+        if train and seed is not None and cfg.dropout > 0:
+            out = _dropout(out, cfg.dropout, seed)
+        return out.to(ct) if ct is not None else out
+
+    for i, (p, rp) in enumerate(zip(params["layers"], params["res_projs"])):
+        h = _maybe_checkpoint(cfg.remat, layer_block, p, rp, h, seeds[i])
     return h
 
 
 def apply_decoder(dec_p: Params, h: torch.Tensor, cfg: DirectGCNConfig, *, train: bool,
-                  gen: Optional[torch.Generator]) -> torch.Tensor:
-    """The 2-layer decoder head (reference: protgram_directgcn.py:173-180)."""
-    z = F.relu(h @ dec_p["w1"] + dec_p["b1"])
-    if train and gen is not None and cfg.decoder_dropout > 0:
-        z = _dropout(z, cfg.decoder_dropout, gen)
-    return z @ dec_p["w2"] + dec_p["b2"]
+                  seed: Optional[int]) -> torch.Tensor:
+    """The 2-layer decoder head in the carry type
+    (reference: protgram_directgcn.py:173-180; directgcn.py:584-606)."""
+
+    def block(dp, hh):
+        z = F.relu(hh @ dp["w1"].to(hh.dtype) + dp["b1"].to(hh.dtype))
+        if train and seed is not None and cfg.decoder_dropout > 0:
+            z = _dropout(z, cfg.decoder_dropout, seed)
+        return z @ dp["w2"].to(z.dtype) + dp["b2"].to(z.dtype)
+
+    return _maybe_checkpoint(cfg.remat, block, dec_p, h)
 
 
 def _apply_pe(params: Params, x: torch.Tensor, cfg: DirectGCNConfig) -> torch.Tensor:
@@ -233,7 +373,8 @@ def directgcn_apply(params: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig
     On hypercube graphs a flat ``[A^n, F]`` input is viewed rg ``[A, G, F]``
     (an rg input is taken as it is) and the carry stays rg through the stack;
     ``flatten_rg=False`` returns rg outputs, which the training loss uses.
-    ``gen`` draws the dropout masks when ``train``.
+    ``gen`` draws the dropout masks' seeds when ``train``.  The embeddings
+    are f32; the log-softmax, computed in f32, is stored in the carry type.
     """
     h = _apply_pe(params, x, cfg)
     rg_lead = None
@@ -242,10 +383,15 @@ def directgcn_apply(params: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig
     elif isinstance(graph.p_in, HypercubeAdj) and h.shape[0] == graph.p_in.n_out:
         rg_lead = graph.p_in.feature_shape
         h = h.reshape(rg_lead + tuple(h.shape[-1:]))
-    h = apply_layers(params, graph, h, cfg, train=train, gen=gen)
-    logits = apply_decoder(params["decoder"], h, cfg, train=train, gen=gen)
-    normalized = h / (torch.linalg.vector_norm(h, dim=-1, keepdim=True) + cfg.l2_eps)
-    log_sm = F.log_softmax(logits, dim=-1)
+    n_layers = len(params["layers"])
+    seeds = dropout_seeds(gen if train else None, n_layers + 1)
+    h = apply_layers(params, graph, h, cfg, train=train, seeds=seeds, rg_lead=rg_lead)
+    if rg_lead is not None:
+        h = unpack_rg_carry(h, cfg.layer_dims[-1], rg_lead[1])
+    logits = apply_decoder(params["decoder"], h, cfg, train=train, seed=seeds[-1])
+    h32 = h.float()
+    normalized = h32 / (torch.linalg.vector_norm(h32, dim=-1, keepdim=True) + cfg.l2_eps)
+    log_sm = F.log_softmax(logits.float(), dim=-1).to(logits.dtype)
     if rg_lead is not None and flatten_rg:
         log_sm = log_sm.reshape((-1,) + tuple(log_sm.shape[2:]))
         normalized = normalized.reshape((-1,) + tuple(normalized.shape[2:]))

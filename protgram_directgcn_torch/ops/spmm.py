@@ -12,11 +12,16 @@ w * x[j]`` (reference: protgram_directgcn.py:100-140, PyG aggr='add').
 - ``CooAdj``: target-sorted COO and a segment sum (``index_add``);
 - ``HypercubeAdj``: the gather-free K1/K2 pair (ops/hypercube.py).
 
-The builders are the JAX package's numpy code and give the same arrays byte
-for byte.  Every format's backward reads its stored transpose orientation
-(no scatter over the forward's indices); the graph gets no gradient.  The
-block format (ops/block.py of the JAX package) is not ported: where the JAX
-package's ``build_adjacency`` would return it, the port raises.
+Under bf16 compute a dense operator is stored bf16 and the edge-list
+formats keep f32 weights; all of them return f32 (the JAX package's
+``preferred_element_type=float32`` for dense, spmm.py:597-600, and its ELL
+kernels' f32 cast of x, pallas_spmm.py:83, :220).  The hypercube returns
+the carry's type.  The builders are the JAX package's numpy code and give
+the same arrays byte for byte.  Every format's backward reads its stored
+transpose orientation (no scatter over the forward's indices); the graph
+gets no gradient.  The block format (ops/block.py of the JAX package) is
+not ported: where the JAX package's ``build_adjacency`` would return it,
+the port raises.
 """
 
 from __future__ import annotations
@@ -342,6 +347,15 @@ class _LinearOp(torch.autograd.Function):
         return ctx.apply_t(grad), None, None
 
 
+def _dense_apply(at: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``at @ x`` with x in the operator's type and an f32 result, as the JAX
+    package's ``preferred_element_type=float32`` (spmm.py:597-600): a bf16
+    operator's products are summed and returned in f32."""
+    if at.dtype == torch.float32:
+        return at @ x.to(torch.float32)
+    return at.float() @ x.to(at.dtype).float()
+
+
 def _bucketed_apply(idx_tuple, w_tuple, inv_perm, x):
     outs = [ell_kernels.ell_plain(i, wv, x) for i, wv in zip(idx_tuple, w_tuple)]
     return torch.cat(outs, dim=0)[inv_perm.long()]
@@ -377,7 +391,7 @@ def propagate(adj, x: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
     """Sum-aggregate weighted source features at each target node.
     ``use_pallas`` sends an ``EllAdj`` through the ELL kernels."""
     if isinstance(adj, DenseAdj):
-        return adj.at @ x.to(adj.at.dtype)
+        return _dense_apply(adj.at, x)
     if isinstance(adj, EllAdj) and use_pallas:
         return ell_kernels.propagate_ell_kernel(adj, x)
     if isinstance(adj, (EllAdj, BucketedEllAdj, CooAdj)):
@@ -396,7 +410,7 @@ def propagate_transpose(adj, x: torch.Tensor, use_pallas: bool = False) -> torch
     w * x[i]), computed directly from the stored transpose orientation;
     differentiate :func:`propagate` instead."""
     if isinstance(adj, DenseAdj):
-        return adj.at.T @ x.to(adj.at.dtype)
+        return _dense_apply(adj.at.T, x)
     if isinstance(adj, (EllAdj, BucketedEllAdj, CooAdj)):
         return propagate(_swap(adj), x, use_pallas)
     from protgram_directgcn_torch.ops import hypercube

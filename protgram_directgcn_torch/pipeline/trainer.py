@@ -1,24 +1,34 @@
 """Hierarchical DirectGCN trainer: per-n-gram-level training with feature
 cascading and protein pooling.
 
-Port of protgram_directgcn_tpu/pipeline/trainer.py:54-110, 138-237,
-1271-1374, 1455-1634, 1816-2182 (reference:
-src/pipeline/protgram_directgcn_trainer.py:68-426) for the full-batch,
-single-device, tier-0 plan: float32 compute, float32 node parameters, no
-remat, Adam.  Under ``gcn.spmm_mode="auto"`` levels n >= 2 whose character
-hypercube is at most 4x the vocabulary train on the K1/K2 hypercube
-operators, and the others on the format ``spmm.build_adjacency`` picks (the
-n = 1 level: dense).  ``spmm_mode="pallas"`` trains every level on ELL
-operators through the CUDA ELL kernels.
+Port of protgram_directgcn_tpu/pipeline/trainer.py:54-197, 256-278,
+1271-1374, 1396-1634, 1816-2182 (reference:
+src/pipeline/protgram_directgcn_trainer.py:68-426) for full-batch,
+single-device training.  Each level's plan (``_level_plan``) picks the first
+memory tier that fits the device, with the JAX package's ladder:
 
-Not ported yet (ROADMAP Queue 1): the memory tiers 1-4 (remat, bf16 node
-parameters, factored moments, the staged step), cluster training, the
-in-training checkpoint/resume, and the H5/PCA export and PPI sanity check
-after pooling.
+0. float32 compute and node parameters, no remat, Adam;
+1. tier 0 + remat (each layer recomputed in the backward pass);
+2. bfloat16 compute and node parameters + remat;
+3. tier 2 + factored Adafactor moments for the node tables + per-path remat
+   (the packed sub-128 carry of the retile kernels on hypercube levels).
+
+All optimizer state is float32.  Under ``gcn.spmm_mode="auto"`` levels
+n >= 2 whose character hypercube is at most 4x the vocabulary train on the
+K1/K2 hypercube operators, and the others on the format
+``spmm.build_adjacency`` picks (the n = 1 level: dense), built in the plan's
+compute type.  ``spmm_mode="pallas"`` trains every level on ELL operators
+through the CUDA ELL kernels.
+
+Not ported yet (ROADMAP Queue 1): memory tier 4 (the layer-staged step) and
+the ``oversize_policy`` beyond tier 3, cluster training, the in-training
+checkpoint/resume, and the H5/PCA export and PPI sanity check after pooling
+(their knobs log a warning).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -32,9 +42,10 @@ from protgram_directgcn_torch.models.directgcn import (
     DirectGCNConfig,
     directgcn_apply,
     init_directgcn_params,
+    named_leaves,
     param_leaves,
 )
-from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels
+from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, retile
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.pipeline.labels import generate_labels
 from protgram_directgcn_torch.utils import embeddings as emb_utils
@@ -89,12 +100,200 @@ class EarlyStopper:
         return self.counter >= self.patience
 
 
-def make_optimizer(params, lr: float, weight_decay: float) -> torch.optim.Adam:
-    """torch.optim.Adam: L2 added to the gradient before the moments, as the
-    JAX package's ``add_decayed_weights`` + ``scale_by_adam`` chain
-    (trainer.py:155-159; reference: protgram_directgcn_trainer.py:354)."""
-    return torch.optim.Adam(param_leaves(params), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+# The per-node tables (trainer.py:101-103), selected by name, and the size
+# both of a moment's two largest dims must reach for Adafactor to factor it
+# (trainer.py:107).
+_NODE_PARAM_NAMES = frozenset(
+    {"c_in", "c_out", "c_directed", "c_undirected", "c_all", "constant"}
+)
+_FACTOR_MIN_DIM = 32
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+_ADAFACTOR_DECAY, _ADAFACTOR_EPS = 0.999, 1e-30
+
+
+def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: the second-largest and the largest dim,
+    or None unless both reach ``_FACTOR_MIN_DIM``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _FACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+# An update runs over slices of a parameter's first dim of at most this many
+# elements, so that its f32 temporaries stay at a few hundred MB where a
+# 5-gram constant holds 10^9 elements (XLA fuses the same update in place).
+_UPDATE_CHUNK = 1 << 25
+
+
+class TrainOptimizer(torch.optim.Optimizer):
+    """The JAX package's ``make_optimizer`` (trainer.py:111-197).
+
+    - Weight decay is added to the gradient before the moments (optax
+      ``add_decayed_weights``; torch.optim.Adam's L2), summed in f32 and
+      rounded to the parameter's type, the type of its gradient.
+    - Group "adam": Adam (b1 0.9, b2 0.999, eps 1e-8).
+    - Group "adafactor" (the node tables when factored): optax 0.2.6's
+      ``adafactor`` with ``multiply_by_parameter_scale=False``,
+      ``clipping_threshold=None``, ``decay_rate=0.999``,
+      ``min_dim_size_to_factor=32``, ``eps=1e-30`` and no momentum: the
+      second moment decays by 1 - (t+1)^-0.999 at step t, and is factored
+      over the two largest dims where both reach 32 (row and column means
+      of the squared gradient), else kept whole.
+    - Every moment is float32 whatever the parameter's type (``_f32_state``:
+      a bf16 moment stops moving once 1e-3 increments fall below bf16's
+      resolution); the f32 update is added to the parameter in f32 and the
+      sum stored in the parameter's type (``optax.apply_updates``).
+
+    A parameter without a gradient is skipped, as torch.optim does.  The
+    float32 Adam leaves of at most ``_UPDATE_CHUNK`` elements update
+    together, one ``torch._foreach_*`` launch per operation for all of them
+    (torch.optim.Adam's multi-tensor path); every other leaf updates on its
+    own, slice by slice.
+    """
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            params = [p for p in group["params"] if p.grad is not None]
+            if group["kind"] == "adafactor":
+                for p in params:
+                    _adafactor_update(self.state[p], p, lr, wd)
+                continue
+            together: Dict[int, list] = {}
+            for p in params:
+                if p.dtype == torch.float32 and p.numel() <= _UPDATE_CHUNK:
+                    step = _adam_begin(self.state[p], p)
+                    together.setdefault(step, []).append(p)
+                else:
+                    _adam_update(self.state[p], p, lr, wd)
+            for step, ps in together.items():
+                _adam_foreach([self.state[p] for p in ps], ps, step, lr, wd)
+
+
+def _slices(t: torch.Tensor):
+    rows = max(1, _UPDATE_CHUNK // max(1, t[0].numel()))
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def _grad_f32(p: torch.Tensor, sl: slice, wd: float) -> torch.Tensor:
+    g = p.grad[sl].float()
+    if wd:
+        g = (g + wd * p[sl].float()).to(p.dtype).float()
+    return g
+
+
+def _apply(p: torch.Tensor, sl: slice, lr: float, direction: torch.Tensor) -> None:
+    p[sl] = (p[sl].float() - lr * direction).to(p.dtype)
+
+
+def _adam_begin(state: dict, p: torch.Tensor) -> int:
+    """Create a leaf's f32 moments at its first update; count the step."""
+    if not state:
+        state.update(step=0, mu=torch.zeros_like(p, dtype=torch.float32),
+                     nu=torch.zeros_like(p, dtype=torch.float32))
+    state["step"] += 1
+    return state["step"]
+
+
+def _adam_foreach(states: list, ps: list, step: int, lr: float, wd: float) -> None:
+    """``_adam_update`` for float32 leaves at one step count, together."""
+    bc1, bc2 = 1.0 - _ADAM_B1 ** step, 1.0 - _ADAM_B2 ** step
+    grads = [p.grad for p in ps]
+    if wd:
+        grads = torch._foreach_add(grads, ps, alpha=wd)
+    mus, nus = [st["mu"] for st in states], [st["nu"] for st in states]
+    torch._foreach_mul_(mus, _ADAM_B1)
+    torch._foreach_add_(mus, grads, alpha=1.0 - _ADAM_B1)
+    torch._foreach_mul_(nus, _ADAM_B2)
+    torch._foreach_addcmul_(nus, grads, grads, value=1.0 - _ADAM_B2)
+    denom = torch._foreach_div(nus, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, _ADAM_EPS)
+    direction = torch._foreach_div(mus, bc1)
+    torch._foreach_div_(direction, denom)
+    torch._foreach_add_(ps, direction, alpha=-lr)
+
+
+def _adam_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> None:
+    """optax ``scale_by_adam``: bias-corrected mu / (sqrt(nu) + eps)."""
+    step = _adam_begin(state, p)
+    bc1, bc2 = 1.0 - _ADAM_B1 ** step, 1.0 - _ADAM_B2 ** step
+    for sl in _slices(p):
+        g = _grad_f32(p, sl, wd)
+        mu = state["mu"][sl].mul_(_ADAM_B1).add_(g, alpha=1.0 - _ADAM_B1)
+        nu = state["nu"][sl].mul_(_ADAM_B2).addcmul_(g, g, value=1.0 - _ADAM_B2)
+        _apply(p, sl, lr, (mu / bc1) / (torch.sqrt(nu / bc2) + _ADAM_EPS))
+
+
+def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> None:
+    """optax ``scale_by_factored_rms`` (factorized.py:143-182).  A factored
+    moment takes two passes over the slices: the squared gradient's sums
+    (accumulated over the slices where dim 0 is reduced), then the update."""
+    shape = tuple(p.shape)
+    dims = _factored_dims(shape)
+
+    def drop(d):
+        return shape[:d] + shape[d + 1:]
+
+    if not state:
+        state["step"] = 0
+        if dims is None:
+            state["v"] = torch.zeros_like(p, dtype=torch.float32)
+        else:
+            d1, d0 = dims
+            state["v_row"] = p.new_zeros(drop(d0), dtype=torch.float32)
+            state["v_col"] = p.new_zeros(drop(d1), dtype=torch.float32)
+    t = np.float32(state["step"] + 1)
+    beta = float(np.float32(1.0) - t ** np.float32(-_ADAFACTOR_DECAY))
+    state["step"] += 1
+    if dims is None:
+        for sl in _slices(p):
+            g = _grad_f32(p, sl, wd)
+            v = state["v"][sl].mul_(beta).add_(g * g + _ADAFACTOR_EPS, alpha=1.0 - beta)
+            _apply(p, sl, lr, g * v.pow(-0.5))
+        return
+    d1, d0 = dims
+    sums = {d: p.new_zeros(drop(d), dtype=torch.float32) for d in (d0, d1)}
+    for sl in _slices(p):
+        g = _grad_f32(p, sl, wd)
+        sq = g * g + _ADAFACTOR_EPS
+        for d, total in sums.items():
+            if d == 0:
+                total += sq.sum(0)
+            else:
+                total[sl] = sq.sum(d)
+    v_row = state["v_row"].mul_(beta).add_(sums[d0] / shape[d0], alpha=1.0 - beta)
+    v_col = state["v_col"].mul_(beta).add_(sums[d1] / shape[d1], alpha=1.0 - beta)
+    reduced_d1 = d1 - 1 if d1 > d0 else d1
+    row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).pow(-0.5).unsqueeze(d0)
+    col_factor = v_col.pow(-0.5).unsqueeze(d1)
+    for sl in _slices(p):
+        g = _grad_f32(p, sl, wd)
+        _apply(p, sl, lr, g * (row_factor if d0 == 0 else row_factor[sl])
+               * (col_factor if d1 == 0 else col_factor[sl]))
+
+
+def make_optimizer(params, lr: float, weight_decay: float,
+                   factor_node_params_above: Optional[int] = None) -> TrainOptimizer:
+    """Adam over every parameter (reference: protgram_directgcn_trainer.py:354);
+    with ``factor_node_params_above=N``, the per-node tables (by name, with
+    shape[0] == N, or an rg constant [A, G, out] with A*G == N) train with
+    factored Adafactor instead (trainer.py:134-197)."""
+    n = factor_node_params_above
+
+    def is_node(name: str, p: torch.Tensor) -> bool:
+        return n is not None and name in _NODE_PARAM_NAMES and p.dim() >= 1 and (
+            p.shape[0] == n or (p.dim() == 3 and p.shape[0] * p.shape[1] == n))
+
+    leaves = named_leaves(params)
+    groups = [{"params": [p for name, p in leaves if not is_node(name, p)], "kind": "adam"},
+              {"params": [p for name, p in leaves if is_node(name, p)], "kind": "adafactor"}]
+    return TrainOptimizer([grp for grp in groups if grp["params"]],
+                          {"lr": lr, "weight_decay": weight_decay})
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
@@ -104,7 +303,7 @@ def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
 
 def _loss_fn(params, graph, x, y, mask, weight_factor, gen, model_cfg, l2_lambda):
     """Masked next-node NLL plus ``l2_lambda`` times the sum of squares of
-    every parameter; returns (loss, primary)."""
+    every parameter (in f32); returns (loss, primary)."""
     log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
                                 flatten_rg=False)
     if log_sm.dim() == 3:
@@ -132,14 +331,73 @@ def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_l
     return step
 
 
+def _node_params_to_rg(params, full_graph: DeviceGraph):
+    """Store each layer's per-node constant rg ``[A, G, out]`` on hypercube
+    levels, as the JAX trainer does (trainer.py:256-278): Adafactor factors
+    that shape over (G, out) for each A, so the factored updates follow the
+    stored layout.  Gates stay ``[N, 1]``."""
+    lead = getattr(full_graph.p_in, "feature_shape", None)
+    if lead is None:
+        return params
+    a, g = lead
+    for lp in params["layers"]:
+        c = lp.get("constant")
+        if c is not None and c.dim() == 2 and c.shape[0] == a * g:
+            lp["constant"] = c.reshape(a, g, c.shape[-1])
+    return params
+
+
 # Auto-select the gather-free hypercube format when the padded node space
 # [alphabet^n] stays within this multiple of the real vocabulary.
 _HYPERCUBE_MAX_RATIO = 4.0
 
 
 def _launch_counts() -> Dict[str, Dict[str, int]]:
-    """Launches so far of every kernel, per direction (K1/K2 and ELL)."""
-    return {**hyper_kernels.launch_counts(), **ell_kernels.launch_counts()}
+    """Launches so far of every kernel, per direction (K1/K2, ELL, retile)."""
+    return {**hyper_kernels.launch_counts(), **ell_kernels.launch_counts(),
+            **retile.launch_counts()}
+
+
+# The "auto" levers of each memory tier (trainer.py:1492-1500): compute
+# type, node-table type, remat, factored node moments, per-path remat.
+TIER_LEVERS = {
+    0: ("float32", "float32", False, False, False),
+    1: ("float32", "float32", True, False, False),
+    2: ("bfloat16", "bfloat16", True, False, False),
+    3: ("bfloat16", "bfloat16", True, True, True),
+}
+
+# Full-width buffers live at once in a step's backward pass, fitted to the
+# peaks ``chip_smoke.py`` measures on an NVIDIA H100 (PERF.md §6): 15 where
+# a layer's three paths are recomputed or saved together (the 5-gram level
+# at tier 2, the 4-gram level at tier 0), 8 where per-path remat recomputes
+# one path at a time (the 5-gram level at tier 3; rg levels only).
+_WORKSPACE_BUFFERS = 15
+_WORKSPACE_BUFFERS_PER_PATH = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelPlan:
+    """A level's memory-governed knobs (trainer.py:1275-1294), with the
+    tier that set them and the residency estimate (bytes) it fitted."""
+
+    tier: int
+    compute_dtype: str  # "float32" | "bfloat16"
+    node_param_dtype: str
+    remat: bool
+    remat_paths: bool
+    factored: bool  # node tables train with factored Adafactor moments
+    bank_budget: int  # device bytes left for the propagation operators
+    residency: int
+
+
+# Knobs that the JAX trainer acts on and this one does not yet, each with
+# the ROADMAP item that ports it.
+_UNPORTED_KNOBS = (
+    ("apply_pca", "Queue 1, item 3: export after pooling"),
+    ("run_sanity_check_ppi", "Queue 1, item 10: the PPI sanity check"),
+    ("checkpoint_every_epochs", "Queue 1, item 4: in-training checkpoint and resume"),
+)
 
 
 class HierarchicalTrainer:
@@ -159,7 +417,8 @@ class HierarchicalTrainer:
         self.gcn = self.config.gcn
         self.device = resolve_device(device)
         self.id_map: Dict[str, str] = {}
-        # Per level: route, losses, epochs, seconds and kernel launches.
+        # Per level: route, plan, losses, epochs, seconds, kernel launches
+        # and the device's peak allocation.
         self.level_stats: Dict[int, dict] = {}
         self.pool_seconds = 0.0
 
@@ -196,91 +455,155 @@ class HierarchicalTrainer:
     # ------------------------------------------------------------------
 
     def _device_memory(self) -> int:
-        """Bytes one level's training may use: the device's free memory less
-        1 GB (``torch.cuda.mem_get_info``)."""
+        """Bytes one level's training may use: the device's free memory
+        (``torch.cuda.mem_get_info``) and the blocks PyTorch's allocator
+        holds unused (an earlier level's, freed), less 1 GB."""
         if self._hbm_override is not None:
             return int(self._hbm_override)
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
-            return int(free) - (1 << 30)
+            cached = (torch.cuda.memory_reserved(self.device)
+                      - torch.cuda.memory_allocated(self.device))
+            return int(free + cached) - (1 << 30)
         return self._LEVEL_HBM
 
-    def _residency(self, n_hyper: int, feat_dim: int, num_classes: int) -> Tuple[int, int, int]:
-        """(param_bytes, opt_state_bytes, dynamic_bytes) of one tier-0
-        full-batch step at ``n_hyper`` nodes: f32 per-node tables (5 gates and
-        the [N, out] constant per layer) and their two Adam moments; saved
-        activations (input, three paths per layer), node gradients, six
-        full-width backward buffers and the [N, classes] logits with their
-        log-softmax and gradient.  The JAX package's estimate
-        (trainer.py:1396-1452) without the TPU's 128-lane padding."""
+    def _residency(self, n_hyper: int, feat_dim: int, num_classes: int,
+                   compute_dtype: str = "float32", node_param_dtype: str = "float32",
+                   remat: bool = False, factored: bool = False,
+                   remat_paths: bool = False) -> Tuple[int, int, int]:
+        """(param_bytes, opt_state_bytes, dynamic_bytes) of one full-batch
+        step at ``n_hyper`` nodes, with the levers of the JAX package's
+        estimate (trainer.py:1396-1452): per-node tables (5 gates and the
+        [N, out] constant per layer) in the node type; their optimizer state
+        in f32, two Adam moments or, factored, a full moment for the gates
+        and row + column moments for the constants; saved activations (the
+        input and, without remat, three paths per layer, with remat one
+        carry per layer), node gradients and the full-width buffers of the
+        backward pass, all in the compute type.  The level's operators and
+        input are left to the plan's bank floor and slack.
+
+        Where it departs from the JAX estimate: no TPU 128-lane padding, so
+        a sub-128 carry counts its logical bytes and the packed carry of
+        per-path remat saves nothing; the [N, classes] logits with their
+        log-softmax and gradient are counted (JAX leaves them out); and the
+        backward pass holds the buffer counts measured on the card (15, or
+        8 under per-path remat) where JAX counts 6 under every tier."""
         out_dims = list(self.gcn.hidden_layer_dims)
+        node_itm = 2 if node_param_dtype == "bfloat16" else 4
+        act_itm = 2 if compute_dtype == "bfloat16" else 4
         n_gates = 5 * len(out_dims) if self.gcn.use_vector_coeffs else 0
-        node_elems = n_hyper * (sum(out_dims) + n_gates)
-        param_b = 4 * node_elems
-        opt_b = 2 * 4 * node_elems
-        saves = (feat_dim + 3 * sum(out_dims)) * n_hyper * 4
-        grads = sum(out_dims) * n_hyper * 4
-        workspace = 6 * n_hyper * max(out_dims + [feat_dim]) * 4
-        logits = 3 * n_hyper * num_classes * 4
+        elems_const = n_hyper * sum(out_dims)
+        elems_gate = n_hyper * n_gates
+        param_b = (elems_const + elems_gate) * node_itm
+        if factored:
+            opt_b = 4 * elems_gate + 4 * sum(
+                (n_hyper + d) if min(n_hyper, d) >= _FACTOR_MIN_DIM else n_hyper * d
+                for d in out_dims)
+        else:
+            opt_b = 2 * 4 * (elems_const + elems_gate)
+        per_layer = 1 if remat else 3
+        saves = (feat_dim + per_layer * sum(out_dims)) * n_hyper * act_itm
+        grads = sum(out_dims) * n_hyper * act_itm
+        buffers = _WORKSPACE_BUFFERS_PER_PATH if remat_paths else _WORKSPACE_BUFFERS
+        workspace = buffers * n_hyper * max(out_dims + [feat_dim]) * act_itm
+        logits = 3 * n_hyper * num_classes * act_itm
         return param_b, opt_b, saves + grads + workspace + logits
 
     def _level_plan(self, graph: NgramGraph, feat_dim: int,
-                    num_classes: Optional[int] = None) -> int:
-        """Tier 0 of the JAX package's plan (trainer.py:1455-1595): float32
-        compute, float32 node parameters, no remat, Adam.  ``num_classes``
-        sizes the logits (default: one class per node, the next_node task's
-        count).  Returns the device bytes left for the level's propagation
-        operators.  Raises
-        NotImplementedError when tier 0 does not fit the device or a knob asks
-        for another tier: tiers 1-4 wait (ROADMAP Queue 1, item 6)."""
+                    num_classes: Optional[int] = None) -> LevelPlan:
+        """The first memory tier whose residency estimate fits the device
+        (trainer.py:1455-1597): tier 0 (f32, Adam), 1 (+ remat), 2 (+ bf16
+        compute and node tables), 3 (+ factored node moments and per-path
+        remat).  The knobs ``gcn.compute_dtype``, ``node_param_dtype``,
+        ``remat`` and ``node_param_factored``, where not "auto", override
+        their field at every tier.  ``num_classes`` sizes the logits
+        (default: one class per node, the next_node task's count).  Raises
+        NotImplementedError when tier 3 does not fit: tier 4 (the
+        layer-staged step) and ``gcn.oversize_policy`` are not ported yet
+        (ROADMAP Queue 1, item 8)."""
         gcn = self.gcn
-        for knob, ok in (("compute_dtype", ("auto", "float32")),
-                         ("node_param_dtype", ("auto", "float32")),
-                         ("node_param_factored", ("auto", "off")),
-                         ("remat", ("auto", False, None))):
-            if getattr(gcn, knob) not in ok:
-                raise NotImplementedError(
-                    f"gcn.{knob}={getattr(gcn, knob)!r}: only the tier-0 plan (float32, "
-                    "no remat, Adam) is ported (ROADMAP Queue 1, item 6: memory tiers 1-4)"
-                )
         _, alpha = vocab_char_codes(graph.vocab)
         n_hyper = int(alpha) ** graph.n if alpha else graph.num_nodes
         n_nodes = max(n_hyper, graph.num_nodes)
         chip = self._device_memory()
         classes = graph.num_nodes if num_classes is None else num_classes
-        pb, ob, db = self._residency(n_nodes, feat_dim, classes)
-        if pb + ob + db + self._PLAN_SLACK + self._MIN_BANK > chip:
-            raise NotImplementedError(
-                f"level n={graph.n}: tier 0 needs {(pb + ob + db) / 2**30:.1f} GB for "
-                f"{n_nodes} nodes, the device has {chip / 2**30:.1f} GB; memory tiers 1-4 "
-                "and multi-device training are not ported yet (ROADMAP Queue 1, item 6)"
-            )
-        budget = max(self._MIN_BANK, chip - pb - ob - db - self._PLAN_SLACK)
-        return int(budget)
 
-    def _to_device_graph(self, graph: NgramGraph, bank_budget: int,
+        def resolve(tier: int):
+            cd, nd, rm, fc, rp = TIER_LEVERS[tier]
+            if gcn.compute_dtype != "auto":
+                cd = gcn.compute_dtype
+            if gcn.node_param_dtype != "auto":
+                nd = gcn.node_param_dtype
+            if gcn.remat not in ("auto", None):
+                rm = bool(gcn.remat)
+            if gcn.node_param_factored in ("on", "off"):
+                fc = gcn.node_param_factored == "on"
+            return cd, nd, rm, fc, rp
+
+        # Per-path remat recomputes one path at a time only on an rg carry
+        # (a hypercube level); elsewhere tier 3 keeps a layer's paths live.
+        rg = self._takes_hypercube(graph)
+
+        def need(tier: int) -> int:
+            cd, nd, rm, fc, rp = resolve(tier)
+            return sum(self._residency(n_nodes, feat_dim, classes, cd, nd, rm, fc, rp and rg))
+
+        fitting = [t for t in range(4) if need(t) + self._PLAN_SLACK + self._MIN_BANK <= chip]
+        if not fitting:
+            raise NotImplementedError(
+                f"level n={graph.n}: no memory tier 0-3 fits {chip / 2**30:.1f} GB for "
+                f"{n_nodes} nodes (tier 0 needs {need(0) / 2**30:.1f} GB, tier 3 "
+                f"{need(3) / 2**30:.1f} GB); tier 4 (the layer-staged step) and "
+                f"gcn.oversize_policy={gcn.oversize_policy!r} are not ported yet "
+                "(ROADMAP Queue 1, item 8)"
+            )
+        tier = fitting[0]
+        cd, nd, rm, fc, rp = resolve(tier)
+        residency = need(tier)
+        budget = max(self._MIN_BANK, chip - residency - self._PLAN_SLACK)
+        if tier > 0:
+            logger.info(
+                "level n=%d auto-plan tier %d: compute=%s node_params=%s remat=%s "
+                "remat_paths=%s factored=%s (residency %.1f GB of %.1f GB; banks get %.1f GB)",
+                graph.n, tier, cd, nd, rm, rp, fc, residency / 2**30, chip / 2**30,
+                budget / 2**30)
+        return LevelPlan(tier=tier, compute_dtype=cd, node_param_dtype=nd, remat=rm,
+                         remat_paths=rp, factored=fc, bank_budget=int(budget),
+                         residency=int(residency))
+
+    def _takes_hypercube(self, graph: NgramGraph) -> bool:
+        """Whether ``_to_device_graph`` tries the hypercube format for this
+        level: n >= 2 under "hypercube", and under "auto" only while
+        alpha^n <= 4x the vocabulary."""
+        mode = self.gcn.spmm_mode
+        if graph.n < 2 or not graph.num_nodes or mode not in ("auto", "hypercube"):
+            return False
+        if mode == "hypercube":
+            return True
+        _, alpha = vocab_char_codes(graph.vocab)
+        return 0 < alpha**graph.n <= _HYPERCUBE_MAX_RATIO * graph.num_nodes
+
+    def _to_device_graph(self, graph: NgramGraph, plan: LevelPlan,
                          feat_dim: int = 128) -> DeviceGraph:
-        """The level's propagation operators (trainer.py:1602-1633):
-        "pallas" means "ell"; under "auto" and "hypercube" the hypercube is
-        tried at n >= 2 ("auto": only while alpha^n <= 4x the vocabulary),
-        and where it is not taken or cannot be built (auto only) the format
-        is ``graph.to_device(mode="auto", feat_dim=...)``'s choice."""
+        """The level's propagation operators (trainer.py:1602-1633), in the
+        plan's compute type (the hypercube banks and a dense matrix; the
+        edge-list formats keep f32 weights): "pallas" means "ell"; under
+        "auto" and "hypercube" the hypercube is tried at n >= 2 ("auto": only
+        while alpha^n <= 4x the vocabulary) within ``plan.bank_budget``, and
+        where it is not taken or cannot be built (auto only) the format is
+        ``graph.to_device(mode="auto", feat_dim=...)``'s choice."""
         mode = self.gcn.spmm_mode if self.gcn.spmm_mode != "pallas" else "ell"
-        if graph.n >= 2 and graph.num_nodes and mode in ("auto", "hypercube"):
-            want = mode == "hypercube"
-            if not want:
-                _, alpha = vocab_char_codes(graph.vocab)
-                want = 0 < alpha**graph.n <= _HYPERCUBE_MAX_RATIO * graph.num_nodes
-            if want:
-                try:
-                    return graph.to_device(mode="hypercube", feat_dim=feat_dim,
-                                           device=self.device, hbm_budget=bank_budget)
-                except BlockStructureError as exc:
-                    if mode == "hypercube":
-                        raise
-                    logger.info("hypercube format unavailable (%s); falling back", exc)
+        dtype = torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32
+        if self._takes_hypercube(graph):
+            try:
+                return graph.to_device(mode="hypercube", feat_dim=feat_dim, dtype=dtype,
+                                       device=self.device, hbm_budget=plan.bank_budget)
+            except BlockStructureError as exc:
+                if mode == "hypercube":
+                    raise
+                logger.info("hypercube format unavailable (%s); falling back", exc)
         return graph.to_device(mode="auto" if mode == "hypercube" else mode, feat_dim=feat_dim,
-                               device=self.device)
+                               dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
 
@@ -293,9 +616,12 @@ class HierarchicalTrainer:
         n_val = graph.n
         feat_dim = x_np.shape[1]
         layer_dims = tuple([feat_dim] + list(gcn.hidden_layer_dims))
-        budget = self._level_plan(graph, feat_dim, num_classes)
+        plan = self._level_plan(graph, feat_dim, num_classes)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t_ops = time.monotonic()
-        full_graph = self._to_device_graph(graph, budget, feat_dim)
+        # The format's byte model sees the widest layer (trainer.py:1899).
+        full_graph = self._to_device_graph(graph, plan, max(layer_dims))
         operator_seconds = time.monotonic() - t_ops
         node_map = None if full_graph.node_map is None else full_graph.node_map.cpu().numpy()
         total_nodes = full_graph.num_nodes
@@ -329,24 +655,36 @@ class HierarchicalTrainer:
             dropout=gcn.dropout_rate,
             use_vector_coeffs=gcn.use_vector_coeffs,
             use_pallas=gcn.spmm_mode == "pallas",
+            remat=plan.remat,
+            remat_paths=plan.remat_paths,
+            compute_dtype=plan.compute_dtype,
+            node_param_dtype=plan.node_param_dtype,
         )
         init_gen = torch.Generator(device=dev).manual_seed(self.config.random_state + n_val)
-        params = init_directgcn_params(init_gen, model_cfg, device=dev)
+        params = _node_params_to_rg(init_directgcn_params(init_gen, model_cfg, device=dev),
+                                    full_graph)
         for p in param_leaves(params):
             p.requires_grad_(True)
 
         l2_lambda = gcn.l2_reg_lambda
         wd = gcn.weight_decay if l2_lambda <= 0 else 0.0
-        opt = make_optimizer(params, gcn.lr, wd)
+        if plan.factored:
+            logger.info("level n=%d: per-node tables train with factored (Adafactor) second "
+                        "moments (node_param_factored=%s)", n_val, gcn.node_param_factored)
+        opt = make_optimizer(params, gcn.lr, wd,
+                             factor_node_params_above=total_nodes if plan.factored else None)
         step = make_train_step(model_cfg, opt, l2_lambda)
         sched = (PlateauScheduler(gcn.lr, gcn.lr_scheduler_patience, gcn.lr_scheduler_factor)
                  if gcn.use_lr_scheduler else None)
         stopper = (EarlyStopper(gcn.early_stopping_patience, gcn.early_stopping_min_delta)
                    if gcn.use_early_stopping else None)
-        drop_gen = torch.Generator(device=dev).manual_seed(
+        # On the host: a step draws its masks' seeds without a device sync.
+        drop_gen = torch.Generator().manual_seed(
             self.config.random_state * 7919 + n_val)
 
-        x = torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev)
+        # The input in the compute type (trainer.py:2031-2032), rg on the hypercube.
+        x = torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev).to(
+            torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32)
         if full_graph.route == "hypercube":
             x = x.reshape(full_graph.p_in.feature_shape + (feat_dim,))
         y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
@@ -369,6 +707,7 @@ class HierarchicalTrainer:
         logger.info("n=%d full-batch training on %s (%s): %d epochs in %.2fs (final loss %.5f)",
                     n_val, dev, full_graph.route, len(losses), seconds,
                     losses[-1] if losses else float("nan"))
+        del x, opt, step
 
         # Eval-mode embeddings on the full graph (reference: models_utils.py:264-273).
         t_eval = time.monotonic()
@@ -382,6 +721,7 @@ class HierarchicalTrainer:
         eval_seconds = time.monotonic() - t_eval
         self.level_stats[n_val] = {
             "route": full_graph.route,
+            "plan": dataclasses.asdict(plan),
             "nodes": graph.num_nodes,
             "device_nodes": total_nodes,
             "epochs": len(losses),
@@ -391,8 +731,19 @@ class HierarchicalTrainer:
             "eval_seconds": eval_seconds,  # eval pass and copy of the embeddings to the host
             "launches": {k: {d: launches1[k][d] - launches0[k][d] for d in launches1[k]}
                          for k in launches1},
+            # From the operators' build to the eval pass (None off the card).
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
         }
         return params, embeds, model_cfg, full_graph
+
+    def _warn_unported_knobs(self) -> None:
+        """One warning per knob that asks for work this trainer does not do."""
+        for knob, item in _UNPORTED_KNOBS:
+            value = getattr(self.gcn, knob)
+            if value:
+                logger.warning("gcn.%s=%r is not acted on: not ported yet (ROADMAP %s)",
+                               knob, value, item)
 
     # ------------------------------------------------------------------
 
@@ -403,6 +754,7 @@ class HierarchicalTrainer:
         embeddings to ``level_{n}.npz`` (and resume from them), and return the
         final level's embeddings mean-pooled per protein."""
         cfg = self.config
+        self._warn_unported_knobs()
         fasta_path = fasta_path or cfg.paths.input_fasta
         graphs_dir = graphs_dir or cfg.paths.graph_objects_dir
         output_dir = ensure_dir(output_dir or cfg.paths.gcn_embeddings_dir)
@@ -447,7 +799,9 @@ class HierarchicalTrainer:
             x = self._initial_features(graph, prev_vocab, prev_embeds, cfg.random_state + n_val)
             y, num_classes = generate_labels(graph, task, self.gcn.closest_aa_k_hops,
                                              cfg.random_state)
-            _, embeds, _, _ = self.train_level(graph, x, y, num_classes)
+            # Keep only the embeddings: the level's operators and parameters
+            # leave the device before the next level.
+            embeds = self.train_level(graph, x, y, num_classes)[1]
             level_embeds[n_val] = embeds
             np.savez_compressed(ckpt_path, embeddings=embeds)
             # Features, labels, operators, training, eval pass and checkpoint.

@@ -1,11 +1,13 @@
 """Port parity: the train step, the trainer's helpers and ``run()``.
 
 Three steps of the JAX package's ``make_train_step`` (optax Adam, L2 in the
-gradient) against three of the port's (``torch.optim.Adam``) from the same
+gradient) against three of the port's (``make_optimizer``'s Adam) from the same
 parameters and inputs, float32, dropout 0: losses and parameters held at
 rtol 1e-4, atol 1e-5 * max|leaf| (float32 Adam updates of gradients summed
 in another order).  ``run()`` end to end on the CPU at narrow widths.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -126,7 +128,8 @@ def test_level_routes_and_plan(graphs):
     _, tg = graphs
     tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
     plan = tt._level_plan(tg[2], 16)
-    assert isinstance(plan, int) and plan >= tt._MIN_BANK
+    assert isinstance(plan, t_trainer.LevelPlan) and plan.tier == 0
+    assert plan.bank_budget >= tt._MIN_BANK
     assert tt._to_device_graph(tg[0], plan).route == "dense"
     # The trigram toy graph's hypercube is > 4x its vocabulary: dense unless forced.
     assert tt._to_device_graph(tg[2], plan).route == "dense"
@@ -142,10 +145,17 @@ def test_level_routes_and_plan(graphs):
     ("node_param_factored", "on"), ("remat", True),
 ])
 def test_level_plan_refuses_unported_tiers(graphs, knob, value):
+    """Tiers 1-3 are ported: an explicit knob sets its field of the plan.
+    Where no tier up to 3 fits, the plan refuses: tier 4 (the staged step)
+    is not ported."""
     _, tg = graphs
     tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
     setattr(tt.gcn, knob, value)
-    with pytest.raises(NotImplementedError):
+    plan = tt._level_plan(tg[2], 16)
+    field = "factored" if knob == "node_param_factored" else knob
+    assert getattr(plan, field) == (True if value == "on" else value)
+    tt._hbm_override = 2 << 30
+    with pytest.raises(NotImplementedError, match="tier 4"):
         tt._level_plan(tg[2], 16)
 
 
@@ -166,9 +176,10 @@ def test_level_plan_sizes_the_logits_by_the_task(graphs):
     _, alpha = t_trainer.vocab_char_codes(g3.vocab)
     need = sum(tt._residency(alpha**3, 16, 4)) + tt._PLAN_SLACK + tt._MIN_BANK
     tt._hbm_override = need
-    assert tt._level_plan(g3, 16, num_classes=4) == tt._MIN_BANK
-    with pytest.raises(NotImplementedError, match="tier 0"):
-        tt._level_plan(g3, 16)
+    plan = tt._level_plan(g3, 16, num_classes=4)
+    assert plan.tier == 0 and plan.bank_budget == tt._MIN_BANK
+    # One logit column per node does not fit tier 0 there: the plan escalates.
+    assert tt._level_plan(g3, 16).tier > 0
 
 
 def _small_cfg(tmp_path, fasta):
@@ -285,7 +296,7 @@ def test_hypercube_over_budget_falls_back_to_dense(tmp_path):
     tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
     plan = tt._level_plan(graph, 16)
     assert tt._to_device_graph(graph, plan).route == "hypercube"
-    tiny = 1024
+    tiny = dataclasses.replace(plan, bank_budget=1024)
     assert tt._to_device_graph(graph, tiny).route == "dense"
     tt.gcn.spmm_mode = "hypercube"
     with pytest.raises(t_trainer.BlockStructureError):
