@@ -10,11 +10,14 @@ Phases, each printing one JSON line as it ends:
    and csrc/retile.cu (pack/unpack), started together, with their times;
 1. kernels: K1 and K2, forward and the bank-swapped backward, held against
    their plain PyTorch versions at the main path's shapes (A=21, G=441 and
-   21, F=256/128/64, float32 and bfloat16) and at the 5-gram hypercube
-   (A=21, G=194,481, F=128, bfloat16); each timed on the device (launches
-   captured in a CUDA graph, replays timed with CUDA events) beside its plain
-   version and the one-call ``torch.einsum`` of the same contraction, and
-   through its Python wrapper in a host loop (``wrapper_ms``);
+   21, F=256/128/64, float32 and bfloat16), at the 5-gram hypercube
+   (A=21, G=194,481, F=64/128/256, bfloat16), at A=26 with widths that take
+   no 16-byte access (F=100 bfloat16, F=37 float32), and with x a view one
+   element past an aligned start (A=21, G=441, F=256, both types); each
+   timed on the device (launches captured in a CUDA graph, replays timed
+   with CUDA events) beside the one-call ``torch.einsum`` of the same
+   contraction and its plain version (at the 5-gram shape only at F=128),
+   and through its Python wrapper in a host loop (``wrapper_ms``);
 2. main path: ``python -m protgram_directgcn_torch --stages graph,gcn``'s
    entry point on a seeded synthetic FASTA of Swiss-Prot-like size (20,000
    sequences, lengths 50-1,000), dims [256, 128, 64], n = 1..3, five epochs a
@@ -81,6 +84,11 @@ F32_TOL = (1e-5, 1e-5)  # rtol, atol
 BF16_REL_TO_MAX = 0.05  # max |err| <= 0.05 * max |ref| (tests/test_hypercube.py:160)
 MAIN_SHAPES = [(21, g, f) for g in (441, 21) for f in (256, 128, 64)]
 LARGE_SHAPE = (21, 194_481, 128)
+LARGE_WIDTHS = (64, 128, 256)  # the widths the 5-gram level's propagations take
+# Swiss-Prot's alphabet (25 letters and the space) at its n = 3 key count, at
+# widths that 16-byte accesses cannot take: the kernels' one-element path.
+RAGGED_SHAPES = [((26, 676, 100), "bfloat16"), ((26, 676, 37), "float32")]
+MISALIGNED_SHAPE = (21, 441, 256)  # x a contiguous view one element past an aligned start
 ELL_WIDTHS = (64, 128, 256)
 RETILE_CARRY = (21, 194_481, 64)  # A, G, f: the 5-gram level's last layer at [256, 128, 64]
 TIER_N = 5
@@ -187,16 +195,26 @@ def _err(torch, got, ref, dtype: str):
     return float(err.max()), ok
 
 
+def _kernel_cases():
+    """(shape, dtype, misaligned, time the plain versions) of every K1/K2 check."""
+    cases = [(s, dt, False, True) for s in MAIN_SHAPES for dt in ("float32", "bfloat16")]
+    a, g, f_main = LARGE_SHAPE
+    cases += [((a, g, f), "bfloat16", False, f == f_main) for f in LARGE_WIDTHS]
+    cases += [(s, dt, False, True) for s, dt in RAGGED_SHAPES]
+    cases += [(MISALIGNED_SHAPE, dt, True, True) for dt in ("float32", "bfloat16")]
+    return cases
+
+
 def check_kernels(torch, hk, hyper):
     """Hold K1/K2 (forward and swapped-bank backward) against the plain
     versions; time them.  Returns per-shape records."""
     records = []
-    shapes = [(s, dt) for s in MAIN_SHAPES for dt in ("float32", "bfloat16")]
-    shapes.append((LARGE_SHAPE, "bfloat16"))
-    for (a, g, f), dt in shapes:
+    for (a, g, f), dt, misaligned, time_plain in _kernel_cases():
         tdt = getattr(torch, dt)
         gen = torch.Generator(device=DEVICE).manual_seed(a * 1_000_003 + g * 1009 + f)
-        x = torch.randn(a, g, f, device=DEVICE, generator=gen).to(tdt)
+        off = 1 if misaligned else 0
+        base = torch.randn(a * g * f + off, device=DEVICE, generator=gen).to(tdt)
+        x = base[off:].view(a, g, f)
         wf = torch.randn(a, g, a, device=DEVICE, generator=gen).to(tdt)
         wb = torch.randn(a, g, a, device=DEVICE, generator=gen).to(tdt)
         d = torch.randn(a, g, device=DEVICE, generator=gen)
@@ -207,23 +225,26 @@ def check_kernels(torch, hk, hyper):
         out = hk.k2(d, wb, z.view(a, g, f), x, scale, shift)
         adj = hyper.HypercubeAdj(d=d, wf_rs=wf, wb_rs=wb,
                                  node_map=torch.arange(a * g, device=DEVICE))
-        xg = x.clone().requires_grad_(True)
-        y = hyper.propagate_hyper_affine(adj, xg, scale, shift)
+        leaf = base.clone().requires_grad_(True)  # the same offset as x
+        y = hyper.propagate_hyper_affine(adj, leaf[off:].view(a, g, f), scale, shift)
         y.backward(cot)
         torch.cuda.synchronize()
+        dx = leaf.grad[off:].view(a, g, f)
 
         z_ref = hk.k1_plain(wf, x)
         out_ref = hk.k2_plain(d, wb, z.view(a, g, f), x, scale, shift)
         y_ref = hk.k2_plain(d, wb, z_ref.view(a, g, f), x, scale, shift)
         dx_ref = hk.k2_plain(d, wf, hk.k1_plain(wb, cot).view(a, g, f), cot, scale, 0.0)
-        rec = {"shape": [a, g, f], "dtype": dt}
+        rec = {"shape": [a, g, f], "dtype": dt, "misaligned": misaligned,
+               "plan_k1": hk.launch_plan(a, g, f, tdt, hk._aligned(x, z))._asdict(),
+               "plan_k2": hk.launch_plan(a, g, f, tdt, hk._aligned(x, z, out))._asdict()}
         for name, got, ref in (("k1", z, z_ref), ("k2", out, out_ref),
-                               ("fwd", y.detach(), y_ref), ("bwd", xg.grad, dx_ref)):
+                               ("fwd", y.detach(), y_ref), ("bwd", dx, dx_ref)):
             err, ok = _err(torch, got, ref, dt)
             rec[f"{name}_max_abs_err"] = err
             if not ok:
-                fail(f"{name} disagrees with its plain version at A={a} G={g} F={f} {dt}: "
-                     f"max abs err {err}")
+                fail(f"{name} disagrees with its plain version at A={a} G={g} F={f} {dt} "
+                     f"misaligned={misaligned}: max abs err {err}")
             if not bool(torch.isfinite(got.float()).all()):
                 fail(f"{name} produced non-finite values at A={a} G={g} F={f} {dt}")
 
@@ -233,11 +254,12 @@ def check_kernels(torch, hk, hyper):
         fns = {
             "k1": lambda: hk.k1(wf, x),
             "k2": lambda: hk.k2(d, wb, zv, x, scale, shift),
-            "k1_plain": lambda: hk.k1_plain(wf, x),
-            "k2_plain": lambda: hk.k2_plain(d, wb, zv, x, scale, shift),
             "k1_library": lambda: torch.einsum("rgc,rgf->gcf", wf, x),
             "k2_library": lambda: torch.einsum("rgc,gcf->rgf", wb, x_gc),
         }
+        if time_plain:
+            fns["k1_plain"] = lambda: hk.k1_plain(wf, x)
+            fns["k2_plain"] = lambda: hk.k2_plain(d, wb, zv, x, scale, shift)
         for key, fn in fns.items():
             rec[f"{key}_ms"] = _device_ms(torch, fn, iters)
         for k in ("k1", "k2"):
@@ -246,7 +268,7 @@ def check_kernels(torch, hk, hyper):
             rec[f"{k[-2:]}_bound_ms"], rec[f"{k[-2:]}_bound_by"] = _bound(k, a, g, f, dt)
         emit("kernels", **rec)
         records.append(rec)
-        del x, wf, wb, d, cot, z, out, xg, y, z_ref, out_ref, y_ref, dx_ref, adj, fns
+        del base, x, wf, wb, d, cot, z, out, leaf, y, dx, z_ref, out_ref, y_ref, dx_ref, adj, fns
         torch.cuda.empty_cache()
     return records
 
@@ -817,9 +839,10 @@ def _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier
     carry (pack: the 128-padded input, which has a one-call library
     equivalent; the exact-width input under ``exact_width``), float32 under
     ``by_dtype``, and their launches on the tier path."""
-    main_rec = next(r for r in records if r["shape"] == [21, 441, 256] and r["dtype"] == "float32")
-    large_rec = next(r for r in records
-                     if r["shape"] == list(LARGE_SHAPE) and r["dtype"] == "bfloat16")
+    main_rec = next(r for r in records if r["shape"] == [21, 441, 256]
+                    and r["dtype"] == "float32" and not r["misaligned"])
+    large_recs = [r for r in records if r["shape"][:2] == list(LARGE_SHAPE[:2])]
+    large_rec = next(r for r in large_recs if r["shape"] == list(LARGE_SHAPE))
     kernels = []
     for name in ("hyper_k1", "hyper_k2"):
         k = name[-2:]
@@ -841,7 +864,15 @@ def _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier
             "wrapper_ms": main_rec[f"{k}_wrapper_ms"],
             "at_5gram": {key: large_rec[f"{k}_{key}"] for key in (
                 "ms", "plain_ms", "library_ms", "wrapper_ms", "bound_ms", "max_abs_err")}
-            | {"shape": large_rec["shape"], "dtype": large_rec["dtype"]},
+            | {"shape": large_rec["shape"], "dtype": large_rec["dtype"],
+               "by_f": {str(r["shape"][2]): {key: r[f"{k}_{key}"] for key in (
+                   "ms", "library_ms", "wrapper_ms", "bound_ms", "max_abs_err")}
+                   for r in large_recs}},
+            "other_shapes": [{"shape": r["shape"], "dtype": r["dtype"],
+                              "misaligned": r["misaligned"], "v": r[f"plan_{k}"]["v"]}
+                             | {key: r[f"{k}_{key}"] for key in (
+                                 "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                             for r in records if r["misaligned"] or r["shape"][0] != 21],
             "worst_max_abs_err_by_dtype": worst,
         })
     timed = ("ms", "plain_ms", "library_ms", "wrapper_ms", "bound_ms")
@@ -887,6 +918,11 @@ def _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier
     return kernels
 
 
+def _ptxas_lines(log) -> list:
+    """ptxas's registers and spill lines of each kernel in an nvcc log."""
+    return [ln.strip() for ln in str(log).splitlines() if "registers" in ln or "spill" in ln]
+
+
 def main() -> int:
     import torch
 
@@ -911,8 +947,7 @@ def main() -> int:
         infos = dict(zip(("hyper", "ell", "retile"),
                          pool.map(lambda build: build(), (hk.build, ek.build, rt.build))))
     build_wall = time.monotonic() - t_build
-    ptxas = {name: [ln.strip() for ln in str(info["log"]).splitlines() if "registers" in ln]
-             for name, info in infos.items()}
+    ptxas = {name: _ptxas_lines(info["log"]) for name, info in infos.items()}
     emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          build_wall_seconds=build_wall,

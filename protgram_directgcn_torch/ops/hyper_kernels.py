@@ -15,14 +15,17 @@ The source is compiled with ``nvcc`` for ``sm_90a`` into a plain-C shared
 library under ``protgram_directgcn_torch/_build/`` at first use, again only
 when the source's hash changes (``ops/_nvcc.py``), and loaded with
 ``ctypes``.  CPU tensors take the plain PyTorch versions below; CUDA tensors
-launch the kernels or raise.
+launch the kernels or raise.  ``launch_plan`` works out each launch's
+geometry here, before the launch; the entry points check it and refuse a
+plan they cannot run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,12 +68,13 @@ def build() -> Dict[str, object]:
         info = _nvcc.compile_source("hyper")
         lib = ctypes.CDLL(str(info["path"]))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        plan = [i32] * 7  # v, keys, ct, threads, grid_x, grid_y, smem
         for dt in ("f32", "bf16"):
             k1 = getattr(lib, f"hyper_k1_{dt}")
-            k1.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+            k1.argtypes = [ptr, ptr, ptr, i32, i32, i32, *plan, ptr]
             k1.restype = i32
             k2 = getattr(lib, f"hyper_k2_{dt}")
-            k2.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, ptr]
+            k2.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, *plan, ptr]
             k2.restype = i32
         lib.hyper_max_alphabet.argtypes = []
         lib.hyper_max_alphabet.restype = i32
@@ -79,6 +83,73 @@ def build() -> Dict[str, object]:
         BUILD_INFO.update(info)
         _lib = lib
         return BUILD_INFO
+
+
+# -----------------------------------------------------------------------------
+# Launch plan
+# -----------------------------------------------------------------------------
+
+VEC_BYTES = 16  # one global access a thread
+MAX_KEYS = 8  # keys a block (csrc/hyper.cu kMaxKeys)
+MAX_THREADS = 256  # the kernels' launch bound (kMaxThreads)
+SMS = 132  # H100 SXM streaming multiprocessors
+ROWS = 4  # slab rows are padded to a multiple of this (kRows)
+
+
+class LaunchPlan(NamedTuple):
+    """Geometry of one K1 or K2 launch.  Thread ``t`` of block ``(bx, by)``
+    takes key ``bx * keys + t // ct`` and the ``v`` features from column
+    ``(by * ct + t % ct) * v``; threads past ``keys * ct``, keys past G and
+    chunks past F / v idle."""
+
+    v: int  # features a thread owns in each row: 16 bytes' worth, or 1
+    keys: int  # consecutive keys a block
+    ct: int  # chunks of one key a block
+    threads: int
+    grid: Tuple[int, int]
+    smem: int  # bytes: f32 bank slabs [keys, AP, OP] and diagonal [keys, OP]
+
+
+def padded_alphabet(a: int) -> int:
+    """The kernels' compile-time bound AP of the loops over A: 16, 21, 24 or
+    32 (csrc/hyper.cu ``padded_alphabet``)."""
+    return 16 if a <= 16 else 21 if a == 21 else 24 if a <= 24 else 32
+
+
+def _cdiv(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def launch_plan(a: int, g: int, f: int, dtype: torch.dtype, aligned: bool) -> LaunchPlan:
+    """The launch of K1 or K2 on a carry ``[A, G, F]`` of ``dtype``.
+
+    ``aligned``: every carry pointer of the launch is 16-byte aligned.  16-byte
+    accesses need that and ``F * itemsize % 16 == 0``; otherwise ``v = 1``.
+    Keys a block grow with G while the grid keeps at least one block per SM
+    (G = 441 takes 3, G = 21 one), up to ``MAX_KEYS`` and ``MAX_THREADS``.
+    """
+    v = VEC_BYTES // dtype.itemsize if aligned and (f * dtype.itemsize) % VEC_BYTES == 0 else 1
+    chunks = f // v
+    grid_y = _cdiv(chunks, MAX_THREADS)
+    ct = _cdiv(chunks, grid_y)
+    keys = max(1, min(MAX_KEYS, g // SMS, MAX_THREADS // ct))
+    threads = _cdiv(keys * ct, 32) * 32
+    ap = padded_alphabet(a)
+    op = _cdiv(ap, ROWS) * ROWS
+    return LaunchPlan(v=v, keys=keys, ct=ct, threads=threads, grid=(_cdiv(g, keys), grid_y),
+                      smem=4 * keys * op * (ap + 1))
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % VEC_BYTES == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_args(a: int, g: int, f: int, dtype: torch.dtype, aligned: bool) -> Tuple[int, ...]:
+    """``launch_plan`` as the entry points take it, cached: a wrapper call at
+    the main path's sizes costs more on the host than its kernel on the card."""
+    plan = launch_plan(a, g, f, dtype, aligned)
+    return (plan.v, plan.keys, plan.ct, plan.threads, plan.grid[0], plan.grid[1], plan.smem)
 
 
 # -----------------------------------------------------------------------------
@@ -107,7 +178,7 @@ def _library(a: int) -> ctypes.CDLL:
         build()
     if a > BUILD_INFO["max_alphabet"]:
         raise ValueError(
-            f"alphabet {a} > {BUILD_INFO['max_alphabet']}, the kernels' per-thread column"
+            f"alphabet {a} > {BUILD_INFO['max_alphabet']}, the kernels' unrolled bound"
         )
     return _lib
 
@@ -146,7 +217,8 @@ def k1(w1: torch.Tensor, x: torch.Tensor, direction: str = "fwd") -> torch.Tenso
     lib = _library(a)
     z = torch.empty((g, a, f), dtype=x.dtype, device=x.device)
     fn = getattr(lib, f"hyper_k1_{_SUFFIX[x.dtype]}")
-    rc = fn(w1.data_ptr(), x.data_ptr(), z.data_ptr(), a, g, f, _nvcc.stream_ptr(x))
+    rc = fn(w1.data_ptr(), x.data_ptr(), z.data_ptr(), a, g, f,
+            *_plan_args(a, g, f, x.dtype, _aligned(x, z)), _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, "K1")
     LAUNCHES["k1"][direction] += 1
     return z
@@ -166,7 +238,8 @@ def k2(d: torch.Tensor, w2: torch.Tensor, z_rg: torch.Tensor, x: torch.Tensor,
     out = torch.empty_like(x)
     fn = getattr(lib, f"hyper_k2_{_SUFFIX[x.dtype]}")
     rc = fn(d.data_ptr(), w2.data_ptr(), z_rg.data_ptr(), x.data_ptr(), out.data_ptr(),
-            a, g, f, float(scale), float(shift), _nvcc.stream_ptr(x))
+            a, g, f, float(scale), float(shift),
+            *_plan_args(a, g, f, x.dtype, _aligned(x, z_rg, out)), _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, "K2")
     LAUNCHES["k2"][direction] += 1
     return out
