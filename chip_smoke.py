@@ -221,6 +221,7 @@ def check_kernels(torch, hk, hyper):
         cot = torch.randn(a, g, f, device=DEVICE, generator=gen).to(tdt)
         scale, shift = 0.75, 0.125
 
+        hk.reset_launches()
         z = hk.k1(wf, x)
         out = hk.k2(d, wb, z.view(a, g, f), x, scale, shift)
         adj = hyper.HypercubeAdj(d=d, wf_rs=wf, wb_rs=wb,
@@ -230,14 +231,24 @@ def check_kernels(torch, hk, hyper):
         y.backward(cot)
         torch.cuda.synchronize()
         dx = leaf.grad[off:].view(a, g, f)
+        # The case's three launches of each kernel (direct, forward, backward)
+        # by the features a thread owns: the one-element path exactly where
+        # 16-byte access is impossible.  A misaligned x takes it in the two
+        # launches on x; the backward's are on the aligned cotangent.
+        by_v = hk.launch_counts_by_v()
+        vec = 16 // tdt.itemsize
+        want = ({1: 3} if f * tdt.itemsize % 16 else {1: 2, vec: 1} if misaligned else {vec: 3})
+        for k, counts in by_v.items():
+            if counts != want:
+                fail(f"{k} at A={a} G={g} F={f} {dt} misaligned={misaligned} launched "
+                     f"{counts} by features a thread, expected {want}")
 
         z_ref = hk.k1_plain(wf, x)
         out_ref = hk.k2_plain(d, wb, z.view(a, g, f), x, scale, shift)
         y_ref = hk.k2_plain(d, wb, z_ref.view(a, g, f), x, scale, shift)
         dx_ref = hk.k2_plain(d, wf, hk.k1_plain(wb, cot).view(a, g, f), cot, scale, 0.0)
         rec = {"shape": [a, g, f], "dtype": dt, "misaligned": misaligned,
-               "plan_k1": hk.launch_plan(a, g, f, tdt, hk._aligned(x, z))._asdict(),
-               "plan_k2": hk.launch_plan(a, g, f, tdt, hk._aligned(x, z, out))._asdict()}
+               "launches_by_v": {k: {str(v): n for v, n in c.items()} for k, c in by_v.items()}}
         for name, got, ref in (("k1", z, z_ref), ("k2", out, out_ref),
                                ("fwd", y.detach(), y_ref), ("bwd", dx, dx_ref)):
             err, ok = _err(torch, got, ref, dt)
@@ -869,7 +880,8 @@ def _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier
                    "ms", "library_ms", "wrapper_ms", "bound_ms", "max_abs_err")}
                    for r in large_recs}},
             "other_shapes": [{"shape": r["shape"], "dtype": r["dtype"],
-                              "misaligned": r["misaligned"], "v": r[f"plan_{k}"]["v"]}
+                              "misaligned": r["misaligned"],
+                              "launches_by_v": r["launches_by_v"][k]}
                              | {key: r[f"{k}_{key}"] for key in (
                                  "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
                              for r in records if r["misaligned"] or r["shape"][0] != 21],

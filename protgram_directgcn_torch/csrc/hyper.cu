@@ -38,14 +38,15 @@
 //    for K2 and zero-padded so that a thread reads the weights of its
 //    output rows for one input row with one vector load;
 //  - no dependent round trip per output row: the loops over A are unrolled
-//    to a compile-time bound (16, 21, 24 or 32), each thread issues its A
+//    to a compile-time bound (21, the paths' alphabet, or 32), each thread issues its A
 //    input chunks before it stages the slabs and holds them in registers as
 //    loaded (bf16 pairs packed in 32-bit words, widened where used), the
 //    slab staging issues several rows of a column before it stores any, and
 //    a thread computes kGroup output rows at once (K2 issuing their z and x
 //    chunks first).
-// The launch plan (V, keys, threads, grid, shared bytes) is computed by the
-// caller (ops/hyper_kernels.py, launch_plan); the entry points check it and
+// The launch plan (V, the bound of A, keys, threads, grid) is computed by the
+// caller (ops/hyper_kernels.py, launch_plan, which reads the k* bounds below
+// from this file); the entry points check it, size the shared memory and
 // return cudaErrorInvalidValue on a plan they cannot run.  f32 accumulation;
 // stores in the carry dtype, rounded to nearest even.
 //
@@ -59,7 +60,7 @@
 
 namespace {
 
-constexpr int kMaxAlphabet = 32;  // largest compile-time bound of the unrolled A loops
+constexpr int kMaxAlphabet = 32;  // the compile-time bounds of the A loops: 21 and this
 constexpr int kMaxKeys = 8;       // keys a block: 8 * 32 * 33 * 4 bytes = 33 KB of slabs at most
 constexpr int kMaxThreads = 256;  // launch bound: up to 255 registers a thread
 constexpr int kRows = 4;          // slab rows padded to a multiple of this (16 bytes)
@@ -168,7 +169,10 @@ template <int AMAX>
 struct Padded {
   static constexpr int OP = (AMAX + kRows - 1) / kRows * kRows;  // out-side row length
   static constexpr int SLAB = AMAX * OP;                           // floats a key
+  static constexpr int BYTES = (SLAB + OP) * (int)sizeof(float);   // slab and diagonal a key
 };
+static_assert(kMaxKeys * Padded<kMaxAlphabet>::BYTES <= 48 * 1024,
+              "the slabs of a block fit the shared memory a launch gets without opt-in");
 
 template <typename T, int V, int AMAX, bool kK2>
 __global__ void __launch_bounds__(kMaxThreads) hyper_kernel(const Args args) {
@@ -310,96 +314,86 @@ __global__ void __launch_bounds__(kMaxThreads) hyper_kernel(const Args args) {
 }
 
 // The instantiations, by the compile-time bound of the loops over A.
-inline int padded_alphabet(int a) { return a <= 16 ? 16 : a == 21 ? 21 : a <= 24 ? 24 : 32; }
-
 template <typename T, int V, bool kK2>
-void launch_bounded(const Args& args, dim3 grid, int threads, int smem, cudaStream_t stream) {
-  switch (padded_alphabet(args.a)) {
-    case 32: hyper_kernel<T, V, 32, kK2><<<grid, threads, smem, stream>>>(args); break;
-    case 24: hyper_kernel<T, V, 24, kK2><<<grid, threads, smem, stream>>>(args); break;
-    case 21: hyper_kernel<T, V, 21, kK2><<<grid, threads, smem, stream>>>(args); break;
-    default: hyper_kernel<T, V, 16, kK2><<<grid, threads, smem, stream>>>(args); break;
+void launch_bounded(const Args& args, int amax, dim3 grid, int threads, cudaStream_t stream) {
+  if (amax == 21) {
+    const int smem = args.keys * Padded<21>::BYTES;
+    hyper_kernel<T, V, 21, kK2><<<grid, threads, smem, stream>>>(args);
+  } else {
+    const int smem = args.keys * Padded<kMaxAlphabet>::BYTES;
+    hyper_kernel<T, V, kMaxAlphabet, kK2><<<grid, threads, smem, stream>>>(args);
   }
-}
-
-inline int slab_bytes(int keys, int a) {
-  const int amax = padded_alphabet(a);
-  const int op = (amax + kRows - 1) / kRows * kRows;
-  return keys * op * (amax + 1) * (int)sizeof(float);
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 // The caller's plan (ops/hyper_kernels.py, launch_plan), checked: V is the
-// 16-byte width or 1, the grid covers every chunk of every key once, the
-// block fits the launch bound and the shared memory holds the slabs.
+// 16-byte width or 1, the bound of A is an instantiation's and holds A, the
+// grid covers every chunk of every key once and the block fits the launch
+// bound.
 template <typename T, bool kK2>
-int launch(const Args& args, int v, int threads, int grid_x, int grid_y, int smem,
+int launch(const Args& args, int v, int amax, int threads, int grid_x, int grid_y,
            void* stream) {
   constexpr int kVec = 16 / sizeof(T);
   const int64_t a = args.a, g = args.g, f = args.f;
-  bool ok = a >= 1 && a <= kMaxAlphabet && g >= 1 && f >= 1;
+  bool ok = a >= 1 && (amax == 21 || amax == kMaxAlphabet) && a <= amax && g >= 1 && f >= 1;
   ok = ok && (v == 1 || (v == kVec && f % v == 0 && aligned16(args.in) && aligned16(args.out) &&
                          (!kK2 || aligned16(args.z))));
   ok = ok && args.keys >= 1 && args.keys <= kMaxKeys && args.ct >= 1;
   ok = ok && threads % 32 == 0 && threads <= kMaxThreads && threads >= args.keys * args.ct;
   ok = ok && grid_x == (g + args.keys - 1) / args.keys && grid_y >= 1 && grid_y <= 65535 &&
        (int64_t)grid_y * args.ct >= f / v;
-  ok = ok && smem == slab_bytes(args.keys, args.a);
   if (!ok) return (int)cudaErrorInvalidValue;
   const dim3 grid(grid_x, grid_y);
   if (v == 1) {
-    launch_bounded<T, 1, kK2>(args, grid, threads, smem, (cudaStream_t)stream);
+    launch_bounded<T, 1, kK2>(args, amax, grid, threads, (cudaStream_t)stream);
   } else {
-    launch_bounded<T, kVec, kK2>(args, grid, threads, smem, (cudaStream_t)stream);
+    launch_bounded<T, kVec, kK2>(args, amax, grid, threads, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
 
+#define HYPER_PLAN int v, int amax, int keys, int ct, int threads, int grid_x, int grid_y
+
 template <typename T>
-int launch_k1(const void* w1, const void* x, void* z, int a, int g, int f, int v, int keys,
-              int ct, int threads, int grid_x, int grid_y, int smem, void* stream) {
+int launch_k1(const void* w1, const void* x, void* z, int a, int g, int f, HYPER_PLAN,
+              void* stream) {
   const Args args{w1, x, z, nullptr, nullptr, a, g, f, keys, ct, 1.0f, 0.0f};
-  return launch<T, false>(args, v, threads, grid_x, grid_y, smem, stream);
+  return launch<T, false>(args, v, amax, threads, grid_x, grid_y, stream);
 }
 
 template <typename T>
 int launch_k2(const void* d, const void* w2, const void* z, const void* x, void* out, int a,
-              int g, int f, float scale, float shift, int v, int keys, int ct, int threads,
-              int grid_x, int grid_y, int smem, void* stream) {
+              int g, int f, float scale, float shift, HYPER_PLAN, void* stream) {
   const Args args{w2, x, out, z, (const float*)d, a, g, f, keys, ct, scale, shift};
-  return launch<T, true>(args, v, threads, grid_x, grid_y, smem, stream);
+  return launch<T, true>(args, v, amax, threads, grid_x, grid_y, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int hyper_max_alphabet() { return kMaxAlphabet; }
+#define HYPER_PLAN_ARGS v, amax, keys, ct, threads, grid_x, grid_y
 
-int hyper_k1_f32(const void* w1, const void* x, void* z, int a, int g, int f, int v, int keys,
-                 int ct, int threads, int grid_x, int grid_y, int smem, void* stream) {
-  return launch_k1<float>(w1, x, z, a, g, f, v, keys, ct, threads, grid_x, grid_y, smem, stream);
+int hyper_k1_f32(const void* w1, const void* x, void* z, int a, int g, int f, HYPER_PLAN,
+                 void* stream) {
+  return launch_k1<float>(w1, x, z, a, g, f, HYPER_PLAN_ARGS, stream);
 }
 
-int hyper_k1_bf16(const void* w1, const void* x, void* z, int a, int g, int f, int v, int keys,
-                  int ct, int threads, int grid_x, int grid_y, int smem, void* stream) {
-  return launch_k1<__nv_bfloat16>(w1, x, z, a, g, f, v, keys, ct, threads, grid_x, grid_y, smem,
-                                  stream);
+int hyper_k1_bf16(const void* w1, const void* x, void* z, int a, int g, int f, HYPER_PLAN,
+                  void* stream) {
+  return launch_k1<__nv_bfloat16>(w1, x, z, a, g, f, HYPER_PLAN_ARGS, stream);
 }
 
 int hyper_k2_f32(const void* d, const void* w2, const void* z, const void* x, void* out, int a,
-                 int g, int f, float scale, float shift, int v, int keys, int ct, int threads,
-                 int grid_x, int grid_y, int smem, void* stream) {
-  return launch_k2<float>(d, w2, z, x, out, a, g, f, scale, shift, v, keys, ct, threads, grid_x,
-                          grid_y, smem, stream);
+                 int g, int f, float scale, float shift, HYPER_PLAN, void* stream) {
+  return launch_k2<float>(d, w2, z, x, out, a, g, f, scale, shift, HYPER_PLAN_ARGS, stream);
 }
 
 int hyper_k2_bf16(const void* d, const void* w2, const void* z, const void* x, void* out, int a,
-                  int g, int f, float scale, float shift, int v, int keys, int ct, int threads,
-                  int grid_x, int grid_y, int smem, void* stream) {
-  return launch_k2<__nv_bfloat16>(d, w2, z, x, out, a, g, f, scale, shift, v, keys, ct, threads,
-                                  grid_x, grid_y, smem, stream);
+                  int g, int f, float scale, float shift, HYPER_PLAN, void* stream) {
+  return launch_k2<__nv_bfloat16>(d, w2, z, x, out, a, g, f, scale, shift, HYPER_PLAN_ARGS,
+                                  stream);
 }
 
 }  // extern "C"

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -34,12 +35,14 @@ from protgram_directgcn_torch.ops import _nvcc
 BUILD_DIR = _nvcc.BUILD_DIR
 
 # Launches per kernel and direction ("fwd": forward product, "bwd": the
-# bank-swapped transpose product of the backward pass).  The wrappers add one
-# where they launch a kernel and nowhere else.
+# bank-swapped transpose product of the backward pass), and per kernel by the
+# features a thread owns (the plan's ``v``: 1, or 16 bytes' worth).  The
+# wrappers add one where they launch a kernel and nowhere else.
 LAUNCHES: Dict[str, Dict[str, int]] = {
     "k1": {"fwd": 0, "bwd": 0},
     "k2": {"fwd": 0, "bwd": 0},
 }
+LAUNCHES_BY_V: Dict[str, Dict[int, int]] = {"k1": {}, "k2": {}}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -50,16 +53,27 @@ def reset_launches() -> None:
     for per_dir in LAUNCHES.values():
         for k in per_dir:
             per_dir[k] = 0
+    for per_v in LAUNCHES_BY_V.values():
+        per_v.clear()
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:
     return {name: dict(per_dir) for name, per_dir in LAUNCHES.items()}
 
 
+def launch_counts_by_v() -> Dict[str, Dict[int, int]]:
+    return {name: dict(per_v) for name, per_v in LAUNCHES_BY_V.items()}
+
+
+def _count(kernel: str, direction: str, v: int) -> None:
+    LAUNCHES[kernel][direction] += 1
+    LAUNCHES_BY_V[kernel][v] = LAUNCHES_BY_V[kernel].get(v, 0) + 1
+
+
 def build() -> Dict[str, object]:
     """Compile (``ops/_nvcc.py``) and load the kernel library (idempotent).
 
-    Returns ``{"path", "seconds", "built", "log", "max_alphabet"}``.
+    Returns ``{"path", "seconds", "built", "log"}``.
     """
     global _lib
     with _lib_lock:
@@ -68,7 +82,7 @@ def build() -> Dict[str, object]:
         info = _nvcc.compile_source("hyper")
         lib = ctypes.CDLL(str(info["path"]))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        plan = [i32] * 7  # v, keys, ct, threads, grid_x, grid_y, smem
+        plan = [i32] * 7  # v, amax, keys, ct, threads, grid_x, grid_y
         for dt in ("f32", "bf16"):
             k1 = getattr(lib, f"hyper_k1_{dt}")
             k1.argtypes = [ptr, ptr, ptr, i32, i32, i32, *plan, ptr]
@@ -76,9 +90,6 @@ def build() -> Dict[str, object]:
             k2 = getattr(lib, f"hyper_k2_{dt}")
             k2.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, *plan, ptr]
             k2.restype = i32
-        lib.hyper_max_alphabet.argtypes = []
-        lib.hyper_max_alphabet.restype = i32
-        info["max_alphabet"] = int(lib.hyper_max_alphabet())
         BUILD_INFO.clear()
         BUILD_INFO.update(info)
         _lib = lib
@@ -90,10 +101,13 @@ def build() -> Dict[str, object]:
 # -----------------------------------------------------------------------------
 
 VEC_BYTES = 16  # one global access a thread
-MAX_KEYS = 8  # keys a block (csrc/hyper.cu kMaxKeys)
-MAX_THREADS = 256  # the kernels' launch bound (kMaxThreads)
-SMS = 132  # H100 SXM streaming multiprocessors
-ROWS = 4  # slab rows are padded to a multiple of this (kRows)
+# The kernels' bounds, read from the source that compiles them: the largest
+# compile-time bound of the loops over A, keys a block, threads a block.
+_BOUNDS = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                          (_nvcc.CSRC / "hyper.cu").read_text()))
+MAX_ALPHABET = int(_BOUNDS["kMaxAlphabet"])
+MAX_KEYS = int(_BOUNDS["kMaxKeys"])
+MAX_THREADS = int(_BOUNDS["kMaxThreads"])
 
 
 class LaunchPlan(NamedTuple):
@@ -103,41 +117,39 @@ class LaunchPlan(NamedTuple):
     chunks past F / v idle."""
 
     v: int  # features a thread owns in each row: 16 bytes' worth, or 1
+    amax: int  # the instantiation: compile-time bound of the loops over A
     keys: int  # consecutive keys a block
     ct: int  # chunks of one key a block
     threads: int
     grid: Tuple[int, int]
-    smem: int  # bytes: f32 bank slabs [keys, AP, OP] and diagonal [keys, OP]
-
-
-def padded_alphabet(a: int) -> int:
-    """The kernels' compile-time bound AP of the loops over A: 16, 21, 24 or
-    32 (csrc/hyper.cu ``padded_alphabet``)."""
-    return 16 if a <= 16 else 21 if a == 21 else 24 if a <= 24 else 32
 
 
 def _cdiv(n: int, d: int) -> int:
     return -(-n // d)
 
 
-def launch_plan(a: int, g: int, f: int, dtype: torch.dtype, aligned: bool) -> LaunchPlan:
-    """The launch of K1 or K2 on a carry ``[A, G, F]`` of ``dtype``.
+def launch_plan(a: int, g: int, f: int, dtype: torch.dtype, aligned: bool,
+                sms: int) -> LaunchPlan:
+    """The launch of K1 or K2 on a carry ``[A, G, F]`` of ``dtype`` on a card
+    of ``sms`` streaming multiprocessors.
 
     ``aligned``: every carry pointer of the launch is 16-byte aligned.  16-byte
     accesses need that and ``F * itemsize % 16 == 0``; otherwise ``v = 1``.
-    Keys a block grow with G while the grid keeps at least one block per SM
-    (G = 441 takes 3, G = 21 one), up to ``MAX_KEYS`` and ``MAX_THREADS``.
+    The loops over A are bounded by 21 (the paths' alphabet) or
+    ``MAX_ALPHABET``.  Keys a block grow with G while the grid keeps at least
+    one block per SM (G = 441 takes 3 on an H100 SXM, G = 21 one), up to
+    ``MAX_KEYS`` and ``MAX_THREADS``.
     """
+    if not 1 <= a <= MAX_ALPHABET:
+        raise ValueError(f"alphabet {a} outside 1..{MAX_ALPHABET}, the kernels' unrolled bound")
     v = VEC_BYTES // dtype.itemsize if aligned and (f * dtype.itemsize) % VEC_BYTES == 0 else 1
     chunks = f // v
     grid_y = _cdiv(chunks, MAX_THREADS)
     ct = _cdiv(chunks, grid_y)
-    keys = max(1, min(MAX_KEYS, g // SMS, MAX_THREADS // ct))
+    keys = max(1, min(MAX_KEYS, g // sms, MAX_THREADS // ct))
     threads = _cdiv(keys * ct, 32) * 32
-    ap = padded_alphabet(a)
-    op = _cdiv(ap, ROWS) * ROWS
-    return LaunchPlan(v=v, keys=keys, ct=ct, threads=threads, grid=(_cdiv(g, keys), grid_y),
-                      smem=4 * keys * op * (ap + 1))
+    return LaunchPlan(v=v, amax=21 if a == 21 else MAX_ALPHABET, keys=keys, ct=ct,
+                      threads=threads, grid=(_cdiv(g, keys), grid_y))
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -145,11 +157,14 @@ def _aligned(*tensors: torch.Tensor) -> bool:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_args(a: int, g: int, f: int, dtype: torch.dtype, aligned: bool) -> Tuple[int, ...]:
-    """``launch_plan`` as the entry points take it, cached: a wrapper call at
-    the main path's sizes costs more on the host than its kernel on the card."""
-    plan = launch_plan(a, g, f, dtype, aligned)
-    return (plan.v, plan.keys, plan.ct, plan.threads, plan.grid[0], plan.grid[1], plan.smem)
+def _plan_args(a: int, g: int, f: int, dtype: torch.dtype, aligned: bool,
+               device: int) -> Tuple[int, ...]:
+    """``launch_plan`` on CUDA device ``device`` as the entry points take it,
+    cached: a wrapper call at the main path's sizes costs more on the host
+    than its kernel on the card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = launch_plan(a, g, f, dtype, aligned, sms)
+    return (plan.v, plan.amax, plan.keys, plan.ct, plan.threads, *plan.grid)
 
 
 # -----------------------------------------------------------------------------
@@ -173,13 +188,9 @@ def _check_inputs(x: torch.Tensor, banks, d: Optional[torch.Tensor] = None):
     return a, g, f
 
 
-def _library(a: int) -> ctypes.CDLL:
+def _library() -> ctypes.CDLL:
     if _lib is None:
         build()
-    if a > BUILD_INFO["max_alphabet"]:
-        raise ValueError(
-            f"alphabet {a} > {BUILD_INFO['max_alphabet']}, the kernels' unrolled bound"
-        )
     return _lib
 
 
@@ -214,13 +225,12 @@ def k1(w1: torch.Tensor, x: torch.Tensor, direction: str = "fwd") -> torch.Tenso
         return k1_plain(w1, x)
     if x.device.type != "cuda":
         raise ValueError(f"k1: unsupported device {x.device}")
-    lib = _library(a)
     z = torch.empty((g, a, f), dtype=x.dtype, device=x.device)
-    fn = getattr(lib, f"hyper_k1_{_SUFFIX[x.dtype]}")
-    rc = fn(w1.data_ptr(), x.data_ptr(), z.data_ptr(), a, g, f,
-            *_plan_args(a, g, f, x.dtype, _aligned(x, z)), _nvcc.stream_ptr(x))
+    plan = _plan_args(a, g, f, x.dtype, _aligned(x, z), x.device.index)
+    fn = getattr(_library(), f"hyper_k1_{_SUFFIX[x.dtype]}")
+    rc = fn(w1.data_ptr(), x.data_ptr(), z.data_ptr(), a, g, f, *plan, _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, "K1")
-    LAUNCHES["k1"][direction] += 1
+    _count("k1", direction, plan[0])
     return z
 
 
@@ -234,13 +244,12 @@ def k2(d: torch.Tensor, w2: torch.Tensor, z_rg: torch.Tensor, x: torch.Tensor,
         return k2_plain(d, w2, z_rg, x, scale, shift)
     if x.device.type != "cuda":
         raise ValueError(f"k2: unsupported device {x.device}")
-    lib = _library(a)
     out = torch.empty_like(x)
-    fn = getattr(lib, f"hyper_k2_{_SUFFIX[x.dtype]}")
+    plan = _plan_args(a, g, f, x.dtype, _aligned(x, z_rg, out), x.device.index)
+    fn = getattr(_library(), f"hyper_k2_{_SUFFIX[x.dtype]}")
     rc = fn(d.data_ptr(), w2.data_ptr(), z_rg.data_ptr(), x.data_ptr(), out.data_ptr(),
-            a, g, f, float(scale), float(shift),
-            *_plan_args(a, g, f, x.dtype, _aligned(x, z_rg, out)), _nvcc.stream_ptr(x))
+            a, g, f, float(scale), float(shift), *plan, _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, "K2")
-    LAUNCHES["k2"][direction] += 1
+    _count("k2", direction, plan[0])
     return out
 

@@ -19,6 +19,13 @@ ALPHABETS = range(1, 33)
 WIDTHS = (1, 7, 8, 37, 64, 100, 128, 256, 512)
 KEYS = (1, 21, 441, 194_481)
 SMEM_LIMIT = 48 * 1024  # static and dynamic shared memory without the opt-in attribute
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def _shared_bytes(keys: int, amax: int) -> int:
+    """Shared memory of a block: per key an f32 slab [amax, OP] and a
+    diagonal row [OP], OP being amax rounded up to 4 floats (16 bytes)."""
+    return 4 * keys * (amax + 1) * (-(-amax // 4) * 4)
 
 
 def _covered_once(n: int, blocks: int, per_block: int) -> bool:
@@ -36,7 +43,7 @@ def test_launch_plan(dtype, g, aligned):
     itemsize = dtype.itemsize
     for a in ALPHABETS:
         for f in WIDTHS:
-            plan = hk.launch_plan(a, g, f, dtype, aligned)
+            plan = hk.launch_plan(a, g, f, dtype, aligned, SMS)
             where = f"A={a} G={g} F={f} {dtype} aligned={aligned}: {plan}"
             vector = aligned and (f * itemsize) % 16 == 0
             assert plan.v == (16 // itemsize if vector else 1), where
@@ -49,27 +56,41 @@ def test_launch_plan(dtype, g, aligned):
             assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024, where
             assert plan.threads <= hk.MAX_THREADS, where
             assert plan.grid[1] <= 65_535, where
-            assert plan.smem <= SMEM_LIMIT, where
-            assert plan.grid[0] * plan.grid[1] >= min(g, hk.SMS), where
+            assert plan.keys <= hk.MAX_KEYS, where
+            assert _shared_bytes(plan.keys, plan.amax) <= SMEM_LIMIT, where
+            assert plan.grid[0] * plan.grid[1] >= min(g, SMS), where
 
 
 @pytest.mark.parametrize("a", ALPHABETS)
 def test_padded_alphabet_bounds_every_alphabet(a):
-    ap = hk.padded_alphabet(a)
-    assert ap in (16, 21, 24, 32) and a <= ap
-    # The slabs and the diagonal: keys * [AP, OP] + keys * [OP] floats, OP
-    # the slab row padded to a multiple of ROWS.
-    op = -(-ap // hk.ROWS) * hk.ROWS
-    plan = hk.launch_plan(a, 194_481, 128, torch.bfloat16, True)
-    assert plan.smem == 4 * plan.keys * op * (ap + 1)
+    # Two instantiations: A = 21 (every path's alphabet) and the bound 32.
+    plan = hk.launch_plan(a, 194_481, 128, torch.bfloat16, True, SMS)
+    assert plan.amax == (21 if a == 21 else hk.MAX_ALPHABET) and a <= plan.amax
+    assert plan.keys == hk.MAX_KEYS
+    assert _shared_bytes(plan.keys, plan.amax) <= SMEM_LIMIT
+
+
+def test_plan_refuses_alphabets_past_the_bound():
+    for a in (0, hk.MAX_ALPHABET + 1):
+        with pytest.raises(ValueError):
+            hk.launch_plan(a, 441, 128, torch.float32, True, SMS)
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+def test_grid_fills_the_sms_of_the_card(sms):
+    for g in KEYS:
+        plan = hk.launch_plan(21, g, 128, torch.bfloat16, True, sms)
+        assert plan.grid[0] * plan.grid[1] >= min(g, sms)
+        assert _covered_once(g, plan.grid[0], plan.keys)
+    assert hk.launch_plan(21, 441, 128, torch.bfloat16, True, sms).keys == 441 // sms
 
 
 def test_keys_a_block_follow_the_key_count():
     # 16 threads a key at F = 128 in bf16: the thread bound leaves the key
     # count to G.  At F = 256 in f32 (64 threads a key) it caps keys at 4.
-    keys = {g: hk.launch_plan(21, g, 128, torch.bfloat16, True).keys for g in KEYS}
+    keys = {g: hk.launch_plan(21, g, 128, torch.bfloat16, True, SMS).keys for g in KEYS}
     assert keys == {1: 1, 21: 1, 441: 3, 194_481: hk.MAX_KEYS}
-    assert hk.launch_plan(21, 194_481, 256, torch.float32, True).keys == 4
+    assert hk.launch_plan(21, 194_481, 256, torch.float32, True, SMS).keys == 4
 
 
 def test_alignment_is_read_from_the_pointers():
@@ -78,4 +99,4 @@ def test_alignment_is_read_from_the_pointers():
     view = base[1:].view(21, 441, 256)  # contiguous, one element past an aligned start
     assert view.is_contiguous() and not hk._aligned(view)
     a, g, f = view.shape
-    assert hk.launch_plan(a, g, f, view.dtype, hk._aligned(view)).v == 1
+    assert hk.launch_plan(a, g, f, view.dtype, hk._aligned(view), SMS).v == 1
