@@ -7,7 +7,8 @@ Phases, each printing one JSON line as it ends:
 
 0. device: the card's name and power limit (as nvidia-smi prints them), and
    the nvcc builds of csrc/hyper.cu (K1/K2), csrc/ell.cu (the ELL kernels)
-   and csrc/retile.cu (pack/unpack), started together, with their times;
+   and csrc/retile.cu (pack/unpack), started together, with their times,
+   ptxas's registers and spills, and the ELL plans' occupancy;
 1. kernels: K1 and K2, forward and the bank-swapped backward, held against
    their plain PyTorch versions at the main path's shapes (A=21, G=441 and
    21, F=256/128/64, float32 and bfloat16), at the 5-gram hypercube
@@ -38,7 +39,16 @@ Phases, each printing one JSON line as it ends:
    ``ell_hbm`` at its n = 4 operator (𝒜_in, K as built), F = 64, 128, 256,
    f32, forward and the transpose-orientation backward, held against their
    plain versions and timed like K1/K2, beside one ``torch.sparse.mm`` on a
-   CSR copy of the operator;
+   CSR copy of the operator, with the gathered rows' bytes and rate; the
+   transpose orientation timed at F = 256; 𝒜_out and the undirected
+   operator at n = 4, F = 256; edge cases (F = 37, x one element past an
+   aligned start, K = 150 past one staging pass with N_out = 1,003, rows of
+   padding only, a random ELL at the n = 4 size, timed), each launch's
+   variant (16-byte or one-element path) checked; ``spmm.propagate`` with
+   ``use_pallas=False`` on a CUDA ``EllAdj`` and ``BucketedEllAdj``
+   launching the kernels forward and backward and never the plain version;
+   the kernel's time at other launch plans (threads a block x feature-tile
+   bytes);
 6. ell reference: phase 3 on ELL operators through the ELL kernels;
 7. tier reference: phase 3 at memory tiers 1, 2 and 3 (remat; bf16 compute
    and node tables; per-path remat with the packed carry, so pack and
@@ -59,6 +69,9 @@ Phases, each printing one JSON line as it ends:
    ``HierarchicalTrainer.train_level`` with no pin, at the tier the plan
    picks from the card's real free memory; its plan, each tier's residency
    estimate and the measured peak beside the tier-3 peak of phase 9.
+
+``python3 chip_smoke.py --ell-only DIR [--with-ell-path]`` runs only phase
+5 (after phase 4 with ``--with-ell-path``) on graphs kept under DIR.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -409,7 +422,9 @@ def run_ell_path(torch, ek, fasta: str, workdir: str):
         emit("ell_path_level", level=n, **st)
     if ek.resident_supported(stats[4]["nodes"]):
         fail(f"ell path: the n = 4 level's {stats[4]['nodes']} nodes are in the resident regime")
-    emit("ell_path", seconds=seconds, launches=counts, level4_nodes=stats[4]["nodes"],
+    emit("ell_path", seconds=seconds, launches=counts, launches_by_v=ek.launch_counts_by_v(),
+         level4_nodes=stats[4]["nodes"],
+         level4_step_seconds=stats[4]["train_seconds"] / max(1, stats[4]["epochs"]),
          **_pooled(result, 64))
     return counts, result["graphs"]
 
@@ -436,69 +451,268 @@ def _ell_err(got, ref, src, k: int):
     return float(err.max()), bool((err <= atol + 1e-5 * ref.abs()).all())
 
 
-def _csr(torch, adj, n_in: int):
-    """The operator as a CSR tensor (the stored slots with w != 0)."""
-    n_out, k = adj.idx.shape
-    rows = torch.arange(n_out, device=adj.idx.device).repeat_interleave(k)
-    keep = adj.w.reshape(-1) != 0
-    ind = torch.stack([rows[keep], adj.idx.reshape(-1).long()[keep]])
-    coo = torch.sparse_coo_tensor(ind, adj.w.reshape(-1)[keep], (n_out, n_in))
+def _csr(torch, idx, w, n_in: int):
+    """The ELL operator (idx, w) as a CSR tensor (the stored slots with w != 0)."""
+    n_out, k = idx.shape
+    rows = torch.arange(n_out, device=idx.device).repeat_interleave(k)
+    keep = w.reshape(-1) != 0
+    ind = torch.stack([rows[keep], idx.reshape(-1).long()[keep]])
+    coo = torch.sparse_coo_tensor(ind, w.reshape(-1)[keep], (n_out, n_in))
     return coo.coalesce().to_sparse_csr()
+
+
+def _ell_timed(torch, ek, name, idx, w, x, iters: int, plain: bool = True) -> dict:
+    """Device times of the kernel, its plain version and one torch.sparse.mm
+    on a CSR copy; the bound; the gathered rows' bytes and the rate they
+    imply (N_out * K * F * 4 bytes: what the kernel reads from L1/L2)."""
+    n_out, k = idx.shape
+    n_in, f = x.shape
+    kernel = getattr(ek, name)
+    csr = _csr(torch, idx, w, n_in)
+    rec = {"ms": _device_ms(torch, lambda: kernel(idx, w, x), iters),
+           "plain_ms": (_device_ms(torch, lambda: ek.ell_plain(idx, w, x), iters)
+                        if plain else None),
+           "library_ms": _device_ms(torch, lambda: torch.sparse.mm(csr, x), iters)}
+    rec["bound_ms"], rec["bound_by"] = _ell_bound(n_out, k, n_in, f)
+    rec["gathered_bytes"] = n_out * k * f * 4
+    rec["gathered_tb_per_s"] = rec["gathered_bytes"] / (rec["ms"] * 1e-3) / 1e12
+    return rec
+
+
+def _expect_v(torch, ek, name: str, want: dict, what: str) -> dict:
+    """Fail unless the launches since the last reset took the variants
+    ``want`` ({v: launches}); return them."""
+    got = ek.launch_counts_by_v()[name]
+    if got != want:
+        fail(f"{what}: {name} launched {got} by features a thread, expected {want}")
+    return {str(v): n for v, n in got.items()}
+
+
+def _ell_operator(torch, graph, matrix: str):
+    from protgram_directgcn_torch.graph import transforms
+    from protgram_directgcn_torch.ops import spmm
+
+    src, tgt, val = transforms.csr_to_coo_arrays(getattr(graph, matrix)())
+    return spmm.build_ell(src, tgt, val, graph.num_nodes, device=DEVICE), len(src)
+
+
+def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str) -> dict:
+    """The kernel direct, and ``propagate`` forward and backward through
+    autograd, against the plain versions; three launches of ``name``."""
+    from protgram_directgcn_torch.ops import spmm
+
+    k, k_t = adj.idx.shape[1], adj.idx_t.shape[1]
+    ek.reset_launches()
+    out = getattr(ek, name)(adj.idx, adj.w, x)
+    xg = x.clone().requires_grad_(True)
+    y = spmm.propagate(adj, xg, use_pallas=True)
+    y.backward(cot)
+    torch.cuda.synchronize()
+    rec = {"launches_by_v": _expect_v(torch, ek, name, {4: 3}, what)}
+    ref = ek.ell_plain(adj.idx, adj.w, x)
+    for tag, got, want, inp, kk in (
+            ("fwd", out, ref, x, k), ("autograd_fwd", y.detach(), ref, x, k),
+            ("bwd", xg.grad, ek.ell_plain(adj.idx_t, adj.w_t, cot), cot, k_t)):
+        err, ok = _ell_err(got, want, inp, kk)
+        rec[f"{tag}_max_abs_err"] = err
+        if not ok or not bool(torch.isfinite(got).all()):
+            fail(f"{name} {tag} disagrees with its plain version at {what}: max abs err {err}")
+    return rec
 
 
 def check_ell_kernels(torch, ek, graph_paths):
     """``ell_resident`` at the n = 3 operator and ``ell_hbm`` at the n = 4
-    one (𝒜_in as the ell path builds it), forward and the transpose
-    backward through autograd, against the plain versions; timed."""
-    from protgram_directgcn_torch.graph import transforms
+    one (𝒜_in as the ell path builds it), F = 64, 128, 256, forward and the
+    transpose backward through autograd, against the plain versions, timed
+    (the transpose orientation too at F = 256); 𝒜_out and the undirected
+    operator at n = 4, F = 256.  Returns the records."""
     from protgram_directgcn_torch.graph.structure import load_graph
-    from protgram_directgcn_torch.ops import spmm
 
     records = []
     for level, name in ((3, "ell_resident"), (4, "ell_hbm")):
         graph = load_graph(graph_paths[level - 1])
+        matrices = ("mathcal_a_in",) + (("mathcal_a_out", "undirected_norm") if level == 4 else ())
+        for matrix in matrices:
+            adj, nnz = _ell_operator(torch, graph, matrix)
+            n_out, k = adj.idx.shape
+            n_in, k_t = adj.idx_t.shape
+            if ek.resident_supported(n_in) != (name == "ell_resident"):
+                fail(f"n={level}: {n_in} source nodes are outside the {name} regime")
+            iters = 20 if level == 4 else 200
+            for f in (ELL_WIDTHS if matrix == "mathcal_a_in" else (max(ELL_WIDTHS),)):
+                gen = torch.Generator(device=DEVICE).manual_seed(level * 1000 + f)
+                x = torch.randn(n_in, f, device=DEVICE, generator=gen)
+                cot = torch.randn(n_out, f, device=DEVICE, generator=gen)
+                what = f"n={level} {matrix} F={f}"
+                rec = {"name": name, "level": level, "matrix": matrix, "n_out": n_out, "k": k,
+                       "n_in": n_in, "k_t": k_t, "nnz": nnz, "f": f, "dtype": "float32",
+                       **_check_ell_both_ways(torch, ek, name, adj, x, cot, what),
+                       **_ell_timed(torch, ek, name, adj.idx, adj.w, x, iters)}
+                rec["wrapper_ms"] = _wrapper_ms(torch, lambda: getattr(ek, name)(
+                    adj.idx, adj.w, x), iters)
+                if f == max(ELL_WIDTHS):
+                    rec["transpose"] = _ell_timed(torch, ek, name, adj.idx_t, adj.w_t, cot,
+                                                  iters, plain=False)
+                emit("ell_kernels", **rec)
+                records.append(rec)
+                del x, cot
+            del adj
+            torch.cuda.empty_cache()
+    return records
+
+
+def _random_ell(torch, seed: int, n_out: int, n_in: int, k: int, pad_rows=()):
+    """A seeded ELL with uniform random sources (no row locality) and
+    weights; ``pad_rows`` are all padding (w == 0, idx == 0)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = torch.randint(0, n_in, (n_out, k), device=DEVICE, generator=gen, dtype=torch.int32)
+    w = torch.rand(n_out, k, device=DEVICE, generator=gen) + 0.1
+    for r in pad_rows:
+        idx[r] = 0
+        w[r] = 0.0
+    return idx, w
+
+
+def check_ell_edges(torch, ek, graph_paths):
+    """The cases the kernel body must hold beyond the paths' shapes, each
+    against its plain version and its launch variant checked: a ragged F,
+    x one element past an aligned start, K past one staging pass with N_out
+    not a multiple of a block's rows, rows of padding only, and a random
+    ELL with no row locality at the n = 4 size (timed)."""
+    from protgram_directgcn_torch.graph.structure import load_graph
+
+    graph = load_graph(graph_paths[2])
+    adj, _ = _ell_operator(torch, graph, "mathcal_a_in")
+    n3 = graph.num_nodes
+    n4 = load_graph(graph_paths[3]).num_nodes
+    gen = torch.Generator(device=DEVICE).manual_seed(77)
+    base = torch.randn(n3 * 256 + 1, device=DEVICE, generator=gen)
+    cases = [  # (case, kernel, idx, w, x, v expected)
+        ("ragged_f37", "ell_resident", adj.idx, adj.w,
+         torch.randn(n3, 37, device=DEVICE, generator=gen), 1),
+        ("misaligned_x", "ell_resident", adj.idx, adj.w, base[1:].view(n3, 256), 1),
+    ]
+    idx, w = _random_ell(torch, 5, 1003, 5000, 150)
+    cases.append(("k150_rows1003", "ell_resident", idx, w,
+                  torch.randn(5000, 256, device=DEVICE, generator=gen), 4))
+    idx, w = _random_ell(torch, 6, 999, 3000, 44, pad_rows=(0, 5, 998))
+    cases.append(("padding_rows", "ell_resident", idx, w,
+                  torch.randn(3000, 256, device=DEVICE, generator=gen), 4))
+    idx, w = _random_ell(torch, 7, n4, n4, 44)
+    cases.append(("random_n4", "ell_hbm", idx, w,
+                  torch.randn(n4, 256, device=DEVICE, generator=gen), 4))
+    records = []
+    for case, name, idx, w, x, v in cases:
+        n_out, k = idx.shape
+        plan = ek.launch_plan(n_out, k, x.shape[1], v == 4)
+        ek.reset_launches()
+        got = getattr(ek, name)(idx, w, x)
+        torch.cuda.synchronize()
+        rec = {"case": case, "name": name, "n_out": n_out, "k": k, "n_in": x.shape[0],
+               "f": x.shape[1], "plan": plan._asdict(),
+               "launches_by_v": _expect_v(torch, ek, name, {v: 1}, case)}
+        rec["max_abs_err"], ok = _ell_err(got, ek.ell_plain(idx, w, x), x, k)
+        if not ok or not bool(torch.isfinite(got).all()):
+            fail(f"{name} disagrees with its plain version on {case}: "
+                 f"max abs err {rec['max_abs_err']}")
+        if case == "random_n4":
+            rec.update(_ell_timed(torch, ek, name, idx, w, x, 20))
+        emit("ell_edges", **rec)
+        records.append(rec)
+    del base, cases, adj
+    torch.cuda.empty_cache()
+    return records
+
+
+def check_ell_routing(torch, ek, graph_paths):
+    """``spmm.propagate`` with ``use_pallas=False`` on a CUDA ``EllAdj`` (the
+    n = 3 𝒜_in) and a CUDA ``BucketedEllAdj`` (the n = 4 𝒜_in) launches the
+    kernel of its regime forward and backward, never the plain version, and
+    agrees with the plain version."""
+    from protgram_directgcn_torch.graph import transforms
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.ops import spmm
+
+    result = {}
+    for level, builder, name in ((3, spmm.build_ell, "ell_resident"),
+                                 (4, spmm.build_bucketed_ell, "ell_hbm")):
+        graph = load_graph(graph_paths[level - 1])
         src, tgt, val = transforms.csr_to_coo_arrays(graph.mathcal_a_in())
-        adj = spmm.build_ell(src, tgt, val, graph.num_nodes, device=DEVICE)
-        n_out, k = adj.idx.shape
-        n_in, k_t = adj.idx_t.shape
-        if ek.resident_supported(n_in) != (name == "ell_resident"):
-            fail(f"n={level}: {n_in} source nodes are outside the {name} regime")
-        kernel, plain = getattr(ek, name), getattr(ek, f"{name}_plain")
-        csr = _csr(torch, adj, n_in)
-        for f in ELL_WIDTHS:
-            gen = torch.Generator(device=DEVICE).manual_seed(level * 1000 + f)
-            x = torch.randn(n_in, f, device=DEVICE, generator=gen)
-            cot = torch.randn(n_out, f, device=DEVICE, generator=gen)
-            out = kernel(adj.idx, adj.w, x)
+        adj = builder(src, tgt, val, graph.num_nodes, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(level)
+        x = torch.randn(graph.num_nodes, 64, device=DEVICE, generator=gen)
+        cot = torch.randn(graph.num_nodes, 64, device=DEVICE, generator=gen)
+        plain_calls = []
+        real_plain = ek.ell_plain
+        ek.ell_plain = lambda *a: plain_calls.append(1) or real_plain(*a)
+        ek.reset_launches()
+        try:
             xg = x.clone().requires_grad_(True)
-            y = spmm.propagate(adj, xg, use_pallas=True)
+            y = spmm.propagate(adj, xg, use_pallas=False)
             y.backward(cot)
             torch.cuda.synchronize()
-            ref = plain(adj.idx, adj.w, x)
-            rec = {"name": name, "level": level, "n_out": n_out, "k": k, "n_in": n_in,
-                   "k_t": k_t, "nnz": len(src), "f": f, "dtype": "float32"}
-            for tag, got, want, inp, kk in (
-                    ("fwd", out, ref, x, k), ("autograd_fwd", y.detach(), ref, x, k),
-                    ("bwd", xg.grad, plain(adj.idx_t, adj.w_t, cot), cot, k_t)):
-                err, ok = _ell_err(got, want, inp, kk)
-                rec[f"{tag}_max_abs_err"] = err
-                if not ok or not bool(torch.isfinite(got).all()):
-                    fail(f"{name} {tag} disagrees with its plain version at n={level} "
-                         f"F={f}: max abs err {err}")
-            iters = 20 if level == 4 else 200
-            fns = {"ms": lambda: kernel(adj.idx, adj.w, x),
-                   "plain_ms": lambda: plain(adj.idx, adj.w, x),
-                   "library_ms": lambda: torch.sparse.mm(csr, x)}
-            for key, fn in fns.items():
-                rec[key] = _device_ms(torch, fn, iters)
-            rec["wrapper_ms"] = _wrapper_ms(torch, fns["ms"], iters)
-            rec["bound_ms"], rec["bound_by"] = _ell_bound(n_out, k, n_in, f)
-            emit("ell_kernels", **rec)
-            records.append(rec)
-            del x, cot, out, xg, y, ref, fns
-        del adj, csr
-        torch.cuda.empty_cache()
-    return records
+        finally:
+            ek.ell_plain = real_plain
+        counts = ek.launch_counts()
+        buckets = (1, 1) if builder is spmm.build_ell else (len(adj.idx), len(adj.idx_t))
+        want = {name: {"fwd": buckets[0], "bwd": buckets[1]}}
+        if plain_calls or {name: counts[name]} != want or any(
+                sum(c.values()) for kname, c in counts.items() if kname != name):
+            fail(f"routing: {type(adj).__name__} at n={level} launched {counts} and the plain "
+                 f"version {len(plain_calls)} times, expected {want} and none")
+        if isinstance(adj, spmm.EllAdj):
+            ref, ref_t = (ek.ell_plain(adj.idx, adj.w, x), ek.ell_plain(adj.idx_t, adj.w_t, cot))
+        else:
+            ref = spmm._bucketed_apply(adj.idx, adj.w, adj.inv_perm, x)
+            ref_t = spmm._bucketed_apply(adj.idx_t, adj.w_t, adj.inv_perm_t, cot)
+        k = max(int(i.shape[1]) for i in (adj.idx if isinstance(adj.idx, tuple) else (adj.idx,)))
+        k_t = max(int(i.shape[1]) for i in (adj.idx_t if isinstance(adj.idx_t, tuple)
+                                            else (adj.idx_t,)))
+        rec = {"format": type(adj).__name__, "launches": counts[name]}
+        for tag, got, want_t, inp, kk in (("fwd", y.detach(), ref, x, k),
+                                          ("bwd", xg.grad, ref_t, cot, k_t)):
+            err, ok = _ell_err(got, want_t, inp, kk)
+            rec[f"{tag}_max_abs_err"] = err
+            if not ok:
+                fail(f"routing: {type(adj).__name__} at n={level} {tag} disagrees with the "
+                     f"plain version: max abs err {err}")
+        result[level] = rec
+        del adj, x, cot, xg, y
+    emit("ell_routing", **{f"n{n}": r for n, r in result.items()})
+    return result
+
+
+def sweep_ell_plans(torch, ek, graph_paths):
+    """The kernel at other launch plans (threads a block x feature-tile
+    bytes) on the n = 3 and n = 4 𝒜_in at F = 256, against the plan's own:
+    the choice of ``ell_kernels.launch_plan``'s constants, remeasured."""
+    from protgram_directgcn_torch.graph.structure import load_graph
+
+    out = []
+    for level, name in ((3, "ell_resident"), (4, "ell_hbm")):
+        adj, _ = _ell_operator(torch, load_graph(graph_paths[level - 1]), "mathcal_a_in")
+        n_out, k = adj.idx.shape
+        n_in = adj.idx_t.shape[0]
+        x = torch.randn(n_in, 256, device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(level))
+        ref = ek.ell_plain(adj.idx, adj.w, x)
+        times = {}
+        for threads in (256, 512, 1024):
+            for tile in (128, 256, 512, 1024):
+                plan = ek.launch_plan(n_out, k, 256, True, threads=threads, tile_bytes=tile)
+                got = ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan)
+                if not _ell_err(got, ref, x, k)[1]:
+                    fail(f"{name} at plan {plan} disagrees with its plain version")
+                times[f"{threads}x{tile}"] = _device_ms(
+                    torch, lambda: ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan),
+                    20 if level == 4 else 100)
+        rec = {"name": name, "level": level, "f": 256, "default": ek.launch_plan(
+            n_out, k, 256, True)._asdict(), "ms_by_threads_x_tile_bytes": times}
+        emit("ell_plan_sweep", **rec)
+        out.append(rec)
+        del adj, x, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 # -----------------------------------------------------------------------------
@@ -842,11 +1056,13 @@ def run_free_memory_level(torch, config, graph_path: str, tier3_peak: int):
 # -----------------------------------------------------------------------------
 
 
-def _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier_counts):
+def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
+                  tier_counts):
     """One entry per kernel.  K1/K2: their numbers at the main path's widest
     shape, the 5-gram shape's, and the worst error of each type over every
-    shape.  ELL: their numbers at F = 256 on their level's operator, and
-    every F under ``by_f``.  Retile: their numbers in bf16 at the 5-gram
+    shape.  ELL: their numbers at F = 256 on their level's 𝒜_in, every F
+    under ``by_f``, the transpose orientation, the other operators and the
+    edge cases.  Retile: their numbers in bf16 at the 5-gram
     carry (pack: the 128-padded input, which has a one-call library
     equivalent; the exact-width input under ``exact_width``), float32 under
     ``by_dtype``, and their launches on the tier path."""
@@ -887,20 +1103,29 @@ def _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier
                              for r in records if r["misaligned"] or r["shape"][0] != 21],
             "worst_max_abs_err_by_dtype": worst,
         })
-    timed = ("ms", "plain_ms", "library_ms", "wrapper_ms", "bound_ms")
+    timed = ("ms", "plain_ms", "library_ms", "wrapper_ms", "bound_ms", "gathered_bytes",
+             "gathered_tb_per_s")
     for name in ("ell_resident", "ell_hbm"):
         recs = [r for r in ell_records if r["name"] == name]
-        top = next(r for r in recs if r["f"] == max(ELL_WIDTHS))
+        a_in = [r for r in recs if r["matrix"] == "mathcal_a_in"]
+        top = next(r for r in a_in if r["f"] == max(ELL_WIDTHS))
         errs = ("fwd_max_abs_err", "autograd_fwd_max_abs_err", "bwd_max_abs_err")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": ell_counts[name]["fwd"] + ell_counts[name]["bwd"],
             "launches_fwd": ell_counts[name]["fwd"], "launches_bwd": ell_counts[name]["bwd"],
-            "shape": {key: top[key] for key in ("level", "n_out", "k", "n_in", "k_t", "nnz", "f")},
+            "shape": {key: top[key] for key in ("level", "matrix", "n_out", "k", "n_in", "k_t",
+                                                "nnz", "f")},
             "dtype": "float32", "max_abs_err": max(top[e] for e in errs),
             "tolerance": "rtol 1e-5, atol 1e-6 * max|input| * K",
             **{key: top[key] for key in timed}, "bound_by": top["bound_by"],
-            "by_f": {str(r["f"]): {key: r[key] for key in timed + errs} for r in recs},
+            "transpose": top["transpose"],
+            "by_f": {str(r["f"]): {key: r[key] for key in timed + errs} for r in a_in},
+            "other_operators": {r["matrix"]: {key: r[key] for key in timed + errs}
+                                | {"transpose": r["transpose"]}
+                                for r in recs if r["matrix"] != "mathcal_a_in"},
+            "edge_cases": {r["case"]: {key: r[key] for key in r if key not in (
+                "case", "name", "plan")} for r in ell_edges if r["name"] == name},
         })
     library_calls = {"retile_unpack": "F.pad(t.view(A, GP*k, f), (0, 128 - f))",
                      "retile_pack": "t[..., :f].reshape(A, GP, 128) (128-padded input)"}
@@ -930,14 +1155,60 @@ def _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier
     return kernels
 
 
+def _ell_occupancy(ek) -> dict:
+    """Blocks an SM holds of the ELL plans at the n = 4 level's shape, F = 256
+    (16-byte path) and F = 37 (one-element path)."""
+    out = {}
+    for f, aligned in ((256, True), (37, False)):
+        plan = ek.launch_plan(167_325, 44, f, aligned)
+        blocks = ek.occupancy(plan)
+        out[f"v{plan.v}"] = {"plan": plan._asdict(), "threads": plan.threads,
+                             "smem_bytes": plan.smem, "blocks_per_sm": blocks,
+                             "threads_per_sm": blocks * plan.threads}
+    return out
+
+
 def _ptxas_lines(log) -> list:
     """ptxas's registers and spill lines of each kernel in an nvcc log."""
     return [ln.strip() for ln in str(log).splitlines() if "registers" in ln or "spill" in ln]
 
 
-def main() -> int:
+def ell_only(torch, ek, workdir: str, with_path: bool) -> None:
+    """The ELL phases alone, on the seeded FASTA's graphs to n = 4 kept under
+    ``workdir`` (written there when absent, for a second run to reuse), the
+    ell path first when ``with_path``."""
+    from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
+
+    info = ek.build()
+    emit("device", kind=torch.cuda.get_device_name(0), build_seconds=info["seconds"],
+         ptxas=_ptxas_lines(info["log"]), ell_occupancy=_ell_occupancy(ek))
+    os.makedirs(workdir, exist_ok=True)
+    fasta = os.path.join(workdir, "synthetic_sprot.fasta")
+    if not os.path.exists(fasta):
+        write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
+    graph_dir = os.path.join(workdir, "graphs")
+    paths = [os.path.join(graph_dir, f"ngram_graph_n{n}.npz") for n in range(1, 5)]
+    if with_path:
+        run_ell_path(torch, ek, fasta, workdir)
+    if not all(os.path.exists(p) for p in paths):
+        paths = NgramGraphBuilder(n_max=4).run(fasta, graph_dir)
+    check_ell_kernels(torch, ek, paths)
+    check_ell_edges(torch, ek, paths)
+    check_ell_routing(torch, ek, paths)
+    sweep_ell_plans(torch, ek, paths)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
+    parser.add_argument("--ell-only", metavar="DIR",
+                        help="run only the ELL kernel phases, on graphs kept under DIR")
+    parser.add_argument("--with-ell-path", action="store_true",
+                        help="with --ell-only: run the ell path first")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
@@ -950,6 +1221,9 @@ def main() -> int:
     from protgram_directgcn_torch.utils.device import resolve_device
 
     resolve_device(DEVICE)
+    if args.ell_only:
+        ell_only(torch, ek, args.ell_only, args.with_ell_path)
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
@@ -964,7 +1238,8 @@ def main() -> int:
          kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          build_wall_seconds=build_wall,
          build_seconds={name: info["seconds"] for name, info in infos.items()},
-         built={name: info["built"] for name, info in infos.items()}, ptxas=ptxas)
+         built={name: info["built"] for name, info in infos.items()}, ptxas=ptxas,
+         ell_occupancy=_ell_occupancy(ek))
 
     records = check_kernels(torch, hk, hyper)
     with tempfile.TemporaryDirectory(prefix="protgram_smoke_") as workdir:
@@ -978,6 +1253,9 @@ def main() -> int:
         ell_counts, graph_paths = run_ell_path(torch, ek, fasta, workdir)
         torch.cuda.empty_cache()
         ell_records = check_ell_kernels(torch, ek, graph_paths)
+        ell_edges = check_ell_edges(torch, ek, graph_paths)
+        check_ell_routing(torch, ek, graph_paths)
+        sweep_ell_plans(torch, ek, graph_paths)
         check_reference(torch, ek, workdir, "ell")
         torch.cuda.empty_cache()
         retile_records = check_retile_kernels(torch, rt)
@@ -986,7 +1264,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         run_free_memory_level(torch, tier_config, graph_path, tier3_peak)
 
-    kernels = _kernels_line(records, counts, ell_records, ell_counts, retile_records, tier_counts)
+    kernels = _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
+                            tier_counts)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

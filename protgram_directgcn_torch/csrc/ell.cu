@@ -16,43 +16,53 @@
 // The backward pass of each runs the same entry point on the transpose
 // orientation (idx_t, w_t).  On Hopper the counterpart of "x resident in
 // VMEM" is L2 residency: a source table of N_in <= 16,384 rows at F = 256 in
-// f32 is at most 16 MB, inside the 50 MB L2, so its rows are read from device
-// memory about once whatever the gather order.  A larger table streams from
-// device memory.  Both regimes share one kernel body; each keeps its own
-// entry point, wrapper, launch count and timing.  The gather is a plain
-// load, not a cp.async ring in shared memory.
+// f32 is at most 16 MB, inside the 50 MB L2.  Both regimes share one kernel
+// body; each keeps its own entry point, wrapper, launch count and timing.
 //
 // Bound on this card: bytes.  The least traffic is N_out*K*8 (idx, w)
 // + N_in*F*4 (x, each row once) + N_out*F*4 (out) bytes at 3.35 TB/s, for
 // 2*N_out*K*F operations at 67 TFLOP/s (f32, no tensor cores): at most
-// 2*K*F / (8*K + 4*F) < 0.5 operations per byte, far below the ~20 the card
-// sustains.  Design, for that bound:
-//   - each thread owns 4 consecutive features of one output row (a float4
-//     load and store when F % 4 == 0 and the pointers are 16-byte aligned,
-//     else 1 feature), and the threads of a row read its gathered source row
-//     as one contiguous, coalesced run (up to 64 threads x 16 bytes);
-//   - a block takes 256 / threads-per-row output rows, and a second grid
-//     dimension tiles F wider than 64 vectors; the block stages its rows'
-//     idx/w in shared memory, 16 slots at a time, with coalesced loads, so
-//     every (row, slot) pair is read from device memory once per feature tile;
-//   - the slot loop is unrolled by 4 and the four gathers are issued before
-//     the four fmaf's, so four independent loads are in flight per thread
-//     (a loop of one load and one dependent fma would wait a full memory
-//     latency per slot);
+// 2*K*F / (8*K + 4*F) < 0.5 operations per byte.  What the kernel really
+// moves is the gathered rows, N_out*K*F*4 bytes (6.5 GB at the n = 4 level,
+// F = 256), from L2 or L1: the n-gram operators' rows that share an
+// (n-1)-gram share their sources, and the L2 holds the table's hot part, so
+// the gather runs at the rate L2 and L1 deliver, not at the HBM rate.
+// Design, for that:
+//   - a thread owns V features of one output row (V = 4, one 16-byte load
+//     and store, when F % 4 == 0 and x and out are 16-byte aligned; else
+//     V = 1, the same body), and the ct threads of a row read a gathered
+//     source row's feature tile (ct * V features) as one contiguous run;
+//   - a block takes `rows` consecutive output rows over one feature tile
+//     (the launch plan, ops/ell_kernels.py `launch_plan`: 32 rows of a
+//     64-feature tile at V = 4).  Consecutive rows share sources, so the
+//     block's rows read the same source rows at about the same time and the
+//     second and later reads hit L1;
+//   - the grid's x dimension runs over row blocks and its y over feature
+//     tiles, so the blocks of one tile run first: the L2 working set is
+//     that tile's slice of x (N_in * 256 bytes at a 64-feature tile);
+//   - the block stages its rows' idx/w in dynamic shared memory sized to
+//     what it serves (rows * kc * 8 bytes, kc = min(K, the plan's chunk):
+//     11 KB at 32 rows and K = 44), one coalesced copy of a contiguous run
+//     when kc == K, and reads each slot as one 8-byte broadcast; the rest
+//     of the SM's 256 KB stays L1;
+//   - the slot loop issues 8 gathers before their 8 fmaf's (the last group
+//     predicated), so 8 independent loads are in flight per thread;
 //   - out is written once, with no atomics: every output element belongs to
 //     exactly one thread.
 //
 // Plain C entry points (no PyTorch headers), loaded with ctypes.  Each
-// returns cudaGetLastError() after the launch.
+// launch entry point checks the plan it is given, returns
+// cudaErrorInvalidValue on one it cannot run, and else cudaGetLastError()
+// after the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 16;      // slots of idx/w staged in shared memory per pass
-constexpr int kMaxRowThreads = 64;  // threads per output row (x VEC features each)
+constexpr int kMaxThreads = 1024;      // threads a block
+constexpr int kMaxSmemBytes = 49152;  // dynamic shared memory without the opt-in
+constexpr int kUnroll = 8;             // gathers in flight per thread
 
 __device__ __forceinline__ void fma_into(float& acc, float w, float v) { acc = fmaf(w, v, acc); }
 __device__ __forceinline__ void fma_into(float4& acc, float w, const float4& v) {
@@ -70,84 +80,96 @@ template <>
 __device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
 // V = float4 (4 features a thread) or float (1).  nvec = F / features-per-V.
-// Thread t of the block serves output row blockIdx.x * rows + (t >> row_log2)
-// and feature vector blockIdx.y * (1 << row_log2) + (t & ((1 << row_log2) - 1)).
+// Thread t of block (bx, by) serves output row bx * rows + (t >> ct_log2)
+// and feature vector by * ct + (t & (ct - 1)), ct = 1 << ct_log2.
 template <typename V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
     ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                const V* __restrict__ x, V* __restrict__ out, int n_out, int k, int nvec,
-               int row_log2) {
-  __shared__ int s_idx[kThreads * kChunk];
-  __shared__ float s_w[kThreads * kChunk];
-  const int row_threads = 1 << row_log2;
-  const int rows = kThreads >> row_log2;
-  const int local_row = threadIdx.x >> row_log2;
+               int ct_log2, int rows, int kc) {
+  extern __shared__ int2 s_slot[];  // [rows][kc]: {idx, bits of w}
+  const int local_row = threadIdx.x >> ct_log2;
   const int64_t row0 = (int64_t)blockIdx.x * rows;
   const int64_t row = row0 + local_row;
-  const int v = blockIdx.y * row_threads + (threadIdx.x & (row_threads - 1));
+  const int v = (blockIdx.y << ct_log2) + (threadIdx.x & ((1 << ct_log2) - 1));
   const bool live = row < n_out && v < nvec;
+  const int live_rows = n_out - row0 < rows ? (int)(n_out - row0) : rows;
 
   V acc = zero<V>();
-  for (int k0 = 0; k0 < k; k0 += kChunk) {
-    const int kc = min(kChunk, k - k0);
-    __syncthreads();  // the previous chunk's slots have been read
-    for (int t = threadIdx.x; t < rows * kChunk; t += kThreads) {
-      const int r = t / kChunk;
-      const int j = t - r * kChunk;
-      const int64_t gr = row0 + r;
-      int iv = 0;
-      float wv = 0.0f;
-      if (gr < n_out && j < kc) {
-        iv = idx[gr * k + k0 + j];
-        wv = w[gr * k + k0 + j];
+  for (int k0 = 0; k0 < k; k0 += kc) {
+    const int n = min(kc, k - k0);
+    if (k0 > 0) __syncthreads();  // the previous chunk's slots have been read
+    if (n == k) {  // the block's slots are one contiguous run
+      const int64_t base = row0 * k;
+      for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
+        s_slot[(t / k) * kc + t % k] = make_int2(idx[base + t], __float_as_int(w[base + t]));
+    } else {
+      for (int t = threadIdx.x; t < live_rows * n; t += blockDim.x) {
+        const int r = t / n;
+        const int j = t - r * n;
+        const int64_t g = (row0 + r) * k + k0 + j;
+        s_slot[r * kc + j] = make_int2(idx[g], __float_as_int(w[g]));
       }
-      s_idx[t] = iv;
-      s_w[t] = wv;
     }
     __syncthreads();
     if (live) {
-      const int* ri = s_idx + local_row * kChunk;
-      const float* rw = s_w + local_row * kChunk;
-      int j = 0;
-      for (; j + 4 <= kc; j += 4) {
-        const V a0 = x[(int64_t)ri[j] * nvec + v];
-        const V a1 = x[(int64_t)ri[j + 1] * nvec + v];
-        const V a2 = x[(int64_t)ri[j + 2] * nvec + v];
-        const V a3 = x[(int64_t)ri[j + 3] * nvec + v];
-        fma_into(acc, rw[j], a0);
-        fma_into(acc, rw[j + 1], a1);
-        fma_into(acc, rw[j + 2], a2);
-        fma_into(acc, rw[j + 3], a3);
+      const int2* s = s_slot + local_row * kc;
+      for (int j = 0; j < n; j += kUnroll) {
+        int2 sl[kUnroll];
+        V a[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (j + u < n) {
+            sl[u] = s[j + u];
+            a[u] = x[(int64_t)sl[u].x * nvec + v];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (j + u < n) fma_into(acc, __int_as_float(sl[u].y), a[u]);
       }
-      for (; j < kc; ++j) fma_into(acc, rw[j], x[(int64_t)ri[j] * nvec + v]);
     }
   }
   if (live) out[row * nvec + v] = acc;
 }
 
-template <typename V>
-int launch_typed(const int* idx, const float* w, const void* x, void* out, int n_out, int k,
-                 int nvec, cudaStream_t stream) {
-  int row_log2 = 0;
-  while ((1 << row_log2) < nvec && (1 << row_log2) < kMaxRowThreads) ++row_log2;
-  const int rows = kThreads >> row_log2;
-  const dim3 grid((unsigned)((n_out + rows - 1) / rows),
-                  (unsigned)((nvec + (1 << row_log2) - 1) >> row_log2));
-  ell_kernel<V><<<grid, kThreads, 0, stream>>>(idx, w, (const V*)x, (V*)out, n_out, k, nvec,
-                                               row_log2);
-  return (int)cudaGetLastError();
+int log2_exact(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return (1 << l) == n ? l : -1;
 }
 
+// The plan (ops/ell_kernels.py `launch_plan`): v features a thread, ct
+// threads a row (a power of two), `rows` rows a block, kc slots staged a
+// pass, grid (row blocks, feature tiles).  Refused unless it covers every
+// output element once and fits a block.
 int launch(const void* idx, const void* w, const void* x, void* out, int n_out, int k, int f,
-           void* stream) {
+           int v, int ct, int rows, int kc, int grid_x, int grid_y, void* stream) {
   if (n_out < 0 || k < 0 || f < 0) return (int)cudaErrorInvalidValue;
   if (n_out == 0 || f == 0) return (int)cudaSuccess;
-  const bool vec4 = f % 4 == 0 && ((uintptr_t)x % 16) == 0 && ((uintptr_t)out % 16) == 0;
+  const int ct_log2 = log2_exact(ct);
+  const int64_t threads = (int64_t)ct * rows;
+  if ((v != 1 && v != 4) || f % v != 0 || ct_log2 < 0 || rows < 1 || threads > kMaxThreads ||
+      threads % 32 != 0 || kc < 1 || (int64_t)rows * kc * 8 > kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const int nvec = f / v;
+  if ((int64_t)grid_x * rows < n_out || (int64_t)grid_y * ct < nvec ||
+      (int64_t)(grid_x - 1) * rows >= n_out || (int64_t)(grid_y - 1) * ct >= nvec ||
+      grid_y > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (v == 4 && (((uintptr_t)x | (uintptr_t)out) % 16) != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  const size_t smem = (size_t)rows * kc * 8;
   const cudaStream_t s = (cudaStream_t)stream;
   const int* i = (const int*)idx;
   const float* wf = (const float*)w;
-  if (vec4) return launch_typed<float4>(i, wf, x, out, n_out, k, f / 4, s);
-  return launch_typed<float>(i, wf, x, out, n_out, k, f, s);
+  if (v == 4)
+    ell_kernel<float4><<<grid, (unsigned)threads, smem, s>>>(
+        i, wf, (const float4*)x, (float4*)out, n_out, k, nvec, ct_log2, rows, kc);
+  else
+    ell_kernel<float><<<grid, (unsigned)threads, smem, s>>>(
+        i, wf, (const float*)x, (float*)out, n_out, k, nvec, ct_log2, rows, kc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -155,13 +177,26 @@ int launch(const void* idx, const void* w, const void* x, void* out, int n_out, 
 extern "C" {
 
 int ell_resident_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k,
-                     int f, void* stream) {
-  return launch(idx, w, x, out, n_out, k, f, stream);
+                     int f, int v, int ct, int rows, int kc, int grid_x, int grid_y,
+                     void* stream) {
+  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, stream);
 }
 
 int ell_hbm_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k,
-                int f, void* stream) {
-  return launch(idx, w, x, out, n_out, k, f, stream);
+                int f, int v, int ct, int rows, int kc, int grid_x, int grid_y, void* stream) {
+  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, stream);
+}
+
+// Resident blocks an SM holds of the V = v body at `threads` threads and
+// `smem` bytes of dynamic shared memory; a negative CUDA error code on failure.
+int ell_occupancy(int v, int threads, int smem) {
+  int blocks = 0;
+  const cudaError_t e =
+      v == 4 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float4>,
+                                                             threads, (size_t)smem)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float>,
+                                                             threads, (size_t)smem);
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 
 }  // extern "C"

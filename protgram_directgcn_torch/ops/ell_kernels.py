@@ -16,6 +16,10 @@ work with no counterpart here.  The source is built like ``csrc/hyper.cu``
 (``ops/_nvcc.py``).  CPU tensors take the plain PyTorch versions below;
 CUDA tensors launch the kernels or raise.
 
+``launch_plan`` works out each launch's geometry here, before the launch
+(features a thread, threads a row, rows a block, slots staged a pass, the
+grid); the entry points check it and refuse a plan they cannot run.
+
 ``propagate_ell_kernel(adj, x)`` dispatches as ``propagate_ell_pallas``
 (pallas_spmm.py:111-119) does: by ``adj.idx_t.shape[0]`` (n_in).  Its
 backward runs the same kernel on the transpose orientation ``(idx_t, w_t)``
@@ -25,8 +29,10 @@ backward runs the same kernel on the transpose orientation ``(idx_t, w_t)``
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,12 +43,14 @@ _X_RESIDENT_BUDGET = 8 * 1024 * 1024
 _F_TILE = 128
 
 # Launches per kernel and direction ("fwd": the forward product, "bwd": the
-# transpose-orientation product).  The wrappers add one where they launch a
-# kernel and nowhere else.
+# transpose-orientation product), and per kernel by the features a thread
+# owns (the plan's ``v``: 4, one 16-byte access, or 1).  The wrappers add one
+# where they launch a kernel and nowhere else.
 LAUNCHES: Dict[str, Dict[str, int]] = {
     "ell_resident": {"fwd": 0, "bwd": 0},
     "ell_hbm": {"fwd": 0, "bwd": 0},
 }
+LAUNCHES_BY_V: Dict[str, Dict[int, int]] = {"ell_resident": {}, "ell_hbm": {}}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -53,10 +61,16 @@ def reset_launches() -> None:
     for per_dir in LAUNCHES.values():
         for k in per_dir:
             per_dir[k] = 0
+    for per_v in LAUNCHES_BY_V.values():
+        per_v.clear()
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:
     return {name: dict(per_dir) for name, per_dir in LAUNCHES.items()}
+
+
+def launch_counts_by_v() -> Dict[str, Dict[int, int]]:
+    return {name: dict(per_v) for name, per_v in LAUNCHES_BY_V.items()}
 
 
 def build() -> Dict[str, object]:
@@ -73,8 +87,11 @@ def build() -> Dict[str, object]:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in LAUNCHES:
             fn = getattr(lib, f"{name}_f32")
-            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+            # idx, w, x, out, n_out, k, f, then the plan: v, ct, rows, kc, grid
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, *[i32] * 6, ptr]
             fn.restype = i32
+        lib.ell_occupancy.argtypes = [i32, i32, i32]
+        lib.ell_occupancy.restype = i32
         BUILD_INFO.clear()
         BUILD_INFO.update(info)
         _lib = lib
@@ -85,6 +102,88 @@ def resident_supported(n_in: int) -> bool:
     """``pallas_supported`` (pallas_spmm.py:87): the resident regime holds
     while an [n_in, 128] f32 source tile fits 8 MiB."""
     return n_in * _F_TILE * 4 <= _X_RESIDENT_BUDGET
+
+
+# -----------------------------------------------------------------------------
+# Launch plan
+# -----------------------------------------------------------------------------
+
+VEC_BYTES = 16  # one global access a thread at v = 4
+# The kernel's bounds, read from the source that compiles it.
+_BOUNDS = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                          (_nvcc.CSRC / "ell.cu").read_text()))
+MAX_THREADS = int(_BOUNDS["kMaxThreads"])
+MAX_SMEM = int(_BOUNDS["kMaxSmemBytes"])
+TILE_BYTES = 256  # a row's feature tile: 64 features, 16 threads at v = 4
+THREADS = 512  # threads a block
+STAGE_BYTES = 16 * 1024  # shared memory for a block's staged idx/w
+
+
+class LaunchPlan(NamedTuple):
+    """Geometry of one ELL launch.  Thread ``t`` of block ``(bx, by)`` serves
+    output row ``bx * rows + t // ct`` and features ``[c * v, c * v + v)`` of
+    chunk ``c = by * ct + t % ct``; rows past N_out and chunks past F / v
+    idle.  The block stages ``kc`` slots of its rows' idx/w a pass."""
+
+    v: int  # features a thread owns: 4 (16 bytes) or 1
+    ct: int  # threads of one row, a power of two: the feature tile is ct * v
+    rows: int  # consecutive output rows a block
+    kc: int  # slots staged in shared memory a pass
+    grid: Tuple[int, int]  # (row blocks, feature tiles)
+
+    @property
+    def threads(self) -> int:
+        return self.ct * self.rows
+
+    @property
+    def smem(self) -> int:
+        return self.rows * self.kc * 8
+
+
+def _cdiv(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def launch_plan(n_out: int, k: int, f: int, aligned: bool, threads: int = THREADS,
+                tile_bytes: int = TILE_BYTES) -> LaunchPlan:
+    """The launch on idx/w ``[n_out, k]`` and x ``[n_in, f]`` f32.
+
+    ``aligned``: x and out are 16-byte aligned.  16-byte accesses need that
+    and ``f % 4 == 0``; otherwise ``v = 1``.  A row's threads cover a
+    ``tile_bytes`` feature tile (fewer where F is narrower), a block
+    ``threads // ct`` consecutive rows, and each pass stages up to
+    ``STAGE_BYTES`` of the block's idx/w (all K slots when they fit).
+    """
+    v = 4 if aligned and f % 4 == 0 else 1
+    nvec = f // v
+    ct = min(_pow2_at_least(max(nvec, 1)), max(1, tile_bytes // (4 * v)))
+    rows = max(1, threads // ct)
+    kc = max(1, min(k, STAGE_BYTES // (rows * 8)))
+    return LaunchPlan(v=v, ct=ct, rows=rows, kc=kc,
+                      grid=(max(1, _cdiv(n_out, rows)), max(1, _cdiv(nvec, ct))))
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % VEC_BYTES == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_args(n_out: int, k: int, f: int, aligned: bool) -> Tuple[int, ...]:
+    """``launch_plan`` as the entry points take it, cached: a wrapper call at
+    the small levels' sizes costs more on the host than its kernel."""
+    plan = launch_plan(n_out, k, f, aligned)
+    return (plan.v, plan.ct, plan.rows, plan.kc, *plan.grid)
+
+
+def occupancy(plan: LaunchPlan) -> int:
+    """Blocks of ``plan`` one SM holds at once (the CUDA occupancy query)."""
+    if _lib is None:
+        build()
+    return int(_lib.ell_occupancy(plan.v, plan.threads, plan.smem))
 
 
 # -----------------------------------------------------------------------------
@@ -135,8 +234,9 @@ def _launch(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
 
 
 def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
-                 direction: str) -> torch.Tensor:
-    """Launch ``name`` on checked inputs; count the launch."""
+                 direction: str, plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+    """Launch ``name`` on checked inputs with ``plan`` (else ``launch_plan``'s);
+    count the launch."""
     n_out, k = idx.shape
     f = x.shape[1]
     out = torch.empty((n_out, f), dtype=torch.float32, device=x.device)
@@ -144,11 +244,14 @@ def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         return out
     if _lib is None:
         build()
+    args = (_plan_args(n_out, k, f, _aligned(x, out)) if plan is None
+            else (plan.v, plan.ct, plan.rows, plan.kc, *plan.grid))
     fn = getattr(_lib, f"{name}_f32")
-    rc = fn(idx.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), n_out, k, f,
+    rc = fn(idx.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), n_out, k, f, *args,
             _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, name)
     LAUNCHES[name][direction] += 1
+    LAUNCHES_BY_V[name][args[0]] = LAUNCHES_BY_V[name].get(args[0], 0) + 1
     return out
 
 

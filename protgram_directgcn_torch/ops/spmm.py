@@ -5,9 +5,7 @@ edge-gradient path.  ``propagate(adj, x)[i] = sum over edges (j -> i) of
 w * x[j]`` (reference: protgram_directgcn.py:100-140, PyG aggr='add').
 
 - ``DenseAdj``: Aᵀ stored dense, one ``torch.matmul``;
-- ``EllAdj``: padded neighbour lists ``[N, K]`` in both orientations; with
-  ``use_pallas`` the product runs the CUDA ELL kernels (ops/ell_kernels.py),
-  else plain torch, as the JAX package leaves it to XLA;
+- ``EllAdj``: padded neighbour lists ``[N, K]`` in both orientations;
 - ``BucketedEllAdj``: degree-bucketed ELL for degree-skewed graphs;
 - ``CooAdj``: target-sorted COO and a segment sum (``index_add``);
 - ``HypercubeAdj``: the gather-free K1/K2 pair (ops/hypercube.py).
@@ -22,6 +20,12 @@ transpose orientation (no scatter over the forward's indices); the graph
 gets no gradient.  The block format (ops/block.py of the JAX package) is
 not ported: where the JAX package's ``build_adjacency`` would return it,
 the port raises.
+
+On the card both ELL formats run the CUDA ELL kernels (ops/ell_kernels.py),
+whatever ``use_pallas`` says: the JAX package leaves the product to XLA off
+its Pallas path, and the kernels compute the same function.  On the CPU
+they run the plain version, and ``use_pallas`` sends an ``EllAdj`` through
+the kernels' entry points (which take the plain version there too).
 """
 
 from __future__ import annotations
@@ -356,8 +360,14 @@ def _dense_apply(at: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return at.float() @ x.to(at.dtype).float()
 
 
-def _bucketed_apply(idx_tuple, w_tuple, inv_perm, x):
-    outs = [ell_kernels.ell_plain(i, wv, x) for i, wv in zip(idx_tuple, w_tuple)]
+def _bucketed_apply(idx_tuple, w_tuple, inv_perm, x, kernel=None, direction="fwd"):
+    """Each bucket's ELL product, in node order.  ``kernel``: one of the ELL
+    kernel wrappers, else the plain version."""
+    if kernel is None:
+        outs = [ell_kernels.ell_plain(i, wv, x) for i, wv in zip(idx_tuple, w_tuple)]
+    else:
+        xc = x.float().contiguous()
+        outs = [kernel(i, wv, xc, direction) for i, wv in zip(idx_tuple, w_tuple)]
     return torch.cat(outs, dim=0)[inv_perm.long()]
 
 
@@ -387,13 +397,35 @@ def _edge_apply(adj, x: torch.Tensor) -> torch.Tensor:
     return _coo_apply(adj.src, adj.tgt, adj.w, x, adj.n_out)
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether a product on ``x`` runs on the card (and so through the ELL
+    kernels, never their plain version)."""
+    return x.device.type == "cuda"
+
+
+def _propagate_bucketed_kernel(adj: BucketedEllAdj, x: torch.Tensor) -> torch.Tensor:
+    """A bucketed ELL product through the ELL kernels: each bucket one launch,
+    of the kernel picked by the source count as ``propagate_ell_kernel``
+    picks it; the backward runs the same kernel on the transpose buckets."""
+    n_in = adj.inv_perm_t.shape[0]
+    kernel = (ell_kernels.ell_resident if ell_kernels.resident_supported(n_in)
+              else ell_kernels.ell_hbm)
+    adj_t = _swap(adj)
+    return _LinearOp.apply(
+        x, lambda v: _bucketed_apply(adj.idx, adj.w, adj.inv_perm, v, kernel, "fwd"),
+        lambda g: _bucketed_apply(adj_t.idx, adj_t.w, adj_t.inv_perm, g, kernel, "bwd"))
+
+
 def propagate(adj, x: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
-    """Sum-aggregate weighted source features at each target node.
-    ``use_pallas`` sends an ``EllAdj`` through the ELL kernels."""
+    """Sum-aggregate weighted source features at each target node.  ELL
+    operators run the ELL kernels on the card; on the CPU ``use_pallas``
+    sends an ``EllAdj`` through the kernels' entry points."""
     if isinstance(adj, DenseAdj):
         return _dense_apply(adj.at, x)
-    if isinstance(adj, EllAdj) and use_pallas:
+    if isinstance(adj, EllAdj) and (use_pallas or _on_card(x)):
         return ell_kernels.propagate_ell_kernel(adj, x)
+    if isinstance(adj, BucketedEllAdj) and _on_card(x):
+        return _propagate_bucketed_kernel(adj, x)
     if isinstance(adj, (EllAdj, BucketedEllAdj, CooAdj)):
         adj_t = _swap(adj)
         return _LinearOp.apply(x, lambda v: _edge_apply(adj, v),

@@ -263,6 +263,109 @@ def test_dispatch_reads_n_in_from_the_transpose(monkeypatch, n_out, n_in, expect
                      (expect, "bwd", tuple(adj.idx_t.shape))]
 
 
+def _recorders(monkeypatch, calls):
+    """Replace both kernel wrappers with recorders that compute the plain
+    version, and make the plain version itself refuse to run: on the CUDA
+    branch the product must reach it only through a kernel wrapper."""
+    plain = ek.ell_plain
+
+    def recorder(name):
+        def kernel(idx, w, x, direction="fwd"):
+            assert x.dtype == torch.float32 and x.is_contiguous()
+            calls.append((name, direction, tuple(idx.shape)))
+            return plain(idx, w, x)
+        return kernel
+
+    def refuse(*args):
+        raise AssertionError("the plain ELL version ran on the CUDA branch")
+
+    monkeypatch.setattr(ek, "ell_resident", recorder("ell_resident"))
+    monkeypatch.setattr(ek, "ell_hbm", recorder("ell_hbm"))
+    monkeypatch.setattr(ek, "ell_plain", refuse)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("fmt", ["build_ell", "build_bucketed_ell"])
+@pytest.mark.parametrize("n_out,n_in,expect", [
+    (10, 16_384, "ell_resident"), (10, 16_385, "ell_hbm"), (16_385, 10, "ell_resident"),
+])
+def test_cuda_branch_routes_ell_formats_through_the_kernels(monkeypatch, fmt, use_pallas,
+                                                            n_out, n_in, expect):
+    """On the card an ``EllAdj`` and each bucket of a ``BucketedEllAdj`` run
+    the kernel of their regime (picked by n_in, as propagate_ell_pallas
+    does), forward and, on the stored transpose, backward, whatever
+    ``use_pallas`` says; the values and gradient are the plain route's."""
+    src, tgt, w = _random_edges(3, n_out, n_in, 50, "hub")
+    adj = getattr(t_spmm, fmt)(src, tgt, w, n_out, n_in, device="cpu")
+    rng = np.random.default_rng(n_in)
+    x = rng.normal(size=(n_in, 6)).astype(np.float32)
+    cot = torch.from_numpy(rng.normal(size=(n_out, 6)).astype(np.float32))
+    x_ref = torch.from_numpy(x).requires_grad_(True)
+    y_ref = t_spmm.propagate(adj, x_ref)  # the plain route (CPU tensors)
+    y_ref.backward(cot)
+
+    calls = []
+    _recorders(monkeypatch, calls)
+    monkeypatch.setattr(t_spmm, "_on_card", lambda t: True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = t_spmm.propagate(adj, xt, use_pallas=use_pallas)
+    y.backward(cot)
+    if fmt == "build_ell":
+        want = [(expect, "fwd", tuple(adj.idx.shape)), (expect, "bwd", tuple(adj.idx_t.shape))]
+    else:
+        want = ([(expect, "fwd", tuple(i.shape)) for i in adj.idx]
+                + [(expect, "bwd", tuple(i.shape)) for i in adj.idx_t])
+    assert calls == want
+    np.testing.assert_array_equal(y.detach().numpy(), y_ref.detach().numpy())
+    np.testing.assert_array_equal(xt.grad.numpy(), x_ref.grad.numpy())
+    calls.clear()
+    tr = t_spmm.propagate_transpose(adj, cot, use_pallas=use_pallas)
+    assert [c[1] for c in calls] == ["fwd"] * (len(want) // 2)
+    np.testing.assert_array_equal(tr.numpy(), x_ref.grad.numpy())
+
+
+def test_bucketed_kernel_route_matches_jax(monkeypatch):
+    """The bucketed operator through the kernels' route (plain versions
+    behind the wrappers on the CPU) against the JAX package's propagate."""
+    src, tgt, w = _random_edges(2, 50, 300, 700, "hub")
+    j = j_spmm.build_bucketed_ell(src, tgt, w, 50, 300)
+    t = t_spmm.build_bucketed_ell(src, tgt, w, 50, 300, device="cpu")
+    assert len(t.idx) > 1
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(300, 24)).astype(np.float32)
+    cot = rng.normal(size=(50, 24)).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda v: j_spmm.propagate(j, v), jnp.asarray(x))
+    (dx_j,) = vjp(jnp.asarray(cot))
+    monkeypatch.setattr(t_spmm, "_on_card", lambda t: True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out_t = t_spmm.propagate(t, xt)
+    out_t.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fmt", ["build_ell", "build_bucketed_ell"])
+def test_cuda_branch_has_no_fallback(monkeypatch, fmt):
+    """A kernel that fails on the card raises through propagate: the plain
+    version does not stand in."""
+    src, tgt, w = _random_edges(4, 30, 30, 90)
+    adj = getattr(t_spmm, fmt)(src, tgt, w, 30, device="cpu")
+    _recorders(monkeypatch, [])
+
+    def broken(idx, w, x, direction="fwd"):
+        raise RuntimeError("ell_resident launch failed: CUDA error 9")
+
+    monkeypatch.setattr(ek, "ell_resident", broken)
+    monkeypatch.setattr(t_spmm, "_on_card", lambda t: True)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        t_spmm.propagate(adj, torch.ones(30, 4))
+
+
+def test_on_card_reads_the_device():
+    assert not t_spmm._on_card(torch.zeros(2))
+    assert t_spmm._on_card(torch.zeros(2, device="meta")) is False
+
+
 class _FakeLib:
     """Stands in for the nvcc-built library: records calls, returns ``rc``."""
 
