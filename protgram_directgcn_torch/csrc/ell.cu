@@ -60,9 +60,9 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;      // threads a block
+constexpr int kMaxThreads = 512;       // threads a block
 constexpr int kMaxSmemBytes = 49152;  // dynamic shared memory without the opt-in
-constexpr int kUnroll = 8;             // gathers in flight per thread
+constexpr int kUnroll = 4;             // gathers in flight per thread
 
 __device__ __forceinline__ void fma_into(float& acc, float w, float v) { acc = fmaf(w, v, acc); }
 __device__ __forceinline__ void fma_into(float4& acc, float w, const float4& v) {
@@ -114,20 +114,15 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
     if (live) {
       const int2* s = s_slot + local_row * kc;
-      for (int j = 0; j < n; j += kUnroll) {
-        int2 sl[kUnroll];
+      int j = 0;
+      for (; j + kUnroll <= n; j += kUnroll) {
         V a[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (j + u < n) {
-            sl[u] = s[j + u];
-            a[u] = x[(int64_t)sl[u].x * nvec + v];
-          }
-        }
+        for (int u = 0; u < kUnroll; ++u) a[u] = x[(int64_t)s[j + u].x * nvec + v];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (j + u < n) fma_into(acc, __int_as_float(sl[u].y), a[u]);
+        for (int u = 0; u < kUnroll; ++u) fma_into(acc, __int_as_float(s[j + u].y), a[u]);
       }
+      for (; j < n; ++j) fma_into(acc, __int_as_float(s[j].y), x[(int64_t)s[j].x * nvec + v]);
     }
   }
   if (live) out[row * nvec + v] = acc;
