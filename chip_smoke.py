@@ -697,8 +697,8 @@ def sweep_ell_plans(torch, ek, graph_paths):
                         generator=torch.Generator(device=DEVICE).manual_seed(level))
         ref = ek.ell_plain(adj.idx, adj.w, x)
         times = {}
-        for threads in (128, 256, 512):
-            for tile in (128, 256, 512, 1024):
+        for threads in (64, 128, 256):
+            for tile in (32, 64, 128, 256):
                 plan = ek.launch_plan(n_out, k, 256, True, threads=threads, tile_bytes=tile)
                 got = ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan)
                 if not _ell_err(got, ref, x, k)[1]:

@@ -114,8 +114,8 @@ _BOUNDS = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
                           (_nvcc.CSRC / "ell.cu").read_text()))
 MAX_THREADS = int(_BOUNDS["kMaxThreads"])
 MAX_SMEM = int(_BOUNDS["kMaxSmemBytes"])
-TILE_BYTES = 256  # a row's feature tile: 64 features, 16 threads at v = 4
-THREADS = 512  # threads a block
+TILE_BYTES = 128  # a row's feature tile: 32 features, 8 threads at v = 4
+THREADS = 128  # threads a block
 STAGE_BYTES = 16 * 1024  # shared memory for a block's staged idx/w
 
 

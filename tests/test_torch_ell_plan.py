@@ -21,7 +21,7 @@ ROWS = (1, 21, 441, 1003, 8_401, 167_325)
 KS = (0, 1, 4, 44, 150, 300)
 WIDTHS = (1, 3, 4, 37, 64, 100, 128, 256, 512)
 # The plans chip_smoke.py sweeps (threads a block x feature-tile bytes).
-VARIANTS = [(t, b) for t in (128, 256, 512) for b in (128, 256, 512, 1024)]
+VARIANTS = [(t, b) for t in (64, 128, 256) for b in (32, 64, 128, 256)]
 
 
 def _covered_once(n: int, blocks: int, per_block: int) -> bool:
