@@ -422,7 +422,8 @@ def run_ell_path(torch, ek, fasta: str, workdir: str):
         emit("ell_path_level", level=n, **st)
     if ek.resident_supported(stats[4]["nodes"]):
         fail(f"ell path: the n = 4 level's {stats[4]['nodes']} nodes are in the resident regime")
-    emit("ell_path", seconds=seconds, launches=counts, launches_by_v=ek.launch_counts_by_v(),
+    emit("ell_path", seconds=seconds, launches=counts,
+         launches_by_variant=ek.launch_counts_by_variant(),
          level4_nodes=stats[4]["nodes"],
          level4_step_seconds=stats[4]["train_seconds"] / max(1, stats[4]["epochs"]),
          **_pooled(result, 64))
@@ -479,13 +480,13 @@ def _ell_timed(torch, ek, name, idx, w, x, iters: int, plain: bool = True) -> di
     return rec
 
 
-def _expect_v(torch, ek, name: str, want: dict, what: str) -> dict:
-    """Fail unless the launches since the last reset took the variants
-    ``want`` ({v: launches}); return them."""
-    got = ek.launch_counts_by_v()[name]
+def _expect_variant(torch, ek, name: str, want: dict, what: str) -> dict:
+    """Fail unless the launches since the last reset took the plan variants
+    ``want`` ({variant: launches}); return them."""
+    got = ek.launch_counts_by_variant()[name]
     if got != want:
-        fail(f"{what}: {name} launched {got} by features a thread, expected {want}")
-    return {str(v): n for v, n in got.items()}
+        fail(f"{what}: {name} launched {got} by plan variant, expected {want}")
+    return got
 
 
 def _ell_operator(torch, graph, matrix: str):
@@ -508,7 +509,7 @@ def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str) -> dict:
     y = spmm.propagate(adj, xg, use_pallas=True)
     y.backward(cot)
     torch.cuda.synchronize()
-    rec = {"launches_by_v": _expect_v(torch, ek, name, {4: 3}, what)}
+    rec = {"launches_by_variant": _expect_variant(torch, ek, name, {"staged": 3}, what)}
     ref = ek.ell_plain(adj.idx, adj.w, x)
     for tag, got, want, inp, kk in (
             ("fwd", out, ref, x, k), ("autograd_fwd", y.detach(), ref, x, k),
@@ -587,30 +588,31 @@ def check_ell_edges(torch, ek, graph_paths):
     n4 = load_graph(graph_paths[3]).num_nodes
     gen = torch.Generator(device=DEVICE).manual_seed(77)
     base = torch.randn(n3 * 256 + 1, device=DEVICE, generator=gen)
-    cases = [  # (case, kernel, idx, w, x, v expected)
+    cases = [  # (case, kernel, idx, w, x, plan variant expected)
         ("ragged_f37", "ell_resident", adj.idx, adj.w,
-         torch.randn(n3, 37, device=DEVICE, generator=gen), 1),
-        ("misaligned_x", "ell_resident", adj.idx, adj.w, base[1:].view(n3, 256), 1),
+         torch.randn(n3, 37, device=DEVICE, generator=gen), "v1"),
+        ("misaligned_x", "ell_resident", adj.idx, adj.w, base[1:].view(n3, 256), "v1"),
     ]
-    idx, w = _random_ell(torch, 5, 1003, 5000, 150)
+    idx, w = _random_ell(torch, 5, 1003, 5000, 150)  # K past one staging pass: gathered
     cases.append(("k150_rows1003", "ell_resident", idx, w,
-                  torch.randn(5000, 256, device=DEVICE, generator=gen), 4))
-    idx, w = _random_ell(torch, 6, 999, 3000, 44, pad_rows=(0, 5, 998))
+                  torch.randn(5000, 256, device=DEVICE, generator=gen), "v4"))
+    idx, w = _random_ell(torch, 6, 999, 200, 44, pad_rows=(0, 5, 998))  # few sources: staged
     cases.append(("padding_rows", "ell_resident", idx, w,
-                  torch.randn(3000, 256, device=DEVICE, generator=gen), 4))
-    idx, w = _random_ell(torch, 7, n4, n4, 44)
+                  torch.randn(200, 256, device=DEVICE, generator=gen), "staged"))
+    idx, w = _random_ell(torch, 7, n4, n4, 44)  # every block past the staging cap
     cases.append(("random_n4", "ell_hbm", idx, w,
-                  torch.randn(n4, 256, device=DEVICE, generator=gen), 4))
+                  torch.randn(n4, 256, device=DEVICE, generator=gen), "staged"))
     records = []
-    for case, name, idx, w, x, v in cases:
+    for case, name, idx, w, x, variant in cases:
         n_out, k = idx.shape
-        plan = ek.launch_plan(n_out, k, x.shape[1], v == 4)
         ek.reset_launches()
         got = getattr(ek, name)(idx, w, x)
         torch.cuda.synchronize()
+        plan, src = ek.plan_for(idx, x.shape[1], variant != "v1")
         rec = {"case": case, "name": name, "n_out": n_out, "k": k, "n_in": x.shape[0],
                "f": x.shape[1], "plan": plan._asdict(),
-               "launches_by_v": _expect_v(torch, ek, name, {v: 1}, case)}
+               "block_max_sources": src.max_count if src else None,
+               "launches_by_variant": _expect_variant(torch, ek, name, {variant: 1}, case)}
         rec["max_abs_err"], ok = _ell_err(got, ek.ell_plain(idx, w, x), x, k)
         if not ok or not bool(torch.isfinite(got).all()):
             fail(f"{name} disagrees with its plain version on {case}: "
@@ -683,9 +685,10 @@ def check_ell_routing(torch, ek, graph_paths):
 
 
 def sweep_ell_plans(torch, ek, graph_paths):
-    """The kernel at other launch plans (threads a block x feature-tile
-    bytes) on the n = 3 and n = 4 𝒜_in at F = 256, against the plan's own:
-    the choice of ``ell_kernels.launch_plan``'s constants, remeasured."""
+    """The kernel at other launch plans on the n = 3 and n = 4 𝒜_in at
+    F = 256: threads a block x feature-tile bytes at the default staging,
+    and the staging budget (0: every slot gathered) at the default
+    geometry; the choice of ``ell_kernels``' plan constants, remeasured."""
     from protgram_directgcn_torch.graph.structure import load_graph
 
     out = []
@@ -696,18 +699,29 @@ def sweep_ell_plans(torch, ek, graph_paths):
         x = torch.randn(n_in, 256, device=DEVICE,
                         generator=torch.Generator(device=DEVICE).manual_seed(level))
         ref = ek.ell_plain(adj.idx, adj.w, x)
-        times = {}
-        for threads in (64, 128, 256):
-            for tile in (32, 64, 128, 256):
-                plan = ek.launch_plan(n_out, k, 256, True, threads=threads, tile_bytes=tile)
-                got = ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan)
-                if not _ell_err(got, ref, x, k)[1]:
-                    fail(f"{name} at plan {plan} disagrees with its plain version")
-                times[f"{threads}x{tile}"] = _device_ms(
-                    torch, lambda: ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan),
-                    20 if level == 4 else 100)
-        rec = {"name": name, "level": level, "f": 256, "default": ek.launch_plan(
-            n_out, k, 256, True)._asdict(), "ms_by_threads_x_tile_bytes": times}
+        variants = {f"{t}x{b}": {"threads": t, "tile_bytes": b}
+                    for t in (64, 128, 256) for b in (64, 128, 256)}
+        variants.update({f"staged_bytes_{sb}": {"staged_bytes": sb}
+                         for sb in (0, 24 << 10, 96 << 10)})
+        times, plans = {}, {}
+        for key, kw in variants.items():
+            plan, _ = ek.plan_for(adj.idx, 256, True, **kw)
+            got = ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan)
+            if not _ell_err(got, ref, x, k)[1]:
+                fail(f"{name} at plan {plan} disagrees with its plain version")
+            times[key] = _device_ms(
+                torch, lambda: ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan),
+                20 if level == 4 else 100)
+            plans[key] = {"rows": plan.rows, "ct": plan.ct, "cap_u": plan.cap_u,
+                          "smem": plan.smem, "blocks_per_sm": ek.occupancy(plan)}
+        src = ek._operator_sources(adj.idx, ek.plan_for(adj.idx, 256, True)[0].rows)
+        counts = (src.offsets[1:] - src.offsets[:-1]).float()
+        rec = {"name": name, "level": level, "f": 256,
+               "default": ek.plan_for(adj.idx, 256, True)[0]._asdict(),
+               "block_sources": {"rows": src.rows, "mean": float(counts.mean()),
+                                 "max": src.max_count, "slots_per_source":
+                                 n_out * k / float(counts.sum()), "bytes": src.nbytes},
+               "ms": times, "plans": plans}
         emit("ell_plan_sweep", **rec)
         out.append(rec)
         del adj, x, ref
@@ -1156,13 +1170,16 @@ def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_re
 
 
 def _ell_occupancy(ek) -> dict:
-    """Blocks an SM holds of the ELL plans at the n = 4 level's shape, F = 256
-    (16-byte path) and F = 37 (one-element path)."""
+    """Blocks an SM holds of the ELL plans at the n = 4 level's shape: F = 256
+    staged (at the most distinct sources the default staging takes) and
+    gathered at 16 bytes a thread, and F = 37 (one element a thread)."""
     out = {}
-    for f, aligned in ((256, True), (37, False)):
+    for f, aligned in ((256, True), (256, True), (37, False)):
         plan = ek.launch_plan(167_325, 44, f, aligned)
+        if plan.v == 4 and "staged" not in out:
+            plan = plan._replace(cap_u=ek.STAGED_X_BYTES // (plan.ct * ek.VEC_BYTES))
         blocks = ek.occupancy(plan)
-        out[f"v{plan.v}"] = {"plan": plan._asdict(), "threads": plan.threads,
+        out[plan.variant] = {"plan": plan._asdict(), "threads": plan.threads,
                              "smem_bytes": plan.smem, "blocks_per_sm": blocks,
                              "threads_per_sm": blocks * plan.threads}
     return out

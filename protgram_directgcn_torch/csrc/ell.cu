@@ -61,8 +61,8 @@
 namespace {
 
 constexpr int kMaxThreads = 512;       // threads a block
-constexpr int kMaxSmemBytes = 49152;  // dynamic shared memory without the opt-in
-constexpr int kUnroll = 4;             // gathers in flight per thread
+constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block (227 KB, opted in)
+constexpr int kUnroll = 4;             // gathers in flight per thread (direct mode)
 
 __device__ __forceinline__ void fma_into(float& acc, float w, float v) { acc = fmaf(w, v, acc); }
 __device__ __forceinline__ void fma_into(float4& acc, float w, const float4& v) {
@@ -79,50 +79,103 @@ __device__ __forceinline__ float zero<float>() { return 0.0f; }
 template <>
 __device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
+// 16 bytes from global to shared memory without passing through registers
+// or L1 (cp.async.cg); cp_async_wait_all waits for the thread's own copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // V = float4 (4 features a thread) or float (1).  nvec = F / features-per-V.
 // Thread t of block (bx, by) serves output row bx * rows + (t >> ct_log2)
 // and feature vector by * ct + (t & (ct - 1)), ct = 1 << ct_log2.
-template <typename V>
+//
+// kStaged (V = float4 only): where block bx has at most cap_u distinct
+// sources, u_src[u_off[bx] .. u_off[bx + 1]), their vectors of this tile are
+// copied into shared memory first, and slot (i, k) reads the copy at
+// local[i, k], its source's position in that list; a block with more
+// gathers x[idx[i, k]] itself, as every block does without kStaged.  Both
+// sum the same values in the same order.
+template <typename V, bool kStaged>
 __global__ void __launch_bounds__(kMaxThreads)
     ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                const V* __restrict__ x, V* __restrict__ out, int n_out, int k, int nvec,
-               int ct_log2, int rows, int kc) {
-  extern __shared__ int2 s_slot[];  // [rows][kc]: {idx, bits of w}
+               int ct_log2, int rows, int kc, const short* __restrict__ local,
+               const int* __restrict__ u_off, const int* __restrict__ u_src, int cap_u) {
+  extern __shared__ int4 smem[];
+  int2* s_slot = reinterpret_cast<int2*>(smem);  // [rows][kc]: {index, bits of w}
+  const int ct = 1 << ct_log2;
+  const int lane = threadIdx.x & (ct - 1);
   const int local_row = threadIdx.x >> ct_log2;
   const int64_t row0 = (int64_t)blockIdx.x * rows;
   const int64_t row = row0 + local_row;
-  const int v = (blockIdx.y << ct_log2) + (threadIdx.x & ((1 << ct_log2) - 1));
+  const int v = (blockIdx.y << ct_log2) + lane;
   const bool live = row < n_out && v < nvec;
   const int live_rows = n_out - row0 < rows ? (int)(n_out - row0) : rows;
 
   V acc = zero<V>();
-  for (int k0 = 0; k0 < k; k0 += kc) {
-    const int n = min(kc, k - k0);
-    if (k0 > 0) __syncthreads();  // the previous chunk's slots have been read
-    if (n == k) {  // the block's slots are one contiguous run
-      const int64_t base = row0 * k;
-      for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
-        s_slot[(t / k) * kc + t % k] = make_int2(idx[base + t], __float_as_int(w[base + t]));
-    } else {
-      for (int t = threadIdx.x; t < live_rows * n; t += blockDim.x) {
-        const int r = t / n;
-        const int j = t - r * n;
-        const int64_t g = (row0 + r) * k + k0 + j;
-        s_slot[r * kc + j] = make_int2(idx[g], __float_as_int(w[g]));
-      }
+  int u0 = 0, nu = 0;
+  if constexpr (kStaged) {
+    u0 = u_off[blockIdx.x];
+    nu = u_off[blockIdx.x + 1] - u0;
+  }
+  if (kStaged && nu <= cap_u) {  // one pass: kc >= k
+    V* s_x = reinterpret_cast<V*>(s_slot + ((rows * kc + 1) & ~1));  // [distinct][ct]
+    const int v0 = blockIdx.y << ct_log2;
+    for (int c = threadIdx.x; c < (nu << ct_log2); c += blockDim.x) {
+      if (v0 + (c & (ct - 1)) < nvec)
+        cp_async16(s_x + c, x + (int64_t)u_src[u0 + (c >> ct_log2)] * nvec + v0 + (c & (ct - 1)));
     }
+    const int64_t base = row0 * k;
+    for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
+      s_slot[(t / k) * kc + t % k] = make_int2(local[base + t], __float_as_int(w[base + t]));
+    cp_async_wait_all();
     __syncthreads();
     if (live) {
       const int2* s = s_slot + local_row * kc;
+      const V* xs = s_x + lane;
       int j = 0;
-      for (; j + kUnroll <= n; j += kUnroll) {
+      for (; j + kUnroll <= k; j += kUnroll) {
         V a[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) a[u] = x[(int64_t)s[j + u].x * nvec + v];
+        for (int u = 0; u < kUnroll; ++u) a[u] = xs[s[j + u].x << ct_log2];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) fma_into(acc, __int_as_float(s[j + u].y), a[u]);
       }
-      for (; j < n; ++j) fma_into(acc, __int_as_float(s[j].y), x[(int64_t)s[j].x * nvec + v]);
+      for (; j < k; ++j) fma_into(acc, __int_as_float(s[j].y), xs[s[j].x << ct_log2]);
+    }
+  } else {
+    for (int k0 = 0; k0 < k; k0 += kc) {
+      const int n = min(kc, k - k0);
+      if (k0 > 0) __syncthreads();  // the previous chunk's slots have been read
+      if (n == k) {  // the block's slots are one contiguous run
+        const int64_t base = row0 * k;
+        for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
+          s_slot[(t / k) * kc + t % k] = make_int2(idx[base + t], __float_as_int(w[base + t]));
+      } else {
+        for (int t = threadIdx.x; t < live_rows * n; t += blockDim.x) {
+          const int r = t / n;
+          const int j = t - r * n;
+          const int64_t g = (row0 + r) * k + k0 + j;
+          s_slot[r * kc + j] = make_int2(idx[g], __float_as_int(w[g]));
+        }
+      }
+      __syncthreads();
+      if (live) {
+        const int2* s = s_slot + local_row * kc;
+        int j = 0;
+        for (; j + kUnroll <= n; j += kUnroll) {
+          V a[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) a[u] = x[(int64_t)s[j + u].x * nvec + v];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) fma_into(acc, __int_as_float(s[j + u].y), a[u]);
+        }
+        for (; j < n; ++j) fma_into(acc, __int_as_float(s[j].y), x[(int64_t)s[j].x * nvec + v]);
+      }
     }
   }
   if (live) out[row * nvec + v] = acc;
@@ -134,18 +187,52 @@ int log2_exact(int n) {
   return (1 << l) == n ? l : -1;
 }
 
+// Dynamic shared memory of a launch: the staged slots (padded to 16 bytes),
+// then, staged, cap_u distinct rows of ct 16-byte vectors.
+int64_t smem_bytes(int rows, int kc, int ct, int cap_u) {
+  return (int64_t)((rows * kc + 1) & ~1) * 8 + (int64_t)cap_u * ct * 16;
+}
+
+template <typename V, bool kStaged>
+cudaError_t allow_smem() {  // once per process and instantiation
+  static const cudaError_t e = cudaFuncSetAttribute(
+      ell_kernel<V, kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  return e;
+}
+
+template <typename V, bool kStaged>
+int launch_typed(const int* idx, const float* w, const void* x, void* out, int n_out, int k,
+                 int nvec, int ct_log2, int rows, int kc, const short* local, const int* u_off,
+                 const int* u_src, int cap_u, dim3 grid, unsigned threads, size_t smem,
+                 cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_smem<V, kStaged>();
+    if (e != cudaSuccess) return (int)e;
+  }
+  ell_kernel<V, kStaged><<<grid, threads, smem, s>>>(idx, w, (const V*)x, (V*)out, n_out, k,
+                                                     nvec, ct_log2, rows, kc, local, u_off,
+                                                     u_src, cap_u);
+  return (int)cudaGetLastError();
+}
+
 // The plan (ops/ell_kernels.py `launch_plan`): v features a thread, ct
 // threads a row (a power of two), `rows` rows a block, kc slots staged a
-// pass, grid (row blocks, feature tiles).  Refused unless it covers every
-// output element once and fits a block.
+// pass, grid (row blocks, feature tiles); cap_u > 0 stages up to cap_u
+// distinct source rows a block (local, u_off, u_src given: the operator's
+// block source lists for `rows` rows a block).  Refused unless it covers
+// every output element once and fits a block.
 int launch(const void* idx, const void* w, const void* x, void* out, int n_out, int k, int f,
-           int v, int ct, int rows, int kc, int grid_x, int grid_y, void* stream) {
+           int v, int ct, int rows, int kc, int grid_x, int grid_y, const void* local,
+           const void* u_off, const void* u_src, int cap_u, void* stream) {
   if (n_out < 0 || k < 0 || f < 0) return (int)cudaErrorInvalidValue;
   if (n_out == 0 || f == 0) return (int)cudaSuccess;
   const int ct_log2 = log2_exact(ct);
   const int64_t threads = (int64_t)ct * rows;
+  const bool staged = cap_u > 0;
   if ((v != 1 && v != 4) || f % v != 0 || ct_log2 < 0 || rows < 1 || threads > kMaxThreads ||
-      threads % 32 != 0 || kc < 1 || (int64_t)rows * kc * 8 > kMaxSmemBytes)
+      threads % 32 != 0 || kc < 1 || cap_u < 0 || smem_bytes(rows, kc, ct, cap_u) > kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  if (staged && (v != 4 || kc < k || k < 1 || !local || !u_off || !u_src))
     return (int)cudaErrorInvalidValue;
   const int nvec = f / v;
   if ((int64_t)grid_x * rows < n_out || (int64_t)grid_y * ct < nvec ||
@@ -154,17 +241,22 @@ int launch(const void* idx, const void* w, const void* x, void* out, int n_out, 
     return (int)cudaErrorInvalidValue;
   if (v == 4 && (((uintptr_t)x | (uintptr_t)out) % 16) != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  const size_t smem = (size_t)rows * kc * 8;
+  const size_t smem = (size_t)smem_bytes(rows, kc, ct, cap_u);
   const cudaStream_t s = (cudaStream_t)stream;
   const int* i = (const int*)idx;
   const float* wf = (const float*)w;
+  const short* l = (const short*)local;
+  const int* uo = (const int*)u_off;
+  const int* us = (const int*)u_src;
+  const unsigned t = (unsigned)threads;
+  if (staged)
+    return launch_typed<float4, true>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo,
+                                      us, cap_u, grid, t, smem, s);
   if (v == 4)
-    ell_kernel<float4><<<grid, (unsigned)threads, smem, s>>>(
-        i, wf, (const float4*)x, (float4*)out, n_out, k, nvec, ct_log2, rows, kc);
-  else
-    ell_kernel<float><<<grid, (unsigned)threads, smem, s>>>(
-        i, wf, (const float*)x, (float*)out, n_out, k, nvec, ct_log2, rows, kc);
-  return (int)cudaGetLastError();
+    return launch_typed<float4, false>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo,
+                                       us, 0, grid, t, smem, s);
+  return launch_typed<float, false>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo, us,
+                                    0, grid, t, smem, s);
 }
 
 }  // namespace
@@ -173,24 +265,37 @@ extern "C" {
 
 int ell_resident_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k,
                      int f, int v, int ct, int rows, int kc, int grid_x, int grid_y,
+                     const void* local, const void* u_off, const void* u_src, int cap_u,
                      void* stream) {
-  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, stream);
+  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, local, u_off,
+                u_src, cap_u, stream);
 }
 
-int ell_hbm_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k,
-                int f, int v, int ct, int rows, int kc, int grid_x, int grid_y, void* stream) {
-  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, stream);
+int ell_hbm_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k, int f,
+                int v, int ct, int rows, int kc, int grid_x, int grid_y, const void* local,
+                const void* u_off, const void* u_src, int cap_u, void* stream) {
+  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, local, u_off,
+                u_src, cap_u, stream);
 }
 
-// Resident blocks an SM holds of the V = v body at `threads` threads and
-// `smem` bytes of dynamic shared memory; a negative CUDA error code on failure.
-int ell_occupancy(int v, int threads, int smem) {
+// Resident blocks an SM holds of a launch of the V = v body (staged or not)
+// at `threads` threads and `smem` bytes of dynamic shared memory; a negative
+// CUDA error code on failure.
+int ell_occupancy(int v, int staged, int threads, int smem) {
   int blocks = 0;
-  const cudaError_t e =
-      v == 4 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float4>,
-                                                             threads, (size_t)smem)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float>,
-                                                             threads, (size_t)smem);
+  cudaError_t e;
+  if (staged) {
+    e = allow_smem<float4, true>();
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float4, true>,
+                                                        threads, (size_t)smem);
+  } else if (v == 4) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float4, false>,
+                                                      threads, (size_t)smem);
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float, false>,
+                                                      threads, (size_t)smem);
+  }
   return e == cudaSuccess ? blocks : -(int)e;
 }
 

@@ -29,7 +29,6 @@ backward runs the same kernel on the transpose orientation ``(idx_t, w_t)``
 from __future__ import annotations
 
 import ctypes
-import functools
 import re
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -43,14 +42,15 @@ _X_RESIDENT_BUDGET = 8 * 1024 * 1024
 _F_TILE = 128
 
 # Launches per kernel and direction ("fwd": the forward product, "bwd": the
-# transpose-orientation product), and per kernel by the features a thread
-# owns (the plan's ``v``: 4, one 16-byte access, or 1).  The wrappers add one
+# transpose-orientation product), and per kernel by the plan's variant
+# ("staged": distinct source rows staged in shared memory; "v4" / "v1": each
+# slot gathered, 16 bytes or one element a thread).  The wrappers add one
 # where they launch a kernel and nowhere else.
 LAUNCHES: Dict[str, Dict[str, int]] = {
     "ell_resident": {"fwd": 0, "bwd": 0},
     "ell_hbm": {"fwd": 0, "bwd": 0},
 }
-LAUNCHES_BY_V: Dict[str, Dict[int, int]] = {"ell_resident": {}, "ell_hbm": {}}
+LAUNCHES_BY_VARIANT: Dict[str, Dict[str, int]] = {"ell_resident": {}, "ell_hbm": {}}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -61,16 +61,16 @@ def reset_launches() -> None:
     for per_dir in LAUNCHES.values():
         for k in per_dir:
             per_dir[k] = 0
-    for per_v in LAUNCHES_BY_V.values():
-        per_v.clear()
+    for per_variant in LAUNCHES_BY_VARIANT.values():
+        per_variant.clear()
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:
     return {name: dict(per_dir) for name, per_dir in LAUNCHES.items()}
 
 
-def launch_counts_by_v() -> Dict[str, Dict[int, int]]:
-    return {name: dict(per_v) for name, per_v in LAUNCHES_BY_V.items()}
+def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
+    return {name: dict(per) for name, per in LAUNCHES_BY_VARIANT.items()}
 
 
 def build() -> Dict[str, object]:
@@ -87,10 +87,11 @@ def build() -> Dict[str, object]:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in LAUNCHES:
             fn = getattr(lib, f"{name}_f32")
-            # idx, w, x, out, n_out, k, f, then the plan: v, ct, rows, kc, grid
-            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, *[i32] * 6, ptr]
+            # idx, w, x, out, n_out, k, f; the plan: v, ct, rows, kc, grid; the
+            # block sources: local, offsets, sources, cap_u; the stream
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, *[i32] * 6, ptr, ptr, ptr, i32, ptr]
             fn.restype = i32
-        lib.ell_occupancy.argtypes = [i32, i32, i32]
+        lib.ell_occupancy.argtypes = [i32, i32, i32, i32]
         lib.ell_occupancy.restype = i32
         BUILD_INFO.clear()
         BUILD_INFO.update(info)
@@ -117,19 +118,23 @@ MAX_SMEM = int(_BOUNDS["kMaxSmemBytes"])
 TILE_BYTES = 128  # a row's feature tile: 32 features, 8 threads at v = 4
 THREADS = 128  # threads a block
 STAGE_BYTES = 16 * 1024  # shared memory for a block's staged idx/w
+STAGED_X_BYTES = 48 * 1024  # shared memory for a block's distinct source rows
 
 
 class LaunchPlan(NamedTuple):
     """Geometry of one ELL launch.  Thread ``t`` of block ``(bx, by)`` serves
     output row ``bx * rows + t // ct`` and features ``[c * v, c * v + v)`` of
     chunk ``c = by * ct + t % ct``; rows past N_out and chunks past F / v
-    idle.  The block stages ``kc`` slots of its rows' idx/w a pass."""
+    idle.  The block stages ``kc`` slots of its rows' idx/w a pass and, with
+    ``cap_u > 0``, its distinct source rows' tile where they are at most
+    ``cap_u`` (the operator's ``BlockSources`` for ``rows``)."""
 
     v: int  # features a thread owns: 4 (16 bytes) or 1
     ct: int  # threads of one row, a power of two: the feature tile is ct * v
     rows: int  # consecutive output rows a block
     kc: int  # slots staged in shared memory a pass
     grid: Tuple[int, int]  # (row blocks, feature tiles)
+    cap_u: int = 0  # distinct source rows a block stages at most (0: none)
 
     @property
     def threads(self) -> int:
@@ -137,7 +142,13 @@ class LaunchPlan(NamedTuple):
 
     @property
     def smem(self) -> int:
-        return self.rows * self.kc * 8
+        """Dynamic shared memory (csrc/ell.cu ``smem_bytes``)."""
+        return ((self.rows * self.kc + 1) // 2 * 2) * 8 + self.cap_u * self.ct * 16
+
+    @property
+    def variant(self) -> str:
+        """"staged", or the direct gather's "v4" (16 bytes a thread) / "v1"."""
+        return "staged" if self.cap_u else f"v{self.v}"
 
 
 def _cdiv(n: int, d: int) -> int:
@@ -149,41 +160,100 @@ def _pow2_at_least(n: int) -> int:
 
 
 def launch_plan(n_out: int, k: int, f: int, aligned: bool, threads: int = THREADS,
-                tile_bytes: int = TILE_BYTES) -> LaunchPlan:
+                tile_bytes: int = TILE_BYTES, cap_u: int = 0) -> LaunchPlan:
     """The launch on idx/w ``[n_out, k]`` and x ``[n_in, f]`` f32.
 
     ``aligned``: x and out are 16-byte aligned.  16-byte accesses need that
     and ``f % 4 == 0``; otherwise ``v = 1``.  A row's threads cover a
     ``tile_bytes`` feature tile (fewer where F is narrower), a block
     ``threads // ct`` consecutive rows, and each pass stages up to
-    ``STAGE_BYTES`` of the block's idx/w (all K slots when they fit).
+    ``STAGE_BYTES`` of the block's idx/w (all K slots when they fit; staged
+    plans, ``cap_u > 0``, need all K in one pass and v = 4).
     """
     v = 4 if aligned and f % 4 == 0 else 1
     nvec = f // v
     ct = min(_pow2_at_least(max(nvec, 1)), max(1, tile_bytes // (4 * v)))
     rows = max(1, threads // ct)
     kc = max(1, min(k, STAGE_BYTES // (rows * 8)))
+    if cap_u and (v != 4 or kc < k):
+        raise ValueError(f"a staged plan needs v = 4 and all {k} slots in one pass")
     return LaunchPlan(v=v, ct=ct, rows=rows, kc=kc,
-                      grid=(max(1, _cdiv(n_out, rows)), max(1, _cdiv(nvec, ct))))
+                      grid=(max(1, _cdiv(n_out, rows)), max(1, _cdiv(nvec, ct))), cap_u=cap_u)
+
+
+class BlockSources(NamedTuple):
+    """The distinct sources of each block of ``rows`` consecutive output rows
+    of an ELL operator: block b's are ``sources[offsets[b]:offsets[b + 1]]``,
+    ascending, and slot (i, k) is ``local[i, k]``-th of its block's."""
+
+    rows: int
+    offsets: torch.Tensor  # int32 [blocks + 1]
+    sources: torch.Tensor  # int32 [sum of the blocks' counts]
+    local: torch.Tensor  # int16 [n_out, K]
+    max_count: int  # the most distinct sources of any block
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.offsets, self.sources, self.local))
+
+
+def block_sources(idx: torch.Tensor, rows: int) -> BlockSources:
+    """``BlockSources`` of idx ``[n_out, K]`` int32 (K >= 1, rows * K < 2^15),
+    on idx's device: one sort of the (block, source) keys."""
+    n_out, k = idx.shape
+    if k < 1 or rows * k >= 1 << 15:
+        raise ValueError(f"block sources need 1 <= K and rows * K < 32768, got {rows} x {k}")
+    dev = idx.device
+    blocks = max(1, _cdiv(n_out, rows))
+    span = int(idx.max()) + 1 if idx.numel() else 1
+    blk = torch.arange(n_out, device=dev, dtype=torch.int64) // rows
+    keys = (blk[:, None] * span + idx.long()).reshape(-1)
+    uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
+    ublk = uniq // span
+    counts = torch.bincount(ublk, minlength=blocks)
+    offsets = torch.zeros(blocks + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0)
+    local = inv.reshape(n_out, k) - offsets[blk][:, None]
+    return BlockSources(rows=rows, offsets=offsets.int(), sources=(uniq - ublk * span).int(),
+                        local=local.to(torch.int16).contiguous(),
+                        max_count=int(counts.max()) if n_out else 0)
+
+
+def _operator_sources(idx: torch.Tensor, rows: int) -> BlockSources:
+    """``block_sources(idx, rows)``, computed once and kept on idx: the
+    operator's tensors live as long as the operator."""
+    cache = idx.__dict__.setdefault("_ell_block_sources", {})
+    if rows not in cache:
+        cache[rows] = block_sources(idx, rows)
+    return cache[rows]
+
+
+def plan_for(idx: torch.Tensor, f: int, aligned: bool, threads: int = THREADS,
+             tile_bytes: int = TILE_BYTES, staged_bytes: int = STAGED_X_BYTES):
+    """The launch plan on idx and an f-wide x, and the operator's block
+    sources where the plan stages them: at v = 4 with all K slots in one
+    pass, each block whose distinct sources' tile fits ``staged_bytes``
+    stages them.  Returns ``(plan, sources or None)``."""
+    n_out, k = idx.shape
+    plan = launch_plan(n_out, k, f, aligned, threads, tile_bytes)
+    if plan.v != 4 or k < 1 or plan.kc < k or plan.rows * k >= 1 << 15 or staged_bytes <= 0:
+        return plan, None
+    src = _operator_sources(idx, plan.rows)
+    cap = min(src.max_count, staged_bytes // (plan.ct * VEC_BYTES))
+    if cap < 1:
+        return plan, None
+    return plan._replace(cap_u=cap), src
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % VEC_BYTES == 0 for t in tensors)
 
 
-@functools.lru_cache(maxsize=256)
-def _plan_args(n_out: int, k: int, f: int, aligned: bool) -> Tuple[int, ...]:
-    """``launch_plan`` as the entry points take it, cached: a wrapper call at
-    the small levels' sizes costs more on the host than its kernel."""
-    plan = launch_plan(n_out, k, f, aligned)
-    return (plan.v, plan.ct, plan.rows, plan.kc, *plan.grid)
-
-
 def occupancy(plan: LaunchPlan) -> int:
     """Blocks of ``plan`` one SM holds at once (the CUDA occupancy query)."""
     if _lib is None:
         build()
-    return int(_lib.ell_occupancy(plan.v, plan.threads, plan.smem))
+    return int(_lib.ell_occupancy(plan.v, int(plan.cap_u > 0), plan.threads, plan.smem))
 
 
 # -----------------------------------------------------------------------------
@@ -235,8 +305,8 @@ def _launch(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
 
 def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
                  direction: str, plan: Optional[LaunchPlan] = None) -> torch.Tensor:
-    """Launch ``name`` on checked inputs with ``plan`` (else ``launch_plan``'s);
-    count the launch."""
+    """Launch ``name`` on checked inputs with ``plan`` (else ``plan_for``'s);
+    count the launch by direction and variant."""
     n_out, k = idx.shape
     f = x.shape[1]
     out = torch.empty((n_out, f), dtype=torch.float32, device=x.device)
@@ -244,14 +314,19 @@ def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         return out
     if _lib is None:
         build()
-    args = (_plan_args(n_out, k, f, _aligned(x, out)) if plan is None
-            else (plan.v, plan.ct, plan.rows, plan.kc, *plan.grid))
+    if plan is None:
+        plan, src = plan_for(idx, f, _aligned(x, out))
+    else:
+        src = _operator_sources(idx, plan.rows) if plan.cap_u else None
+    staged = (src.local.data_ptr(), src.offsets.data_ptr(), src.sources.data_ptr()) if src else (
+        None, None, None)
     fn = getattr(_lib, f"{name}_f32")
-    rc = fn(idx.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), n_out, k, f, *args,
-            _nvcc.stream_ptr(x))
+    rc = fn(idx.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), n_out, k, f, plan.v,
+            plan.ct, plan.rows, plan.kc, *plan.grid, *staged, plan.cap_u, _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, name)
     LAUNCHES[name][direction] += 1
-    LAUNCHES_BY_V[name][args[0]] = LAUNCHES_BY_V[name].get(args[0], 0) + 1
+    per = LAUNCHES_BY_VARIANT[name]
+    per[plan.variant] = per.get(plan.variant, 0) + 1
     return out
 
 
