@@ -62,7 +62,7 @@ namespace {
 
 constexpr int kMaxThreads = 512;       // threads a block
 constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block (227 KB, opted in)
-constexpr int kUnroll = 4;             // gathers in flight per thread (direct mode)
+constexpr int kUnroll = 8;             // gathers in flight per thread
 
 __device__ __forceinline__ void fma_into(float& acc, float w, float v) { acc = fmaf(w, v, acc); }
 __device__ __forceinline__ void fma_into(float4& acc, float w, const float4& v) {
@@ -83,10 +83,31 @@ __device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 
 // or L1 (cp.async.cg); cp_async_wait_all waits for the thread's own copies.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// acc += w * load(index) over slots j.. of s ({index, bits of w}) in slot
+// order, U loads issued before their U fmaf's; returns the first slot left.
+template <int U, typename V, typename Load>
+__device__ __forceinline__ int accumulate(const int2* s, int j, int n, V& acc, Load load) {
+  for (; j + U <= n; j += U) {
+    V a[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) a[u] = load(s[j + u].x);
+#pragma unroll
+    for (int u = 0; u < U; ++u) fma_into(acc, __int_as_float(s[j + u].y), a[u]);
+  }
+  return j;
+}
+
+template <typename V, typename Load>
+__device__ __forceinline__ void accumulate_all(const int2* s, int n, V& acc, Load load) {
+  int j = accumulate<kUnroll>(s, 0, n, acc, load);
+  j = accumulate<4>(s, j, n, acc, load);
+  accumulate<1>(s, j, n, acc, load);
 }
 
 // V = float4 (4 features a thread) or float (1).  nvec = F / features-per-V.
@@ -123,29 +144,23 @@ __global__ void __launch_bounds__(kMaxThreads)
     nu = u_off[blockIdx.x + 1] - u0;
   }
   if (kStaged && nu <= cap_u) {  // one pass: kc >= k
-    V* s_x = reinterpret_cast<V*>(s_slot + ((rows * kc + 1) & ~1));  // [distinct][ct]
-    const int v0 = blockIdx.y << ct_log2;
-    for (int c = threadIdx.x; c < (nu << ct_log2); c += blockDim.x) {
-      if (v0 + (c & (ct - 1)) < nvec)
-        cp_async16(s_x + c, x + (int64_t)u_src[u0 + (c >> ct_log2)] * nvec + v0 + (c & (ct - 1)));
-    }
+    int* s_src = reinterpret_cast<int*>(s_slot + ((rows * kc + 1) & ~1));      // [cap_u]
+    V* s_x = reinterpret_cast<V*>(s_src + ((cap_u + 3) & ~3));                 // [cap_u][ct]
+    for (int t = threadIdx.x; t < nu; t += blockDim.x) s_src[t] = u_src[u0 + t];
     const int64_t base = row0 * k;
     for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
       s_slot[(t / k) * kc + t % k] = make_int2(local[base + t], __float_as_int(w[base + t]));
+    __syncthreads();
+    const int v0 = blockIdx.y << ct_log2;
+    for (int c = threadIdx.x; c < (nu << ct_log2); c += blockDim.x) {
+      if (v0 + (c & (ct - 1)) < nvec)
+        cp_async16(s_x + c, x + (int64_t)s_src[c >> ct_log2] * nvec + v0 + (c & (ct - 1)));
+    }
     cp_async_wait_all();
     __syncthreads();
     if (live) {
-      const int2* s = s_slot + local_row * kc;
       const V* xs = s_x + lane;
-      int j = 0;
-      for (; j + kUnroll <= k; j += kUnroll) {
-        V a[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) a[u] = xs[s[j + u].x << ct_log2];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) fma_into(acc, __int_as_float(s[j + u].y), a[u]);
-      }
-      for (; j < k; ++j) fma_into(acc, __int_as_float(s[j].y), xs[s[j].x << ct_log2]);
+      accumulate_all(s_slot + local_row * kc, k, acc, [&](int l) { return xs[l << ct_log2]; });
     }
   } else {
     for (int k0 = 0; k0 < k; k0 += kc) {
@@ -164,18 +179,9 @@ __global__ void __launch_bounds__(kMaxThreads)
         }
       }
       __syncthreads();
-      if (live) {
-        const int2* s = s_slot + local_row * kc;
-        int j = 0;
-        for (; j + kUnroll <= n; j += kUnroll) {
-          V a[kUnroll];
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) a[u] = x[(int64_t)s[j + u].x * nvec + v];
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) fma_into(acc, __int_as_float(s[j + u].y), a[u]);
-        }
-        for (; j < n; ++j) fma_into(acc, __int_as_float(s[j].y), x[(int64_t)s[j].x * nvec + v]);
-      }
+      if (live)
+        accumulate_all(s_slot + local_row * kc, n, acc,
+                       [&](int i) { return x[(int64_t)i * nvec + v]; });
     }
   }
   if (live) out[row * nvec + v] = acc;
@@ -188,9 +194,11 @@ int log2_exact(int n) {
 }
 
 // Dynamic shared memory of a launch: the staged slots (padded to 16 bytes),
-// then, staged, cap_u distinct rows of ct 16-byte vectors.
+// then, staged, cap_u source ids (padded to 16 bytes) and cap_u rows of ct
+// 16-byte vectors.
 int64_t smem_bytes(int rows, int kc, int ct, int cap_u) {
-  return (int64_t)((rows * kc + 1) & ~1) * 8 + (int64_t)cap_u * ct * 16;
+  const int64_t staged = cap_u ? (int64_t)((cap_u + 3) & ~3) * 4 + (int64_t)cap_u * ct * 16 : 0;
+  return (int64_t)((rows * kc + 1) & ~1) * 8 + staged;
 }
 
 template <typename V, bool kStaged>

@@ -143,7 +143,8 @@ class LaunchPlan(NamedTuple):
     @property
     def smem(self) -> int:
         """Dynamic shared memory (csrc/ell.cu ``smem_bytes``)."""
-        return ((self.rows * self.kc + 1) // 2 * 2) * 8 + self.cap_u * self.ct * 16
+        staged = ((self.cap_u + 3) // 4 * 16 + self.cap_u * self.ct * 16) if self.cap_u else 0
+        return ((self.rows * self.kc + 1) // 2 * 2) * 8 + staged
 
     @property
     def variant(self) -> str:
@@ -239,7 +240,7 @@ def plan_for(idx: torch.Tensor, f: int, aligned: bool, threads: int = THREADS,
     if plan.v != 4 or k < 1 or plan.kc < k or plan.rows * k >= 1 << 15 or staged_bytes <= 0:
         return plan, None
     src = _operator_sources(idx, plan.rows)
-    cap = min(src.max_count, staged_bytes // (plan.ct * VEC_BYTES))
+    cap = min(src.max_count, staged_bytes // (plan.ct * VEC_BYTES + 4))
     if cap < 1:
         return plan, None
     return plan._replace(cap_u=cap), src

@@ -45,7 +45,8 @@ def _entry_point_takes(plan: ek.LaunchPlan, n_out: int, k: int, f: int) -> bool:
     """The checks of csrc/ell.cu ``launch`` (n_out, f > 0)."""
     ct, rows, threads = plan.ct, plan.rows, plan.threads
     nvec = f // plan.v
-    smem = ((rows * plan.kc + 1) & ~1) * 8 + plan.cap_u * ct * 16
+    staged = ((plan.cap_u + 3) & ~3) * 4 + plan.cap_u * ct * 16 if plan.cap_u else 0
+    smem = ((rows * plan.kc + 1) & ~1) * 8 + staged
     return (plan.v in (1, 4) and f % plan.v == 0 and ct & (ct - 1) == 0 and rows >= 1
             and threads <= ek.MAX_THREADS and threads % 32 == 0 and plan.kc >= 1
             and plan.cap_u >= 0 and smem == plan.smem <= ek.MAX_SMEM
@@ -86,7 +87,7 @@ def test_default_plan_at_the_paths_shapes():
     assert plan.threads == 128 and plan.smem == 5_632 and plan.variant == "v4"
     assert ek.launch_plan(167_325, 44, 37, True).variant == "v1"
     staged = ek.launch_plan(167_325, 44, 256, True, cap_u=384)
-    assert staged.smem == 5_632 + 384 * 8 * 16 and staged.variant == "staged"
+    assert staged.smem == 5_632 + 384 * 4 + 384 * 8 * 16 and staged.variant == "staged"
     assert _entry_point_takes(staged, 167_325, 44, 256)
     with pytest.raises(ValueError, match="staged"):
         ek.launch_plan(1003, 150, 256, True, cap_u=10)  # K past one pass
@@ -159,7 +160,7 @@ def test_block_sources_match_numpy_on_ngram_operators(ngram3, matrix):
     for idx in (adj.idx, adj.idx_t):
         got = _check_sources(idx.numpy(), 16)
         plan, cached = ek.plan_for(idx, 256, True)
-        assert plan.rows == 16 and plan.cap_u == min(got.max_count, ek.STAGED_X_BYTES // 128)
+        assert plan.rows == 16 and plan.cap_u == min(got.max_count, ek.STAGED_X_BYTES // 132)
         assert plan.variant == "staged" and cached is ek.plan_for(idx, 64, True)[1]
         np.testing.assert_array_equal(cached.local.numpy(), got.local.numpy())
         assert ek.plan_for(idx, 37, True) == (ek.launch_plan(idx.shape[0], idx.shape[1], 37,
