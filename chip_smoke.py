@@ -509,7 +509,11 @@ def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str) -> dict:
     y = spmm.propagate(adj, xg, use_pallas=True)
     y.backward(cot)
     torch.cuda.synchronize()
-    rec = {"launches_by_variant": _expect_variant(torch, ek, name, {"staged": 3}, what)}
+    # Aligned, F % 4 == 0: 16 bytes a thread, staged or gathered as the plan says.
+    want = ek.plan_for(adj.idx, x.shape[1], True, x.shape[0])[0].variant
+    if want == "v1":
+        fail(f"{what}: the plan takes the one-element path on aligned 16-byte rows")
+    rec = {"launches_by_variant": _expect_variant(torch, ek, name, {want: 3}, what)}
     ref = ek.ell_plain(adj.idx, adj.w, x)
     for tag, got, want, inp, kk in (
             ("fwd", out, ref, x, k), ("autograd_fwd", y.detach(), ref, x, k),
@@ -596,19 +600,19 @@ def check_ell_edges(torch, ek, graph_paths):
     idx, w = _random_ell(torch, 5, 1003, 5000, 150)  # K past one staging pass: gathered
     cases.append(("k150_rows1003", "ell_resident", idx, w,
                   torch.randn(5000, 256, device=DEVICE, generator=gen), "v4"))
-    idx, w = _random_ell(torch, 6, 999, 200, 44, pad_rows=(0, 5, 998))  # few sources: staged
+    idx, w = _random_ell(torch, 6, 999, 200, 44, pad_rows=(0, 5, 998))
     cases.append(("padding_rows", "ell_resident", idx, w,
-                  torch.randn(200, 256, device=DEVICE, generator=gen), "staged"))
-    idx, w = _random_ell(torch, 7, n4, n4, 44)  # every block past the staging cap
+                  torch.randn(200, 256, device=DEVICE, generator=gen), "v4"))
+    idx, w = _random_ell(torch, 7, n4, n4, 44)
     cases.append(("random_n4", "ell_hbm", idx, w,
-                  torch.randn(n4, 256, device=DEVICE, generator=gen), "staged"))
+                  torch.randn(n4, 256, device=DEVICE, generator=gen), "v4"))
     records = []
     for case, name, idx, w, x, variant in cases:
         n_out, k = idx.shape
         ek.reset_launches()
         got = getattr(ek, name)(idx, w, x)
         torch.cuda.synchronize()
-        plan, src = ek.plan_for(idx, x.shape[1], variant != "v1")
+        plan, src = ek.plan_for(idx, x.shape[1], variant != "v1", x.shape[0])
         rec = {"case": case, "name": name, "n_out": n_out, "k": k, "n_in": x.shape[0],
                "f": x.shape[1], "plan": plan._asdict(),
                "block_max_sources": src.max_count if src else None,
@@ -686,9 +690,9 @@ def check_ell_routing(torch, ek, graph_paths):
 
 def sweep_ell_plans(torch, ek, graph_paths):
     """The kernel at other launch plans on the n = 3 and n = 4 𝒜_in at
-    F = 256: threads a block x feature-tile bytes at the default staging,
-    and the staging budget (0: every slot gathered) at the default
-    geometry; the choice of ``ell_kernels``' plan constants, remeasured."""
+    F = 256 and 64: threads a block x feature-tile bytes, and the staging
+    budget for each block's distinct source rows at the default geometry;
+    the choice of ``ell_kernels``' plan constants, remeasured."""
     from protgram_directgcn_torch.graph.structure import load_graph
 
     out = []
@@ -696,35 +700,40 @@ def sweep_ell_plans(torch, ek, graph_paths):
         adj, _ = _ell_operator(torch, load_graph(graph_paths[level - 1]), "mathcal_a_in")
         n_out, k = adj.idx.shape
         n_in = adj.idx_t.shape[0]
-        x = torch.randn(n_in, 256, device=DEVICE,
-                        generator=torch.Generator(device=DEVICE).manual_seed(level))
-        ref = ek.ell_plain(adj.idx, adj.w, x)
-        variants = {f"{t}x{b}": {"threads": t, "tile_bytes": b}
-                    for t in (64, 128, 256) for b in (64, 128, 256)}
-        variants.update({f"staged_bytes_{sb}": {"staged_bytes": sb}
-                         for sb in (0, 24 << 10, 96 << 10)})
-        times, plans = {}, {}
-        for key, kw in variants.items():
-            plan, _ = ek.plan_for(adj.idx, 256, True, **kw)
-            got = ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan)
-            if not _ell_err(got, ref, x, k)[1]:
-                fail(f"{name} at plan {plan} disagrees with its plain version")
-            times[key] = _device_ms(
-                torch, lambda: ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan),
-                20 if level == 4 else 100)
-            plans[key] = {"rows": plan.rows, "ct": plan.ct, "cap_u": plan.cap_u,
-                          "smem": plan.smem, "blocks_per_sm": ek.occupancy(plan)}
-        src = ek._operator_sources(adj.idx, ek.plan_for(adj.idx, 256, True)[0].rows)
-        counts = (src.offsets[1:] - src.offsets[:-1]).float()
-        rec = {"name": name, "level": level, "f": 256,
-               "default": ek.plan_for(adj.idx, 256, True)[0]._asdict(),
-               "block_sources": {"rows": src.rows, "mean": float(counts.mean()),
-                                 "max": src.max_count, "slots_per_source":
-                                 n_out * k / float(counts.sum()), "bytes": src.nbytes},
-               "ms": times, "plans": plans}
-        emit("ell_plan_sweep", **rec)
-        out.append(rec)
-        del adj, x, ref
+        for f in (256, 64):
+            x = torch.randn(n_in, f, device=DEVICE,
+                            generator=torch.Generator(device=DEVICE).manual_seed(level))
+            ref = ek.ell_plain(adj.idx, adj.w, x)
+            variants = {f"{t}x{b}": {"threads": t, "tile_bytes": b}
+                        for t in (64, 128, 256) for b in (128, 256)}
+            variants.update({f"staged_bytes_{sb}": {"staged_bytes": sb}
+                             for sb in (24 << 10, 48 << 10)})
+            times, plans = {}, {}
+            for key, kw in variants.items():
+                plan, _ = ek.plan_for(adj.idx, f, True, n_in, **kw)
+                got = ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan)
+                if not _ell_err(got, ref, x, k)[1]:
+                    fail(f"{name} at plan {plan} disagrees with its plain version")
+                times[key] = _device_ms(
+                    torch, lambda: ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan),
+                    20 if level == 4 else 100)
+                plans[key] = {"rows": plan.rows, "ct": plan.ct, "cap_u": plan.cap_u,
+                              "smem": plan.smem, "blocks_per_sm": ek.occupancy(plan)}
+            default = ek.plan_for(adj.idx, f, True, n_in)[0]
+            rec = {"name": name, "level": level, "f": f, "default": default._asdict(),
+                   "default_ms": _device_ms(torch, lambda: ek._launch_cuda(
+                       name, adj.idx, adj.w, x, "fwd", default), 20 if level == 4 else 100),
+                   "ms": times, "plans": plans}
+            if f == 256:
+                src = ek._operator_sources(adj.idx, default.rows)
+                counts = (src.offsets[1:] - src.offsets[:-1]).float()
+                rec["block_sources"] = {"rows": src.rows, "mean": float(counts.mean()),
+                                        "max": src.max_count, "slots_per_source":
+                                        n_out * k / float(counts.sum()), "bytes": src.nbytes}
+            emit("ell_plan_sweep", **rec)
+            out.append(rec)
+            del x, ref
+        del adj
     torch.cuda.empty_cache()
     return out
 
@@ -1175,9 +1184,9 @@ def _ell_occupancy(ek) -> dict:
     gathered at 16 bytes a thread, and F = 37 (one element a thread)."""
     out = {}
     for f, aligned in ((256, True), (256, True), (37, False)):
-        plan = ek.launch_plan(167_325, 44, f, aligned)
+        plan = ek.launch_plan(167_325, 44, f, aligned, 167_325)
         if plan.v == 4 and "staged" not in out:
-            plan = plan._replace(cap_u=ek.STAGED_X_BYTES // (plan.ct * ek.VEC_BYTES))
+            plan = plan._replace(cap_u=(48 << 10) // (plan.ct * ek.VEC_BYTES + 4))
         blocks = ek.occupancy(plan)
         out[plan.variant] = {"plan": plan._asdict(), "threads": plan.threads,
                              "smem_bytes": plan.smem, "blocks_per_sm": blocks,

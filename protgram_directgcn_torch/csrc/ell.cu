@@ -149,7 +149,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int t = threadIdx.x; t < nu; t += blockDim.x) s_src[t] = u_src[u0 + t];
     const int64_t base = row0 * k;
     for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
-      s_slot[(t / k) * kc + t % k] = make_int2(local[base + t], __float_as_int(w[base + t]));
+      s_slot[(t / k) * kc + t % k] =
+          make_int2(__ldcs(local + base + t), __float_as_int(__ldcs(w + base + t)));
     __syncthreads();
     const int v0 = blockIdx.y << ct_log2;
     for (int c = threadIdx.x; c < (nu << ct_log2); c += blockDim.x) {
@@ -169,13 +170,14 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (n == k) {  // the block's slots are one contiguous run
         const int64_t base = row0 * k;
         for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
-          s_slot[(t / k) * kc + t % k] = make_int2(idx[base + t], __float_as_int(w[base + t]));
+          s_slot[(t / k) * kc + t % k] =
+              make_int2(__ldcs(idx + base + t), __float_as_int(__ldcs(w + base + t)));
       } else {
         for (int t = threadIdx.x; t < live_rows * n; t += blockDim.x) {
           const int r = t / n;
           const int j = t - r * n;
           const int64_t g = (row0 + r) * k + k0 + j;
-          s_slot[r * kc + j] = make_int2(idx[g], __float_as_int(w[g]));
+          s_slot[r * kc + j] = make_int2(__ldcs(idx + g), __float_as_int(__ldcs(w + g)));
         }
       }
       __syncthreads();
@@ -184,7 +186,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                        [&](int i) { return x[(int64_t)i * nvec + v]; });
     }
   }
-  if (live) out[row * nvec + v] = acc;
+  if (live) __stcs(out + row * nvec + v, acc);
 }
 
 int log2_exact(int n) {

@@ -116,9 +116,11 @@ _BOUNDS = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
 MAX_THREADS = int(_BOUNDS["kMaxThreads"])
 MAX_SMEM = int(_BOUNDS["kMaxSmemBytes"])
 TILE_BYTES = 128  # a row's feature tile: 32 features, 8 threads at v = 4
+SMALL_TABLE_TILE_BYTES = 256  # the tile where x fits SMALL_TABLE_BYTES
+SMALL_TABLE_BYTES = 16 << 20  # x (N_in x F f32) at most this: its L2 working set is all of it
 THREADS = 128  # threads a block
 STAGE_BYTES = 16 * 1024  # shared memory for a block's staged idx/w
-STAGED_X_BYTES = 48 * 1024  # shared memory for a block's distinct source rows
+STAGED_X_BYTES = 0  # shared memory for a block's distinct source rows (0: none)
 
 
 class LaunchPlan(NamedTuple):
@@ -160,17 +162,23 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def launch_plan(n_out: int, k: int, f: int, aligned: bool, threads: int = THREADS,
-                tile_bytes: int = TILE_BYTES, cap_u: int = 0) -> LaunchPlan:
+def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int, threads: int = THREADS,
+                tile_bytes: Optional[int] = None, cap_u: int = 0) -> LaunchPlan:
     """The launch on idx/w ``[n_out, k]`` and x ``[n_in, f]`` f32.
 
     ``aligned``: x and out are 16-byte aligned.  16-byte accesses need that
     and ``f % 4 == 0``; otherwise ``v = 1``.  A row's threads cover a
-    ``tile_bytes`` feature tile (fewer where F is narrower), a block
+    ``tile_bytes`` feature tile (fewer where F is narrower; by default
+    ``TILE_BYTES``, one cache line, so that the grid's blocks of one tile
+    read a slice of x of N_in lines, which the L2 holds, and
+    ``SMALL_TABLE_TILE_BYTES`` where all of x is at most
+    ``SMALL_TABLE_BYTES``), a block
     ``threads // ct`` consecutive rows, and each pass stages up to
     ``STAGE_BYTES`` of the block's idx/w (all K slots when they fit; staged
     plans, ``cap_u > 0``, need all K in one pass and v = 4).
     """
+    if tile_bytes is None:
+        tile_bytes = SMALL_TABLE_TILE_BYTES if n_in * f * 4 <= SMALL_TABLE_BYTES else TILE_BYTES
     v = 4 if aligned and f % 4 == 0 else 1
     nvec = f // v
     ct = min(_pow2_at_least(max(nvec, 1)), max(1, tile_bytes // (4 * v)))
@@ -229,14 +237,14 @@ def _operator_sources(idx: torch.Tensor, rows: int) -> BlockSources:
     return cache[rows]
 
 
-def plan_for(idx: torch.Tensor, f: int, aligned: bool, threads: int = THREADS,
-             tile_bytes: int = TILE_BYTES, staged_bytes: int = STAGED_X_BYTES):
-    """The launch plan on idx and an f-wide x, and the operator's block
+def plan_for(idx: torch.Tensor, f: int, aligned: bool, n_in: int, threads: int = THREADS,
+             tile_bytes: Optional[int] = None, staged_bytes: int = STAGED_X_BYTES):
+    """The launch plan on idx and x ``[n_in, f]``, and the operator's block
     sources where the plan stages them: at v = 4 with all K slots in one
     pass, each block whose distinct sources' tile fits ``staged_bytes``
     stages them.  Returns ``(plan, sources or None)``."""
     n_out, k = idx.shape
-    plan = launch_plan(n_out, k, f, aligned, threads, tile_bytes)
+    plan = launch_plan(n_out, k, f, aligned, n_in, threads, tile_bytes)
     if plan.v != 4 or k < 1 or plan.kc < k or plan.rows * k >= 1 << 15 or staged_bytes <= 0:
         return plan, None
     src = _operator_sources(idx, plan.rows)
@@ -316,7 +324,7 @@ def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     if _lib is None:
         build()
     if plan is None:
-        plan, src = plan_for(idx, f, _aligned(x, out))
+        plan, src = plan_for(idx, f, _aligned(x, out), x.shape[0])
     else:
         src = _operator_sources(idx, plan.rows) if plan.cap_u else None
     staged = (src.local.data_ptr(), src.offsets.data_ptr(), src.sources.data_ptr()) if src else (

@@ -13,6 +13,8 @@ variant.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,7 @@ from protgram_directgcn_torch.utils.io import parse_fasta
 from tests.test_torch_graph import write_seeded_fasta
 
 ROWS = (1, 21, 441, 1003, 8_401, 167_325)
+N_INS = (1, 5_000, 167_325)  # x of at most 16 MB or more at every F below
 KS = (0, 1, 4, 44, 150, 300)
 WIDTHS = (1, 3, 4, 37, 64, 100, 128, 256, 512)
 # The plans chip_smoke.py sweeps (threads a block x feature-tile bytes).
@@ -61,38 +64,41 @@ def _entry_point_takes(plan: ek.LaunchPlan, n_out: int, k: int, f: int) -> bool:
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
 def test_launch_plan(aligned, variant):
     kw = {} if variant is None else {"threads": variant[0], "tile_bytes": variant[1]}
-    tile_bytes = kw.get("tile_bytes", ek.TILE_BYTES)
-    for n_out in ROWS:
-        for k in KS:
-            for f in WIDTHS:
-                plan = ek.launch_plan(n_out, k, f, aligned, **kw)
-                where = f"N_out={n_out} K={k} F={f} aligned={aligned} {kw}: {plan}"
-                assert plan.v == (4 if aligned and f % 4 == 0 else 1), where
-                assert _entry_point_takes(plan, n_out, k, f), where
-                # Thread t of block (bx, by): row bx * rows + t // ct, chunk by * ct + t % ct.
-                assert _covered_once(n_out, plan.grid[0], plan.rows), where
-                assert _covered_once(f // plan.v, plan.grid[1], plan.ct), where
-                # A row's tile is at most tile_bytes, and no wider than F needs.
-                assert plan.ct * plan.v * 4 <= max(tile_bytes, 4 * plan.v), where
-                assert plan.ct < 2 * max(1, f // plan.v), where
-                assert plan.kc <= max(k, 1), where
-                assert plan.cap_u == 0 and plan.rows * plan.kc * 8 <= ek.STAGE_BYTES, where
+    for n_out, k, f, n_in in itertools.product(ROWS, KS, WIDTHS, N_INS):
+        small = n_in * f * 4 <= ek.SMALL_TABLE_BYTES
+        tile_bytes = kw.get("tile_bytes", ek.SMALL_TABLE_TILE_BYTES if small else ek.TILE_BYTES)
+        plan = ek.launch_plan(n_out, k, f, aligned, n_in, **kw)
+        where = f"N_out={n_out} K={k} F={f} N_in={n_in} aligned={aligned} {kw}: {plan}"
+        assert plan.v == (4 if aligned and f % 4 == 0 else 1), where
+        assert _entry_point_takes(plan, n_out, k, f), where
+        # Thread t of block (bx, by): row bx * rows + t // ct, chunk by * ct + t % ct.
+        assert _covered_once(n_out, plan.grid[0], plan.rows), where
+        assert _covered_once(f // plan.v, plan.grid[1], plan.ct), where
+        # A row's tile is at most tile_bytes, and no wider than F needs.
+        assert plan.ct * plan.v * 4 <= max(tile_bytes, 4 * plan.v), where
+        assert plan.ct < 2 * max(1, f // plan.v), where
+        assert plan.kc <= max(k, 1), where
+        assert plan.cap_u == 0 and plan.rows * plan.kc * 8 <= ek.STAGE_BYTES, where
 
 
 def test_default_plan_at_the_paths_shapes():
     """The n = 4 level's shape: 16 rows of a 32-feature (128-byte) tile, all
-    44 slots in one pass, the feature tiles on the grid's y."""
-    plan = ek.launch_plan(167_325, 44, 256, True)
+    44 slots in one pass, the feature tiles on the grid's y; the n = 3
+    level's table (8.6 MB at F = 256) takes 64-feature tiles."""
+    plan = ek.launch_plan(167_325, 44, 256, True, 167_325)
     assert plan == ek.LaunchPlan(v=4, ct=8, rows=16, kc=44, grid=(10_458, 8))
     assert plan.threads == 128 and plan.smem == 5_632 and plan.variant == "v4"
-    assert ek.launch_plan(167_325, 44, 37, True).variant == "v1"
-    staged = ek.launch_plan(167_325, 44, 256, True, cap_u=384)
+    assert ek.launch_plan(8_401, 44, 256, True, 8_401) == ek.LaunchPlan(
+        v=4, ct=16, rows=8, kc=44, grid=(1_051, 4))
+    assert ek.launch_plan(8_401, 44, 64, True, 8_401).grid == (1_051, 1)
+    assert ek.launch_plan(167_325, 44, 37, True, 167_325).variant == "v1"
+    staged = ek.launch_plan(167_325, 44, 256, True, 167_325, cap_u=384)
     assert staged.smem == 5_632 + 384 * 4 + 384 * 8 * 16 and staged.variant == "staged"
     assert _entry_point_takes(staged, 167_325, 44, 256)
     with pytest.raises(ValueError, match="staged"):
-        ek.launch_plan(1003, 150, 256, True, cap_u=10)  # K past one pass
+        ek.launch_plan(1003, 150, 256, True, 1 << 20, cap_u=10)  # K past one pass
     with pytest.raises(ValueError, match="staged"):
-        ek.launch_plan(1003, 44, 37, True, cap_u=10)  # one element a thread
+        ek.launch_plan(1003, 44, 37, True, 5000, cap_u=10)  # one element a thread
 
 
 def test_bounds_are_read_from_the_source():
@@ -159,12 +165,16 @@ def test_block_sources_match_numpy_on_ngram_operators(ngram3, matrix):
     adj = spmm.build_ell(src, tgt, val, ngram3.num_nodes, device="cpu")
     for idx in (adj.idx, adj.idx_t):
         got = _check_sources(idx.numpy(), 16)
-        plan, cached = ek.plan_for(idx, 256, True)
-        assert plan.rows == 16 and plan.cap_u == min(got.max_count, ek.STAGED_X_BYTES // 132)
-        assert plan.variant == "staged" and cached is ek.plan_for(idx, 64, True)[1]
+        n = idx.shape[0]
+        assert ek.plan_for(idx, 256, True, n) == (ek.launch_plan(n, idx.shape[1], 256, True, n),
+                                                  None)  # staging is off by default
+        plan, cached = ek.plan_for(idx, 256, True, 1 << 20, staged_bytes=48 << 10)
+        assert plan.rows == 16 and plan.cap_u == min(got.max_count, (48 << 10) // 132)
+        assert plan.variant == "staged"
+        assert cached is ek.plan_for(idx, 64, True, 1 << 20, staged_bytes=48 << 10)[1]
         np.testing.assert_array_equal(cached.local.numpy(), got.local.numpy())
-        assert ek.plan_for(idx, 37, True) == (ek.launch_plan(idx.shape[0], idx.shape[1], 37,
-                                                             True), None)
+        assert ek.plan_for(idx, 37, True, n, staged_bytes=48 << 10) == (
+            ek.launch_plan(n, idx.shape[1], 37, True, n), None)
 
 
 def test_block_sources_refuse_what_int16_cannot_index():
@@ -172,7 +182,8 @@ def test_block_sources_refuse_what_int16_cannot_index():
         ek.block_sources(torch.zeros(64, 2048, dtype=torch.int32), 16)
     with pytest.raises(ValueError):
         ek.block_sources(torch.zeros(4, 0, dtype=torch.int32), 16)
-    plan, src = ek.plan_for(torch.zeros(64, 2048, dtype=torch.int32), 256, True)
+    plan, src = ek.plan_for(torch.zeros(64, 2048, dtype=torch.int32), 256, True, 10,
+                            staged_bytes=48 << 10)
     assert src is None and plan.variant == "v4"
 
 
@@ -204,14 +215,14 @@ def test_wrapper_passes_the_plan_and_counts_by_variant(monkeypatch):
     ek._launch_cuda("ell_resident", idx, w, aligned, "fwd")
     ek._launch_cuda("ell_resident", idx, w, shifted, "bwd")
     ek._launch_cuda("ell_hbm", idx, w, torch.zeros(5000, 37), "fwd")
-    plan = ek.launch_plan(1003, 150, 256, True, threads=256, tile_bytes=64)
+    plan = ek.launch_plan(1003, 150, 256, True, 5000, threads=256, tile_bytes=64)
     ek._launch_cuda("ell_hbm", idx, w, aligned, "fwd", plan)
     small = torch.arange(40, dtype=torch.int32).view(10, 4) % 7
-    ek._launch_cuda("ell_hbm", small, torch.zeros(10, 4), aligned[:7], "bwd")
-    staged, src = ek.plan_for(small, 256, True)
-    want = [("ell_resident_f32", 1003, 150, 256, ek.launch_plan(1003, 150, 256, True)),
-            ("ell_resident_f32", 1003, 150, 256, ek.launch_plan(1003, 150, 256, False)),
-            ("ell_hbm_f32", 1003, 150, 37, ek.launch_plan(1003, 150, 37, True)),
+    staged, src = ek.plan_for(small, 256, True, 7, staged_bytes=48 << 10)
+    ek._launch_cuda("ell_hbm", small, torch.zeros(10, 4), aligned[:7], "bwd", staged)
+    want = [("ell_resident_f32", 1003, 150, 256, ek.launch_plan(1003, 150, 256, True, 5000)),
+            ("ell_resident_f32", 1003, 150, 256, ek.launch_plan(1003, 150, 256, False, 5000)),
+            ("ell_hbm_f32", 1003, 150, 37, ek.launch_plan(1003, 150, 37, True, 5000)),
             ("ell_hbm_f32", 1003, 150, 256, plan),
             ("ell_hbm_f32", 10, 4, 256, staged)]
     assert fake.calls == [(n, (rows, k, f, p.v, p.ct, p.rows, p.kc, *p.grid))
