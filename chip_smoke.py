@@ -704,10 +704,10 @@ def sweep_ell_plans(torch, ek, graph_paths):
             x = torch.randn(n_in, f, device=DEVICE,
                             generator=torch.Generator(device=DEVICE).manual_seed(level))
             ref = ek.ell_plain(adj.idx, adj.w, x)
-            variants = {f"{t}x{b}": {"threads": t, "tile_bytes": b}
-                        for t in (64, 128, 256) for b in (128, 256)}
-            variants.update({f"staged_bytes_{sb}": {"staged_bytes": sb}
-                             for sb in (24 << 10, 48 << 10)})
+            variants = {f"{t}x{b}{'_cs' if cs else ''}": {"threads": t, "tile_bytes": b,
+                                                            "stream_hints": cs}
+                        for t in (128, 256, 512) for b in (128, 256) for cs in (False, True)}
+            variants["staged_bytes_49152"] = {"staged_bytes": 48 << 10}
             times, plans = {}, {}
             for key, kw in variants.items():
                 plan, _ = ek.plan_for(adj.idx, f, True, n_in, **kw)
@@ -718,7 +718,8 @@ def sweep_ell_plans(torch, ek, graph_paths):
                     torch, lambda: ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan),
                     20 if level == 4 else 100)
                 plans[key] = {"rows": plan.rows, "ct": plan.ct, "cap_u": plan.cap_u,
-                              "smem": plan.smem, "blocks_per_sm": ek.occupancy(plan)}
+                              "stream_hints": plan.stream_hints, "smem": plan.smem,
+                              "blocks_per_sm": ek.occupancy(plan)}
             default = ek.plan_for(adj.idx, f, True, n_in)[0]
             rec = {"name": name, "level": level, "f": f, "default": default._asdict(),
                    "default_ms": _device_ms(torch, lambda: ek._launch_cuda(

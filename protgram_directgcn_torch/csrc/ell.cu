@@ -85,6 +85,18 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
+// idx/w loads and out stores, with the streaming hint (evict first from L1
+// and L2: read or written once, they leave the cache to x) where `cs`.
+template <typename T>
+__device__ __forceinline__ T load_once(const T* p, bool cs) { return cs ? __ldcs(p) : __ldg(p); }
+template <typename V>
+__device__ __forceinline__ void store_once(V* p, const V& v, bool cs) {
+  if (cs)
+    __stcs(p, v);
+  else
+    *p = v;
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -125,7 +137,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                const V* __restrict__ x, V* __restrict__ out, int n_out, int k, int nvec,
                int ct_log2, int rows, int kc, const short* __restrict__ local,
-               const int* __restrict__ u_off, const int* __restrict__ u_src, int cap_u) {
+               const int* __restrict__ u_off, const int* __restrict__ u_src, int cap_u,
+               bool cs) {
   extern __shared__ int4 smem[];
   int2* s_slot = reinterpret_cast<int2*>(smem);  // [rows][kc]: {index, bits of w}
   const int ct = 1 << ct_log2;
@@ -150,7 +163,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int64_t base = row0 * k;
     for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
       s_slot[(t / k) * kc + t % k] =
-          make_int2(__ldcs(local + base + t), __float_as_int(__ldcs(w + base + t)));
+          make_int2(load_once(local + base + t, cs), __float_as_int(load_once(w + base + t, cs)));
     __syncthreads();
     const int v0 = blockIdx.y << ct_log2;
     for (int c = threadIdx.x; c < (nu << ct_log2); c += blockDim.x) {
@@ -171,13 +184,14 @@ __global__ void __launch_bounds__(kMaxThreads)
         const int64_t base = row0 * k;
         for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
           s_slot[(t / k) * kc + t % k] =
-              make_int2(__ldcs(idx + base + t), __float_as_int(__ldcs(w + base + t)));
+              make_int2(load_once(idx + base + t, cs), __float_as_int(load_once(w + base + t, cs)));
       } else {
         for (int t = threadIdx.x; t < live_rows * n; t += blockDim.x) {
           const int r = t / n;
           const int j = t - r * n;
           const int64_t g = (row0 + r) * k + k0 + j;
-          s_slot[r * kc + j] = make_int2(__ldcs(idx + g), __float_as_int(__ldcs(w + g)));
+          s_slot[r * kc + j] =
+              make_int2(load_once(idx + g, cs), __float_as_int(load_once(w + g, cs)));
         }
       }
       __syncthreads();
@@ -186,7 +200,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                        [&](int i) { return x[(int64_t)i * nvec + v]; });
     }
   }
-  if (live) __stcs(out + row * nvec + v, acc);
+  if (live) store_once(out + row * nvec + v, acc, cs);
 }
 
 int log2_exact(int n) {
@@ -213,7 +227,7 @@ cudaError_t allow_smem() {  // once per process and instantiation
 template <typename V, bool kStaged>
 int launch_typed(const int* idx, const float* w, const void* x, void* out, int n_out, int k,
                  int nvec, int ct_log2, int rows, int kc, const short* local, const int* u_off,
-                 const int* u_src, int cap_u, dim3 grid, unsigned threads, size_t smem,
+                 const int* u_src, int cap_u, bool cs, dim3 grid, unsigned threads, size_t smem,
                  cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t e = allow_smem<V, kStaged>();
@@ -221,7 +235,7 @@ int launch_typed(const int* idx, const float* w, const void* x, void* out, int n
   }
   ell_kernel<V, kStaged><<<grid, threads, smem, s>>>(idx, w, (const V*)x, (V*)out, n_out, k,
                                                      nvec, ct_log2, rows, kc, local, u_off,
-                                                     u_src, cap_u);
+                                                     u_src, cap_u, cs);
   return (int)cudaGetLastError();
 }
 
@@ -233,7 +247,7 @@ int launch_typed(const int* idx, const float* w, const void* x, void* out, int n
 // every output element once and fits a block.
 int launch(const void* idx, const void* w, const void* x, void* out, int n_out, int k, int f,
            int v, int ct, int rows, int kc, int grid_x, int grid_y, const void* local,
-           const void* u_off, const void* u_src, int cap_u, void* stream) {
+           const void* u_off, const void* u_src, int cap_u, int cs, void* stream) {
   if (n_out < 0 || k < 0 || f < 0) return (int)cudaErrorInvalidValue;
   if (n_out == 0 || f == 0) return (int)cudaSuccess;
   const int ct_log2 = log2_exact(ct);
@@ -261,12 +275,12 @@ int launch(const void* idx, const void* w, const void* x, void* out, int n_out, 
   const unsigned t = (unsigned)threads;
   if (staged)
     return launch_typed<float4, true>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo,
-                                      us, cap_u, grid, t, smem, s);
+                                      us, cap_u, cs != 0, grid, t, smem, s);
   if (v == 4)
     return launch_typed<float4, false>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo,
-                                       us, 0, grid, t, smem, s);
+                                       us, 0, cs != 0, grid, t, smem, s);
   return launch_typed<float, false>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo, us,
-                                    0, grid, t, smem, s);
+                                    0, cs != 0, grid, t, smem, s);
 }
 
 }  // namespace
@@ -275,17 +289,17 @@ extern "C" {
 
 int ell_resident_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k,
                      int f, int v, int ct, int rows, int kc, int grid_x, int grid_y,
-                     const void* local, const void* u_off, const void* u_src, int cap_u,
+                     const void* local, const void* u_off, const void* u_src, int cap_u, int cs,
                      void* stream) {
   return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, local, u_off,
-                u_src, cap_u, stream);
+                u_src, cap_u, cs, stream);
 }
 
 int ell_hbm_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k, int f,
                 int v, int ct, int rows, int kc, int grid_x, int grid_y, const void* local,
-                const void* u_off, const void* u_src, int cap_u, void* stream) {
+                const void* u_off, const void* u_src, int cap_u, int cs, void* stream) {
   return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, local, u_off,
-                u_src, cap_u, stream);
+                u_src, cap_u, cs, stream);
 }
 
 // Resident blocks an SM holds of a launch of the V = v body (staged or not)

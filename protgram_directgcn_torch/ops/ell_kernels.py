@@ -88,8 +88,9 @@ def build() -> Dict[str, object]:
         for name in LAUNCHES:
             fn = getattr(lib, f"{name}_f32")
             # idx, w, x, out, n_out, k, f; the plan: v, ct, rows, kc, grid; the
-            # block sources: local, offsets, sources, cap_u; the stream
-            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, *[i32] * 6, ptr, ptr, ptr, i32, ptr]
+            # block sources: local, offsets, sources, cap_u; the hints; the stream
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, *[i32] * 6, ptr, ptr, ptr, i32, i32,
+                           ptr]
             fn.restype = i32
         lib.ell_occupancy.argtypes = [i32, i32, i32, i32]
         lib.ell_occupancy.restype = i32
@@ -115,10 +116,17 @@ _BOUNDS = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
                           (_nvcc.CSRC / "ell.cu").read_text()))
 MAX_THREADS = int(_BOUNDS["kMaxThreads"])
 MAX_SMEM = int(_BOUNDS["kMaxSmemBytes"])
-TILE_BYTES = 128  # a row's feature tile: 32 features, 8 threads at v = 4
-SMALL_TABLE_TILE_BYTES = 256  # the tile where x fits SMALL_TABLE_BYTES
-SMALL_TABLE_BYTES = 16 << 20  # x (N_in x F f32) at most this: its L2 working set is all of it
-THREADS = 128  # threads a block
+# Two regimes by the size of x (N_in x F f32).  A large table: a row's
+# feature tile is one 128-byte line, so the blocks of one tile (the grid's y)
+# read a slice of x of N_in lines, which the L2 holds; 128 threads a block;
+# idx/w/out streamed past the caches.  A table of at most SMALL_TABLE_BYTES
+# stays in L2 whole: 256-byte tiles, 256 threads a block (more rows share
+# sources in L1), plain loads.
+SMALL_TABLE_BYTES = 16 << 20
+TILE_BYTES = 128
+THREADS = 128
+SMALL_TABLE_TILE_BYTES = 256
+SMALL_TABLE_THREADS = 256
 STAGE_BYTES = 16 * 1024  # shared memory for a block's staged idx/w
 STAGED_X_BYTES = 0  # shared memory for a block's distinct source rows (0: none)
 
@@ -137,6 +145,7 @@ class LaunchPlan(NamedTuple):
     kc: int  # slots staged in shared memory a pass
     grid: Tuple[int, int]  # (row blocks, feature tiles)
     cap_u: int = 0  # distinct source rows a block stages at most (0: none)
+    stream_hints: bool = False  # idx/w read and out written with evict-first hints
 
     @property
     def threads(self) -> int:
@@ -162,23 +171,26 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int, threads: int = THREADS,
-                tile_bytes: Optional[int] = None, cap_u: int = 0) -> LaunchPlan:
+def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int,
+                threads: Optional[int] = None, tile_bytes: Optional[int] = None,
+                stream_hints: Optional[bool] = None, cap_u: int = 0) -> LaunchPlan:
     """The launch on idx/w ``[n_out, k]`` and x ``[n_in, f]`` f32.
 
     ``aligned``: x and out are 16-byte aligned.  16-byte accesses need that
     and ``f % 4 == 0``; otherwise ``v = 1``.  A row's threads cover a
-    ``tile_bytes`` feature tile (fewer where F is narrower; by default
-    ``TILE_BYTES``, one cache line, so that the grid's blocks of one tile
-    read a slice of x of N_in lines, which the L2 holds, and
-    ``SMALL_TABLE_TILE_BYTES`` where all of x is at most
-    ``SMALL_TABLE_BYTES``), a block
+    ``tile_bytes`` feature tile (fewer where F is narrower), a block
     ``threads // ct`` consecutive rows, and each pass stages up to
     ``STAGE_BYTES`` of the block's idx/w (all K slots when they fit; staged
-    plans, ``cap_u > 0``, need all K in one pass and v = 4).
+    plans, ``cap_u > 0``, need all K in one pass and v = 4).  ``threads``,
+    ``tile_bytes`` and ``stream_hints`` default to the table's regime.
     """
+    small = n_in * f * 4 <= SMALL_TABLE_BYTES
+    if threads is None:
+        threads = SMALL_TABLE_THREADS if small else THREADS
     if tile_bytes is None:
-        tile_bytes = SMALL_TABLE_TILE_BYTES if n_in * f * 4 <= SMALL_TABLE_BYTES else TILE_BYTES
+        tile_bytes = SMALL_TABLE_TILE_BYTES if small else TILE_BYTES
+    if stream_hints is None:
+        stream_hints = not small
     v = 4 if aligned and f % 4 == 0 else 1
     nvec = f // v
     ct = min(_pow2_at_least(max(nvec, 1)), max(1, tile_bytes // (4 * v)))
@@ -187,7 +199,8 @@ def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int, threads: i
     if cap_u and (v != 4 or kc < k):
         raise ValueError(f"a staged plan needs v = 4 and all {k} slots in one pass")
     return LaunchPlan(v=v, ct=ct, rows=rows, kc=kc,
-                      grid=(max(1, _cdiv(n_out, rows)), max(1, _cdiv(nvec, ct))), cap_u=cap_u)
+                      grid=(max(1, _cdiv(n_out, rows)), max(1, _cdiv(nvec, ct))), cap_u=cap_u,
+                      stream_hints=stream_hints)
 
 
 class BlockSources(NamedTuple):
@@ -237,14 +250,15 @@ def _operator_sources(idx: torch.Tensor, rows: int) -> BlockSources:
     return cache[rows]
 
 
-def plan_for(idx: torch.Tensor, f: int, aligned: bool, n_in: int, threads: int = THREADS,
-             tile_bytes: Optional[int] = None, staged_bytes: int = STAGED_X_BYTES):
+def plan_for(idx: torch.Tensor, f: int, aligned: bool, n_in: int,
+             threads: Optional[int] = None, tile_bytes: Optional[int] = None,
+             stream_hints: Optional[bool] = None, staged_bytes: int = STAGED_X_BYTES):
     """The launch plan on idx and x ``[n_in, f]``, and the operator's block
     sources where the plan stages them: at v = 4 with all K slots in one
     pass, each block whose distinct sources' tile fits ``staged_bytes``
     stages them.  Returns ``(plan, sources or None)``."""
     n_out, k = idx.shape
-    plan = launch_plan(n_out, k, f, aligned, n_in, threads, tile_bytes)
+    plan = launch_plan(n_out, k, f, aligned, n_in, threads, tile_bytes, stream_hints)
     if plan.v != 4 or k < 1 or plan.kc < k or plan.rows * k >= 1 << 15 or staged_bytes <= 0:
         return plan, None
     src = _operator_sources(idx, plan.rows)
@@ -331,7 +345,8 @@ def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         None, None, None)
     fn = getattr(_lib, f"{name}_f32")
     rc = fn(idx.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), n_out, k, f, plan.v,
-            plan.ct, plan.rows, plan.kc, *plan.grid, *staged, plan.cap_u, _nvcc.stream_ptr(x))
+            plan.ct, plan.rows, plan.kc, *plan.grid, *staged, plan.cap_u, int(plan.stream_hints),
+            _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, name)
     LAUNCHES[name][direction] += 1
     per = LAUNCHES_BY_VARIANT[name]

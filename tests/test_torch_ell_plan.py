@@ -32,7 +32,7 @@ N_INS = (1, 5_000, 167_325)  # x of at most 16 MB or more at every F below
 KS = (0, 1, 4, 44, 150, 300)
 WIDTHS = (1, 3, 4, 37, 64, 100, 128, 256, 512)
 # The plans chip_smoke.py sweeps (threads a block x feature-tile bytes).
-VARIANTS = [(t, b) for t in (64, 128, 256) for b in (32, 64, 128, 256)]
+VARIANTS = [(t, b) for t in (128, 256, 512) for b in (128, 256)]
 
 
 def _covered_once(n: int, blocks: int, per_block: int) -> bool:
@@ -67,6 +67,7 @@ def test_launch_plan(aligned, variant):
     for n_out, k, f, n_in in itertools.product(ROWS, KS, WIDTHS, N_INS):
         small = n_in * f * 4 <= ek.SMALL_TABLE_BYTES
         tile_bytes = kw.get("tile_bytes", ek.SMALL_TABLE_TILE_BYTES if small else ek.TILE_BYTES)
+        threads = kw.get("threads", ek.SMALL_TABLE_THREADS if small else ek.THREADS)
         plan = ek.launch_plan(n_out, k, f, aligned, n_in, **kw)
         where = f"N_out={n_out} K={k} F={f} N_in={n_in} aligned={aligned} {kw}: {plan}"
         assert plan.v == (4 if aligned and f % 4 == 0 else 1), where
@@ -79,18 +80,21 @@ def test_launch_plan(aligned, variant):
         assert plan.ct < 2 * max(1, f // plan.v), where
         assert plan.kc <= max(k, 1), where
         assert plan.cap_u == 0 and plan.rows * plan.kc * 8 <= ek.STAGE_BYTES, where
+        assert plan.threads == threads, where
+        assert plan.stream_hints == (not small), where
 
 
 def test_default_plan_at_the_paths_shapes():
     """The n = 4 level's shape: 16 rows of a 32-feature (128-byte) tile, all
     44 slots in one pass, the feature tiles on the grid's y; the n = 3
-    level's table (8.6 MB at F = 256) takes 64-feature tiles."""
+    level's table (8.6 MB at F = 256) takes 64-feature tiles, 256 threads a
+    block and no streaming hints."""
     plan = ek.launch_plan(167_325, 44, 256, True, 167_325)
-    assert plan == ek.LaunchPlan(v=4, ct=8, rows=16, kc=44, grid=(10_458, 8))
+    assert plan == ek.LaunchPlan(v=4, ct=8, rows=16, kc=44, grid=(10_458, 8), stream_hints=True)
     assert plan.threads == 128 and plan.smem == 5_632 and plan.variant == "v4"
     assert ek.launch_plan(8_401, 44, 256, True, 8_401) == ek.LaunchPlan(
-        v=4, ct=16, rows=8, kc=44, grid=(1_051, 4))
-    assert ek.launch_plan(8_401, 44, 64, True, 8_401).grid == (1_051, 1)
+        v=4, ct=16, rows=16, kc=44, grid=(526, 4))
+    assert ek.launch_plan(8_401, 44, 64, True, 8_401).grid == (526, 1)
     assert ek.launch_plan(167_325, 44, 37, True, 167_325).variant == "v1"
     staged = ek.launch_plan(167_325, 44, 256, True, 167_325, cap_u=384)
     assert staged.smem == 5_632 + 384 * 4 + 384 * 8 * 16 and staged.variant == "staged"
@@ -215,7 +219,7 @@ def test_wrapper_passes_the_plan_and_counts_by_variant(monkeypatch):
     ek._launch_cuda("ell_resident", idx, w, aligned, "fwd")
     ek._launch_cuda("ell_resident", idx, w, shifted, "bwd")
     ek._launch_cuda("ell_hbm", idx, w, torch.zeros(5000, 37), "fwd")
-    plan = ek.launch_plan(1003, 150, 256, True, 5000, threads=256, tile_bytes=64)
+    plan = ek.launch_plan(1003, 150, 256, True, 1 << 20, threads=256, tile_bytes=64)
     ek._launch_cuda("ell_hbm", idx, w, aligned, "fwd", plan)
     small = torch.arange(40, dtype=torch.int32).view(10, 4) % 7
     staged, src = ek.plan_for(small, 256, True, 7, staged_bytes=48 << 10)
@@ -228,9 +232,11 @@ def test_wrapper_passes_the_plan_and_counts_by_variant(monkeypatch):
     assert fake.calls == [(n, (rows, k, f, p.v, p.ct, p.rows, p.kc, *p.grid))
                           for n, rows, k, f, p in want]
     assert staged.cap_u == 7 and src.max_count == 7
-    assert fake.args[-1][-5:-2] == (src.local.data_ptr(), src.offsets.data_ptr(),
+    # ..., local, offsets, sources, cap_u, streaming hints, stream
+    assert fake.args[-1][-6:-3] == (src.local.data_ptr(), src.offsets.data_ptr(),
                                     src.sources.data_ptr())
-    assert fake.args[-1][-2] == 7 and fake.args[0][-5:-1] == (None, None, None, 0)
+    assert fake.args[-1][-3:-1] == (7, 0) and fake.args[0][-6:-1] == (None, None, None, 0, 0)
+    assert fake.args[3][-3:-1] == (0, 1)  # x of 1 << 20 rows: a large table
     assert ek.launch_counts_by_variant() == {"ell_resident": {"v4": 1, "v1": 1},
                                              "ell_hbm": {"v1": 1, "v4": 1, "staged": 1}}
     assert ek.launch_counts() == {"ell_resident": {"fwd": 1, "bwd": 1},
