@@ -707,6 +707,7 @@ def sweep_ell_plans(torch, ek, graph_paths):
             variants = {f"{t}x{b}{'_cs' if cs else ''}": {"threads": t, "tile_bytes": b,
                                                             "stream_hints": cs}
                         for t in (128, 256, 512) for b in (128, 256) for cs in (False, True)}
+            variants.update({f"slot_bytes_{sb}": {"stage_bytes": sb} for sb in (1024, 4096)})
             variants["staged_bytes_49152"] = {"staged_bytes": 48 << 10}
             times, plans = {}, {}
             for key, kw in variants.items():

@@ -173,7 +173,8 @@ def _pow2_at_least(n: int) -> int:
 
 def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int,
                 threads: Optional[int] = None, tile_bytes: Optional[int] = None,
-                stream_hints: Optional[bool] = None, cap_u: int = 0) -> LaunchPlan:
+                stream_hints: Optional[bool] = None, cap_u: int = 0,
+                stage_bytes: int = STAGE_BYTES) -> LaunchPlan:
     """The launch on idx/w ``[n_out, k]`` and x ``[n_in, f]`` f32.
 
     ``aligned``: x and out are 16-byte aligned.  16-byte accesses need that
@@ -195,7 +196,7 @@ def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int,
     nvec = f // v
     ct = min(_pow2_at_least(max(nvec, 1)), max(1, tile_bytes // (4 * v)))
     rows = max(1, threads // ct)
-    kc = max(1, min(k, STAGE_BYTES // (rows * 8)))
+    kc = max(1, min(k, stage_bytes // (rows * 8)))
     if cap_u and (v != 4 or kc < k):
         raise ValueError(f"a staged plan needs v = 4 and all {k} slots in one pass")
     return LaunchPlan(v=v, ct=ct, rows=rows, kc=kc,
@@ -252,13 +253,15 @@ def _operator_sources(idx: torch.Tensor, rows: int) -> BlockSources:
 
 def plan_for(idx: torch.Tensor, f: int, aligned: bool, n_in: int,
              threads: Optional[int] = None, tile_bytes: Optional[int] = None,
-             stream_hints: Optional[bool] = None, staged_bytes: int = STAGED_X_BYTES):
+             stream_hints: Optional[bool] = None, staged_bytes: int = STAGED_X_BYTES,
+             stage_bytes: int = STAGE_BYTES):
     """The launch plan on idx and x ``[n_in, f]``, and the operator's block
     sources where the plan stages them: at v = 4 with all K slots in one
     pass, each block whose distinct sources' tile fits ``staged_bytes``
     stages them.  Returns ``(plan, sources or None)``."""
     n_out, k = idx.shape
-    plan = launch_plan(n_out, k, f, aligned, n_in, threads, tile_bytes, stream_hints)
+    plan = launch_plan(n_out, k, f, aligned, n_in, threads, tile_bytes, stream_hints,
+                       stage_bytes=stage_bytes)
     if plan.v != 4 or k < 1 or plan.kc < k or plan.rows * k >= 1 << 15 or staged_bytes <= 0:
         return plan, None
     src = _operator_sources(idx, plan.rows)
