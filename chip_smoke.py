@@ -423,7 +423,7 @@ def run_ell_path(torch, ek, fasta: str, workdir: str):
     if ek.resident_supported(stats[4]["nodes"]):
         fail(f"ell path: the n = 4 level's {stats[4]['nodes']} nodes are in the resident regime")
     emit("ell_path", seconds=seconds, launches=counts,
-         launches_by_variant=ek.launch_counts_by_variant(),
+         launches_by_v=ek.launch_counts_by_v(),
          level4_nodes=stats[4]["nodes"],
          level4_step_seconds=stats[4]["train_seconds"] / max(1, stats[4]["epochs"]),
          **_pooled(result, 64))
@@ -480,13 +480,13 @@ def _ell_timed(torch, ek, name, idx, w, x, iters: int, plain: bool = True) -> di
     return rec
 
 
-def _expect_variant(torch, ek, name: str, want: dict, what: str) -> dict:
-    """Fail unless the launches since the last reset took the plan variants
-    ``want`` ({variant: launches}); return them."""
-    got = ek.launch_counts_by_variant()[name]
+def _expect_v(torch, ek, name: str, want: dict, what: str) -> dict:
+    """Fail unless the launches since the last reset took the variants
+    ``want`` ({v: launches}, v the features a thread owns); return them."""
+    got = ek.launch_counts_by_v()[name]
     if got != want:
-        fail(f"{what}: {name} launched {got} by plan variant, expected {want}")
-    return got
+        fail(f"{what}: {name} launched {got} by features a thread, expected {want}")
+    return {str(v): n for v, n in got.items()}
 
 
 def _ell_operator(torch, graph, matrix: str):
@@ -509,11 +509,7 @@ def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str) -> dict:
     y = spmm.propagate(adj, xg, use_pallas=True)
     y.backward(cot)
     torch.cuda.synchronize()
-    # Aligned, F % 4 == 0: 16 bytes a thread, staged or gathered as the plan says.
-    want = ek.plan_for(adj.idx, x.shape[1], True, x.shape[0])[0].variant
-    if want == "v1":
-        fail(f"{what}: the plan takes the one-element path on aligned 16-byte rows")
-    rec = {"launches_by_variant": _expect_variant(torch, ek, name, {want: 3}, what)}
+    rec = {"launches_by_v": _expect_v(torch, ek, name, {4: 3}, what)}
     ref = ek.ell_plain(adj.idx, adj.w, x)
     for tag, got, want, inp, kk in (
             ("fwd", out, ref, x, k), ("autograd_fwd", y.detach(), ref, x, k),
@@ -592,31 +588,30 @@ def check_ell_edges(torch, ek, graph_paths):
     n4 = load_graph(graph_paths[3]).num_nodes
     gen = torch.Generator(device=DEVICE).manual_seed(77)
     base = torch.randn(n3 * 256 + 1, device=DEVICE, generator=gen)
-    cases = [  # (case, kernel, idx, w, x, plan variant expected)
+    cases = [  # (case, kernel, idx, w, x, features a thread expected)
         ("ragged_f37", "ell_resident", adj.idx, adj.w,
-         torch.randn(n3, 37, device=DEVICE, generator=gen), "v1"),
-        ("misaligned_x", "ell_resident", adj.idx, adj.w, base[1:].view(n3, 256), "v1"),
+         torch.randn(n3, 37, device=DEVICE, generator=gen), 1),
+        ("misaligned_x", "ell_resident", adj.idx, adj.w, base[1:].view(n3, 256), 1),
     ]
-    idx, w = _random_ell(torch, 5, 1003, 5000, 150)  # K past one staging pass: gathered
+    idx, w = _random_ell(torch, 5, 1003, 5000, 150)  # two staging passes of slots
     cases.append(("k150_rows1003", "ell_resident", idx, w,
-                  torch.randn(5000, 256, device=DEVICE, generator=gen), "v4"))
-    idx, w = _random_ell(torch, 6, 999, 200, 44, pad_rows=(0, 5, 998))
+                  torch.randn(5000, 256, device=DEVICE, generator=gen), 4))
+    idx, w = _random_ell(torch, 6, 999, 3000, 44, pad_rows=(0, 5, 998))
     cases.append(("padding_rows", "ell_resident", idx, w,
-                  torch.randn(200, 256, device=DEVICE, generator=gen), "v4"))
+                  torch.randn(3000, 256, device=DEVICE, generator=gen), 4))
     idx, w = _random_ell(torch, 7, n4, n4, 44)
     cases.append(("random_n4", "ell_hbm", idx, w,
-                  torch.randn(n4, 256, device=DEVICE, generator=gen), "v4"))
+                  torch.randn(n4, 256, device=DEVICE, generator=gen), 4))
     records = []
-    for case, name, idx, w, x, variant in cases:
+    for case, name, idx, w, x, v in cases:
         n_out, k = idx.shape
+        plan = ek.launch_plan(n_out, k, x.shape[1], v == 4, x.shape[0])
         ek.reset_launches()
         got = getattr(ek, name)(idx, w, x)
         torch.cuda.synchronize()
-        plan, src = ek.plan_for(idx, x.shape[1], variant != "v1", x.shape[0])
         rec = {"case": case, "name": name, "n_out": n_out, "k": k, "n_in": x.shape[0],
                "f": x.shape[1], "plan": plan._asdict(),
-               "block_max_sources": src.max_count if src else None,
-               "launches_by_variant": _expect_variant(torch, ek, name, {variant: 1}, case)}
+               "launches_by_v": _expect_v(torch, ek, name, {v: 1}, case)}
         rec["max_abs_err"], ok = _ell_err(got, ek.ell_plain(idx, w, x), x, k)
         if not ok or not bool(torch.isfinite(got).all()):
             fail(f"{name} disagrees with its plain version on {case}: "
@@ -690,8 +685,7 @@ def check_ell_routing(torch, ek, graph_paths):
 
 def sweep_ell_plans(torch, ek, graph_paths):
     """The kernel at other launch plans on the n = 3 and n = 4 𝒜_in at
-    F = 256 and 64: threads a block x feature-tile bytes, and the staging
-    budget for each block's distinct source rows at the default geometry;
+    F = 256 and 64: threads a block x feature-tile bytes x streaming hints;
     the choice of ``ell_kernels``' plan constants, remeasured."""
     from protgram_directgcn_torch.graph.structure import load_graph
 
@@ -707,31 +701,22 @@ def sweep_ell_plans(torch, ek, graph_paths):
             variants = {f"{t}x{b}{'_cs' if cs else ''}": {"threads": t, "tile_bytes": b,
                                                             "stream_hints": cs}
                         for t in (128, 256, 512) for b in (128, 256) for cs in (False, True)}
-            variants.update({f"slot_bytes_{sb}": {"stage_bytes": sb} for sb in (1024, 4096)})
-            variants["staged_bytes_49152"] = {"staged_bytes": 48 << 10}
             times, plans = {}, {}
             for key, kw in variants.items():
-                plan, _ = ek.plan_for(adj.idx, f, True, n_in, **kw)
+                plan = ek.launch_plan(n_out, k, f, True, n_in, **kw)
                 got = ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan)
                 if not _ell_err(got, ref, x, k)[1]:
                     fail(f"{name} at plan {plan} disagrees with its plain version")
                 times[key] = _device_ms(
                     torch, lambda: ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan),
                     20 if level == 4 else 100)
-                plans[key] = {"rows": plan.rows, "ct": plan.ct, "cap_u": plan.cap_u,
-                              "stream_hints": plan.stream_hints, "smem": plan.smem,
+                plans[key] = {"rows": plan.rows, "ct": plan.ct, "smem": plan.smem,
                               "blocks_per_sm": ek.occupancy(plan)}
-            default = ek.plan_for(adj.idx, f, True, n_in)[0]
+            default = ek.launch_plan(n_out, k, f, True, n_in)
             rec = {"name": name, "level": level, "f": f, "default": default._asdict(),
                    "default_ms": _device_ms(torch, lambda: ek._launch_cuda(
                        name, adj.idx, adj.w, x, "fwd", default), 20 if level == 4 else 100),
                    "ms": times, "plans": plans}
-            if f == 256:
-                src = ek._operator_sources(adj.idx, default.rows)
-                counts = (src.offsets[1:] - src.offsets[:-1]).float()
-                rec["block_sources"] = {"rows": src.rows, "mean": float(counts.mean()),
-                                        "max": src.max_count, "slots_per_source":
-                                        n_out * k / float(counts.sum()), "bytes": src.nbytes}
             emit("ell_plan_sweep", **rec)
             out.append(rec)
             del x, ref
@@ -1181,18 +1166,16 @@ def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_re
 
 
 def _ell_occupancy(ek) -> dict:
-    """Blocks an SM holds of the ELL plans at the n = 4 level's shape: F = 256
-    staged (at the most distinct sources the default staging takes) and
-    gathered at 16 bytes a thread, and F = 37 (one element a thread)."""
+    """Blocks an SM holds of the ELL plans at the n = 4 level's shape (F = 256
+    at 16 bytes a thread, F = 37 at one element) and the n = 3 level's
+    (F = 256, the small-table regime)."""
     out = {}
-    for f, aligned in ((256, True), (256, True), (37, False)):
-        plan = ek.launch_plan(167_325, 44, f, aligned, 167_325)
-        if plan.v == 4 and "staged" not in out:
-            plan = plan._replace(cap_u=(48 << 10) // (plan.ct * ek.VEC_BYTES + 4))
+    for key, n, f, aligned in (("n4_f256", 167_325, 256, True), ("n4_f37", 167_325, 37, True),
+                               ("n3_f256", 8_401, 256, True)):
+        plan = ek.launch_plan(n, 44, f, aligned, n)
         blocks = ek.occupancy(plan)
-        out[plan.variant] = {"plan": plan._asdict(), "threads": plan.threads,
-                             "smem_bytes": plan.smem, "blocks_per_sm": blocks,
-                             "threads_per_sm": blocks * plan.threads}
+        out[key] = {"plan": plan._asdict(), "threads": plan.threads, "smem_bytes": plan.smem,
+                    "blocks_per_sm": blocks, "threads_per_sm": blocks * plan.threads}
     return out
 
 

@@ -15,40 +15,46 @@
 //                        stays in device memory and rows are gathered by DMA.
 // The backward pass of each runs the same entry point on the transpose
 // orientation (idx_t, w_t).  On Hopper the counterpart of "x resident in
-// VMEM" is L2 residency: a source table of N_in <= 16,384 rows at F = 256 in
-// f32 is at most 16 MB, inside the 50 MB L2.  Both regimes share one kernel
+// VMEM" is L2 residency: a table of N_in <= 16,384 rows at F = 256 in f32
+// is at most 16 MB, inside the 50 MB L2.  Both regimes share one kernel
 // body; each keeps its own entry point, wrapper, launch count and timing.
 //
 // Bound on this card: bytes.  The least traffic is N_out*K*8 (idx, w)
 // + N_in*F*4 (x, each row once) + N_out*F*4 (out) bytes at 3.35 TB/s, for
 // 2*N_out*K*F operations at 67 TFLOP/s (f32, no tensor cores): at most
 // 2*K*F / (8*K + 4*F) < 0.5 operations per byte.  What the kernel really
-// moves is the gathered rows, N_out*K*F*4 bytes (6.5 GB at the n = 4 level,
-// F = 256), from L2 or L1: the n-gram operators' rows that share an
-// (n-1)-gram share their sources, and the L2 holds the table's hot part, so
-// the gather runs at the rate L2 and L1 deliver, not at the HBM rate.
+// moves is the gathered rows, N_out*K*F*4 bytes (7.5 GB at the n = 4 level,
+// F = 256), from L2 or L1, so its rate is what L2 and L1 deliver to the SMs
+// (about 12.5 TB/s of gathered rows on an NVIDIA H100 80GB HBM3 at
+// 700.00 W, L1 serving the rows that a block's rows share).
 // Design, for that:
 //   - a thread owns V features of one output row (V = 4, one 16-byte load
 //     and store, when F % 4 == 0 and x and out are 16-byte aligned; else
 //     V = 1, the same body), and the ct threads of a row read a gathered
 //     source row's feature tile (ct * V features) as one contiguous run;
-//   - a block takes `rows` consecutive output rows over one feature tile
-//     (the launch plan, ops/ell_kernels.py `launch_plan`: 32 rows of a
-//     64-feature tile at V = 4).  Consecutive rows share sources, so the
-//     block's rows read the same source rows at about the same time and the
-//     second and later reads hit L1;
-//   - the grid's x dimension runs over row blocks and its y over feature
-//     tiles, so the blocks of one tile run first: the L2 working set is
-//     that tile's slice of x (N_in * 256 bytes at a 64-feature tile);
+//   - a block takes `rows` consecutive output rows over one feature tile,
+//     and the grid's x runs over row blocks, its y over feature tiles, so
+//     the blocks of one tile run together.  The plan (ops/ell_kernels.py
+//     `launch_plan`) sizes both to the table: where x is larger than 16 MB
+//     a tile is one 128-byte line (32 features, 8 threads) and a block 16
+//     rows (128 threads), so a tile's slice of x (N_in lines, 21 MB at the
+//     n = 4 level) stays in L2 while its blocks run; a smaller x stays in
+//     L2 whole, and takes 256-byte tiles and 256 threads a block;
+//   - idx/w and out, read or written once, carry the streaming hint
+//     (evict first) where x is the large table, so they do not push x out
+//     of L2 and L1;
 //   - the block stages its rows' idx/w in dynamic shared memory sized to
-//     what it serves (rows * kc * 8 bytes, kc = min(K, the plan's chunk):
-//     11 KB at 32 rows and K = 44), one coalesced copy of a contiguous run
+//     what it serves (rows * kc * 8 bytes, kc = min(K, 16 KB / (rows * 8));
+//     5.5 KB at 16 rows and K = 44), one coalesced copy of a contiguous run
 //     when kc == K, and reads each slot as one 8-byte broadcast; the rest
-//     of the SM's 256 KB stays L1;
-//   - the slot loop issues 8 gathers before their 8 fmaf's (the last group
-//     predicated), so 8 independent loads are in flight per thread;
+//     of the SM's 256 KB is L1;
+//   - each thread issues 8 gathers, then their 8 fmaf's (then 4, then 1 at
+//     the end of a row), so 8 independent loads are in flight per thread;
 //   - out is written once, with no atomics: every output element belongs to
 //     exactly one thread.
+// A design that copied each block's distinct source rows into shared memory
+// first (cp.async) and summed from there halved the rows read from L2 but
+// ran 2x slower: a block's copies and sums do not overlap (PERF.md, PR 9).
 //
 // Plain C entry points (no PyTorch headers), loaded with ctypes.  Each
 // launch entry point checks the plan it is given, returns
@@ -60,9 +66,9 @@
 
 namespace {
 
-constexpr int kMaxThreads = 512;       // threads a block
-constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block (227 KB, opted in)
-constexpr int kUnroll = 8;             // gathers in flight per thread
+constexpr int kMaxThreads = 512;      // threads a block
+constexpr int kMaxSmemBytes = 49152;  // dynamic shared memory without the opt-in
+constexpr int kUnroll = 8;            // gathers in flight per thread
 
 __device__ __forceinline__ void fma_into(float& acc, float w, float v) { acc = fmaf(w, v, acc); }
 __device__ __forceinline__ void fma_into(float4& acc, float w, const float4& v) {
@@ -79,14 +85,8 @@ __device__ __forceinline__ float zero<float>() { return 0.0f; }
 template <>
 __device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
-// 16 bytes from global to shared memory without passing through registers
-// or L1 (cp.async.cg); cp_async_wait_all waits for the thread's own copies.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
 // idx/w loads and out stores, with the streaming hint (evict first from L1
-// and L2: read or written once, they leave the cache to x) where `cs`.
+// and L2: read or written once, they leave the caches to x) where `cs`.
 template <typename T>
 __device__ __forceinline__ T load_once(const T* p, bool cs) { return cs ? __ldcs(p) : __ldg(p); }
 template <typename V>
@@ -97,107 +97,62 @@ __device__ __forceinline__ void store_once(V* p, const V& v, bool cs) {
     *p = v;
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// acc += w * load(index) over slots j.. of s ({index, bits of w}) in slot
-// order, U loads issued before their U fmaf's; returns the first slot left.
-template <int U, typename V, typename Load>
-__device__ __forceinline__ int accumulate(const int2* s, int j, int n, V& acc, Load load) {
+// acc += w * x[index * nvec + v] over slots j.. of s ({index, bits of w}) in
+// slot order, U loads issued before their U fmaf's; returns the first slot
+// left.
+template <int U, typename V>
+__device__ __forceinline__ int accumulate(const int2* s, int j, int n, const V* x, int nvec,
+                                          int v, V& acc) {
   for (; j + U <= n; j += U) {
     V a[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) a[u] = load(s[j + u].x);
+    for (int u = 0; u < U; ++u) a[u] = x[(int64_t)s[j + u].x * nvec + v];
 #pragma unroll
     for (int u = 0; u < U; ++u) fma_into(acc, __int_as_float(s[j + u].y), a[u]);
   }
   return j;
 }
 
-template <typename V, typename Load>
-__device__ __forceinline__ void accumulate_all(const int2* s, int n, V& acc, Load load) {
-  int j = accumulate<kUnroll>(s, 0, n, acc, load);
-  j = accumulate<4>(s, j, n, acc, load);
-  accumulate<1>(s, j, n, acc, load);
-}
-
 // V = float4 (4 features a thread) or float (1).  nvec = F / features-per-V.
 // Thread t of block (bx, by) serves output row bx * rows + (t >> ct_log2)
 // and feature vector by * ct + (t & (ct - 1)), ct = 1 << ct_log2.
-//
-// kStaged (V = float4 only): where block bx has at most cap_u distinct
-// sources, u_src[u_off[bx] .. u_off[bx + 1]), their vectors of this tile are
-// copied into shared memory first, and slot (i, k) reads the copy at
-// local[i, k], its source's position in that list; a block with more
-// gathers x[idx[i, k]] itself, as every block does without kStaged.  Both
-// sum the same values in the same order.
-template <typename V, bool kStaged>
+template <typename V>
 __global__ void __launch_bounds__(kMaxThreads)
     ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                const V* __restrict__ x, V* __restrict__ out, int n_out, int k, int nvec,
-               int ct_log2, int rows, int kc, const short* __restrict__ local,
-               const int* __restrict__ u_off, const int* __restrict__ u_src, int cap_u,
-               bool cs) {
-  extern __shared__ int4 smem[];
-  int2* s_slot = reinterpret_cast<int2*>(smem);  // [rows][kc]: {index, bits of w}
-  const int ct = 1 << ct_log2;
-  const int lane = threadIdx.x & (ct - 1);
+               int ct_log2, int rows, int kc, bool cs) {
+  extern __shared__ int2 s_slot[];  // [rows][kc]: {idx, bits of w}
   const int local_row = threadIdx.x >> ct_log2;
   const int64_t row0 = (int64_t)blockIdx.x * rows;
   const int64_t row = row0 + local_row;
-  const int v = (blockIdx.y << ct_log2) + lane;
+  const int v = (blockIdx.y << ct_log2) + (threadIdx.x & ((1 << ct_log2) - 1));
   const bool live = row < n_out && v < nvec;
   const int live_rows = n_out - row0 < rows ? (int)(n_out - row0) : rows;
 
   V acc = zero<V>();
-  int u0 = 0, nu = 0;
-  if constexpr (kStaged) {
-    u0 = u_off[blockIdx.x];
-    nu = u_off[blockIdx.x + 1] - u0;
-  }
-  if (kStaged && nu <= cap_u) {  // one pass: kc >= k
-    int* s_src = reinterpret_cast<int*>(s_slot + ((rows * kc + 1) & ~1));      // [cap_u]
-    V* s_x = reinterpret_cast<V*>(s_src + ((cap_u + 3) & ~3));                 // [cap_u][ct]
-    for (int t = threadIdx.x; t < nu; t += blockDim.x) s_src[t] = u_src[u0 + t];
-    const int64_t base = row0 * k;
-    for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
-      s_slot[(t / k) * kc + t % k] =
-          make_int2(load_once(local + base + t, cs), __float_as_int(load_once(w + base + t, cs)));
-    __syncthreads();
-    const int v0 = blockIdx.y << ct_log2;
-    for (int c = threadIdx.x; c < (nu << ct_log2); c += blockDim.x) {
-      if (v0 + (c & (ct - 1)) < nvec)
-        cp_async16(s_x + c, x + (int64_t)s_src[c >> ct_log2] * nvec + v0 + (c & (ct - 1)));
+  for (int k0 = 0; k0 < k; k0 += kc) {
+    const int n = min(kc, k - k0);
+    if (k0 > 0) __syncthreads();  // the previous chunk's slots have been read
+    if (n == k) {  // the block's slots are one contiguous run
+      const int64_t base = row0 * k;
+      for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
+        s_slot[(t / k) * kc + t % k] =
+            make_int2(load_once(idx + base + t, cs), __float_as_int(load_once(w + base + t, cs)));
+    } else {
+      for (int t = threadIdx.x; t < live_rows * n; t += blockDim.x) {
+        const int r = t / n;
+        const int j = t - r * n;
+        const int64_t g = (row0 + r) * k + k0 + j;
+        s_slot[r * kc + j] =
+            make_int2(load_once(idx + g, cs), __float_as_int(load_once(w + g, cs)));
+      }
     }
-    cp_async_wait_all();
     __syncthreads();
     if (live) {
-      const V* xs = s_x + lane;
-      accumulate_all(s_slot + local_row * kc, k, acc, [&](int l) { return xs[l << ct_log2]; });
-    }
-  } else {
-    for (int k0 = 0; k0 < k; k0 += kc) {
-      const int n = min(kc, k - k0);
-      if (k0 > 0) __syncthreads();  // the previous chunk's slots have been read
-      if (n == k) {  // the block's slots are one contiguous run
-        const int64_t base = row0 * k;
-        for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
-          s_slot[(t / k) * kc + t % k] =
-              make_int2(load_once(idx + base + t, cs), __float_as_int(load_once(w + base + t, cs)));
-      } else {
-        for (int t = threadIdx.x; t < live_rows * n; t += blockDim.x) {
-          const int r = t / n;
-          const int j = t - r * n;
-          const int64_t g = (row0 + r) * k + k0 + j;
-          s_slot[r * kc + j] =
-              make_int2(load_once(idx + g, cs), __float_as_int(load_once(w + g, cs)));
-        }
-      }
-      __syncthreads();
-      if (live)
-        accumulate_all(s_slot + local_row * kc, n, acc,
-                       [&](int i) { return x[(int64_t)i * nvec + v]; });
+      const int2* s = s_slot + local_row * kc;
+      int j = accumulate<kUnroll>(s, 0, n, x, nvec, v, acc);
+      j = accumulate<4>(s, j, n, x, nvec, v, acc);
+      accumulate<1>(s, j, n, x, nvec, v, acc);
     }
   }
   if (live) store_once(out + row * nvec + v, acc, cs);
@@ -209,54 +164,18 @@ int log2_exact(int n) {
   return (1 << l) == n ? l : -1;
 }
 
-// Dynamic shared memory of a launch: the staged slots (padded to 16 bytes),
-// then, staged, cap_u source ids (padded to 16 bytes) and cap_u rows of ct
-// 16-byte vectors.
-int64_t smem_bytes(int rows, int kc, int ct, int cap_u) {
-  const int64_t staged = cap_u ? (int64_t)((cap_u + 3) & ~3) * 4 + (int64_t)cap_u * ct * 16 : 0;
-  return (int64_t)((rows * kc + 1) & ~1) * 8 + staged;
-}
-
-template <typename V, bool kStaged>
-cudaError_t allow_smem() {  // once per process and instantiation
-  static const cudaError_t e = cudaFuncSetAttribute(
-      ell_kernel<V, kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
-  return e;
-}
-
-template <typename V, bool kStaged>
-int launch_typed(const int* idx, const float* w, const void* x, void* out, int n_out, int k,
-                 int nvec, int ct_log2, int rows, int kc, const short* local, const int* u_off,
-                 const int* u_src, int cap_u, bool cs, dim3 grid, unsigned threads, size_t smem,
-                 cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = allow_smem<V, kStaged>();
-    if (e != cudaSuccess) return (int)e;
-  }
-  ell_kernel<V, kStaged><<<grid, threads, smem, s>>>(idx, w, (const V*)x, (V*)out, n_out, k,
-                                                     nvec, ct_log2, rows, kc, local, u_off,
-                                                     u_src, cap_u, cs);
-  return (int)cudaGetLastError();
-}
-
 // The plan (ops/ell_kernels.py `launch_plan`): v features a thread, ct
 // threads a row (a power of two), `rows` rows a block, kc slots staged a
-// pass, grid (row blocks, feature tiles); cap_u > 0 stages up to cap_u
-// distinct source rows a block (local, u_off, u_src given: the operator's
-// block source lists for `rows` rows a block).  Refused unless it covers
-// every output element once and fits a block.
+// pass, grid (row blocks, feature tiles), cs the streaming hints.  Refused
+// unless it covers every output element once and fits a block.
 int launch(const void* idx, const void* w, const void* x, void* out, int n_out, int k, int f,
-           int v, int ct, int rows, int kc, int grid_x, int grid_y, const void* local,
-           const void* u_off, const void* u_src, int cap_u, int cs, void* stream) {
+           int v, int ct, int rows, int kc, int grid_x, int grid_y, int cs, void* stream) {
   if (n_out < 0 || k < 0 || f < 0) return (int)cudaErrorInvalidValue;
   if (n_out == 0 || f == 0) return (int)cudaSuccess;
   const int ct_log2 = log2_exact(ct);
   const int64_t threads = (int64_t)ct * rows;
-  const bool staged = cap_u > 0;
   if ((v != 1 && v != 4) || f % v != 0 || ct_log2 < 0 || rows < 1 || threads > kMaxThreads ||
-      threads % 32 != 0 || kc < 1 || cap_u < 0 || smem_bytes(rows, kc, ct, cap_u) > kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  if (staged && (v != 4 || kc < k || k < 1 || !local || !u_off || !u_src))
+      threads % 32 != 0 || kc < 1 || (int64_t)rows * kc * 8 > kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
   const int nvec = f / v;
   if ((int64_t)grid_x * rows < n_out || (int64_t)grid_y * ct < nvec ||
@@ -265,22 +184,17 @@ int launch(const void* idx, const void* w, const void* x, void* out, int n_out, 
     return (int)cudaErrorInvalidValue;
   if (v == 4 && (((uintptr_t)x | (uintptr_t)out) % 16) != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  const size_t smem = (size_t)smem_bytes(rows, kc, ct, cap_u);
+  const size_t smem = (size_t)rows * kc * 8;
   const cudaStream_t s = (cudaStream_t)stream;
   const int* i = (const int*)idx;
   const float* wf = (const float*)w;
-  const short* l = (const short*)local;
-  const int* uo = (const int*)u_off;
-  const int* us = (const int*)u_src;
-  const unsigned t = (unsigned)threads;
-  if (staged)
-    return launch_typed<float4, true>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo,
-                                      us, cap_u, cs != 0, grid, t, smem, s);
   if (v == 4)
-    return launch_typed<float4, false>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo,
-                                       us, 0, cs != 0, grid, t, smem, s);
-  return launch_typed<float, false>(i, wf, x, out, n_out, k, nvec, ct_log2, rows, kc, l, uo, us,
-                                    0, cs != 0, grid, t, smem, s);
+    ell_kernel<float4><<<grid, (unsigned)threads, smem, s>>>(
+        i, wf, (const float4*)x, (float4*)out, n_out, k, nvec, ct_log2, rows, kc, cs != 0);
+  else
+    ell_kernel<float><<<grid, (unsigned)threads, smem, s>>>(
+        i, wf, (const float*)x, (float*)out, n_out, k, nvec, ct_log2, rows, kc, cs != 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -288,38 +202,26 @@ int launch(const void* idx, const void* w, const void* x, void* out, int n_out, 
 extern "C" {
 
 int ell_resident_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k,
-                     int f, int v, int ct, int rows, int kc, int grid_x, int grid_y,
-                     const void* local, const void* u_off, const void* u_src, int cap_u, int cs,
+                     int f, int v, int ct, int rows, int kc, int grid_x, int grid_y, int cs,
                      void* stream) {
-  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, local, u_off,
-                u_src, cap_u, cs, stream);
+  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, cs, stream);
 }
 
-int ell_hbm_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k, int f,
-                int v, int ct, int rows, int kc, int grid_x, int grid_y, const void* local,
-                const void* u_off, const void* u_src, int cap_u, int cs, void* stream) {
-  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, local, u_off,
-                u_src, cap_u, cs, stream);
+int ell_hbm_f32(const void* idx, const void* w, const void* x, void* out, int n_out, int k,
+                int f, int v, int ct, int rows, int kc, int grid_x, int grid_y, int cs,
+                void* stream) {
+  return launch(idx, w, x, out, n_out, k, f, v, ct, rows, kc, grid_x, grid_y, cs, stream);
 }
 
-// Resident blocks an SM holds of a launch of the V = v body (staged or not)
-// at `threads` threads and `smem` bytes of dynamic shared memory; a negative
-// CUDA error code on failure.
-int ell_occupancy(int v, int staged, int threads, int smem) {
+// Resident blocks an SM holds of the V = v body at `threads` threads and
+// `smem` bytes of dynamic shared memory; a negative CUDA error code on failure.
+int ell_occupancy(int v, int threads, int smem) {
   int blocks = 0;
-  cudaError_t e;
-  if (staged) {
-    e = allow_smem<float4, true>();
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float4, true>,
-                                                        threads, (size_t)smem);
-  } else if (v == 4) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float4, false>,
-                                                      threads, (size_t)smem);
-  } else {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float, false>,
-                                                      threads, (size_t)smem);
-  }
+  const cudaError_t e =
+      v == 4 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float4>,
+                                                             threads, (size_t)smem)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ell_kernel<float>,
+                                                             threads, (size_t)smem);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 

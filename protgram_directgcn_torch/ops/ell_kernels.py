@@ -18,7 +18,8 @@ CUDA tensors launch the kernels or raise.
 
 ``launch_plan`` works out each launch's geometry here, before the launch
 (features a thread, threads a row, rows a block, slots staged a pass, the
-grid); the entry points check it and refuse a plan they cannot run.
+grid, the streaming hints), from the shapes alone; the entry points check
+it and refuse a plan they cannot run.
 
 ``propagate_ell_kernel(adj, x)`` dispatches as ``propagate_ell_pallas``
 (pallas_spmm.py:111-119) does: by ``adj.idx_t.shape[0]`` (n_in).  Its
@@ -29,6 +30,7 @@ backward runs the same kernel on the transpose orientation ``(idx_t, w_t)``
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -42,15 +44,14 @@ _X_RESIDENT_BUDGET = 8 * 1024 * 1024
 _F_TILE = 128
 
 # Launches per kernel and direction ("fwd": the forward product, "bwd": the
-# transpose-orientation product), and per kernel by the plan's variant
-# ("staged": distinct source rows staged in shared memory; "v4" / "v1": each
-# slot gathered, 16 bytes or one element a thread).  The wrappers add one
+# transpose-orientation product), and per kernel by the features a thread
+# owns (the plan's ``v``: 4, one 16-byte access, or 1).  The wrappers add one
 # where they launch a kernel and nowhere else.
 LAUNCHES: Dict[str, Dict[str, int]] = {
     "ell_resident": {"fwd": 0, "bwd": 0},
     "ell_hbm": {"fwd": 0, "bwd": 0},
 }
-LAUNCHES_BY_VARIANT: Dict[str, Dict[str, int]] = {"ell_resident": {}, "ell_hbm": {}}
+LAUNCHES_BY_V: Dict[str, Dict[int, int]] = {"ell_resident": {}, "ell_hbm": {}}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -61,16 +62,16 @@ def reset_launches() -> None:
     for per_dir in LAUNCHES.values():
         for k in per_dir:
             per_dir[k] = 0
-    for per_variant in LAUNCHES_BY_VARIANT.values():
-        per_variant.clear()
+    for per_v in LAUNCHES_BY_V.values():
+        per_v.clear()
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:
     return {name: dict(per_dir) for name, per_dir in LAUNCHES.items()}
 
 
-def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
-    return {name: dict(per) for name, per in LAUNCHES_BY_VARIANT.items()}
+def launch_counts_by_v() -> Dict[str, Dict[int, int]]:
+    return {name: dict(per_v) for name, per_v in LAUNCHES_BY_V.items()}
 
 
 def build() -> Dict[str, object]:
@@ -87,12 +88,10 @@ def build() -> Dict[str, object]:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in LAUNCHES:
             fn = getattr(lib, f"{name}_f32")
-            # idx, w, x, out, n_out, k, f; the plan: v, ct, rows, kc, grid; the
-            # block sources: local, offsets, sources, cap_u; the hints; the stream
-            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, *[i32] * 6, ptr, ptr, ptr, i32, i32,
-                           ptr]
+            # idx, w, x, out, n_out, k, f; the plan: v, ct, rows, kc, grid, hints
+            fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, *[i32] * 7, ptr]
             fn.restype = i32
-        lib.ell_occupancy.argtypes = [i32, i32, i32, i32]
+        lib.ell_occupancy.argtypes = [i32, i32, i32]
         lib.ell_occupancy.restype = i32
         BUILD_INFO.clear()
         BUILD_INFO.update(info)
@@ -121,30 +120,26 @@ MAX_SMEM = int(_BOUNDS["kMaxSmemBytes"])
 # read a slice of x of N_in lines, which the L2 holds; 128 threads a block;
 # idx/w/out streamed past the caches.  A table of at most SMALL_TABLE_BYTES
 # stays in L2 whole: 256-byte tiles, 256 threads a block (more rows share
-# sources in L1), plain loads.
+# sources in L1), plain loads.  (chip_smoke.py's plan sweep measures both.)
 SMALL_TABLE_BYTES = 16 << 20
 TILE_BYTES = 128
 THREADS = 128
 SMALL_TABLE_TILE_BYTES = 256
 SMALL_TABLE_THREADS = 256
 STAGE_BYTES = 16 * 1024  # shared memory for a block's staged idx/w
-STAGED_X_BYTES = 0  # shared memory for a block's distinct source rows (0: none)
 
 
 class LaunchPlan(NamedTuple):
     """Geometry of one ELL launch.  Thread ``t`` of block ``(bx, by)`` serves
     output row ``bx * rows + t // ct`` and features ``[c * v, c * v + v)`` of
     chunk ``c = by * ct + t % ct``; rows past N_out and chunks past F / v
-    idle.  The block stages ``kc`` slots of its rows' idx/w a pass and, with
-    ``cap_u > 0``, its distinct source rows' tile where they are at most
-    ``cap_u`` (the operator's ``BlockSources`` for ``rows``)."""
+    idle.  The block stages ``kc`` slots of its rows' idx/w a pass."""
 
     v: int  # features a thread owns: 4 (16 bytes) or 1
     ct: int  # threads of one row, a power of two: the feature tile is ct * v
     rows: int  # consecutive output rows a block
     kc: int  # slots staged in shared memory a pass
     grid: Tuple[int, int]  # (row blocks, feature tiles)
-    cap_u: int = 0  # distinct source rows a block stages at most (0: none)
     stream_hints: bool = False  # idx/w read and out written with evict-first hints
 
     @property
@@ -153,14 +148,7 @@ class LaunchPlan(NamedTuple):
 
     @property
     def smem(self) -> int:
-        """Dynamic shared memory (csrc/ell.cu ``smem_bytes``)."""
-        staged = ((self.cap_u + 3) // 4 * 16 + self.cap_u * self.ct * 16) if self.cap_u else 0
-        return ((self.rows * self.kc + 1) // 2 * 2) * 8 + staged
-
-    @property
-    def variant(self) -> str:
-        """"staged", or the direct gather's "v4" (16 bytes a thread) / "v1"."""
-        return "staged" if self.cap_u else f"v{self.v}"
+        return self.rows * self.kc * 8
 
 
 def _cdiv(n: int, d: int) -> int:
@@ -171,19 +159,21 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+@functools.lru_cache(maxsize=1024)
 def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int,
                 threads: Optional[int] = None, tile_bytes: Optional[int] = None,
-                stream_hints: Optional[bool] = None, cap_u: int = 0,
-                stage_bytes: int = STAGE_BYTES) -> LaunchPlan:
-    """The launch on idx/w ``[n_out, k]`` and x ``[n_in, f]`` f32.
+                stream_hints: Optional[bool] = None) -> LaunchPlan:
+    """The launch on idx/w ``[n_out, k]`` and x ``[n_in, f]`` f32 (cached:
+    a wrapper call at the small levels' sizes costs more on the host than
+    its kernel).
 
     ``aligned``: x and out are 16-byte aligned.  16-byte accesses need that
     and ``f % 4 == 0``; otherwise ``v = 1``.  A row's threads cover a
     ``tile_bytes`` feature tile (fewer where F is narrower), a block
     ``threads // ct`` consecutive rows, and each pass stages up to
-    ``STAGE_BYTES`` of the block's idx/w (all K slots when they fit; staged
-    plans, ``cap_u > 0``, need all K in one pass and v = 4).  ``threads``,
-    ``tile_bytes`` and ``stream_hints`` default to the table's regime.
+    ``STAGE_BYTES`` of the block's idx/w (all K slots when they fit).
+    ``threads``, ``tile_bytes`` and ``stream_hints`` default to the regime
+    of the table's size.
     """
     small = n_in * f * 4 <= SMALL_TABLE_BYTES
     if threads is None:
@@ -196,79 +186,10 @@ def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int,
     nvec = f // v
     ct = min(_pow2_at_least(max(nvec, 1)), max(1, tile_bytes // (4 * v)))
     rows = max(1, threads // ct)
-    kc = max(1, min(k, stage_bytes // (rows * 8)))
-    if cap_u and (v != 4 or kc < k):
-        raise ValueError(f"a staged plan needs v = 4 and all {k} slots in one pass")
+    kc = max(1, min(k, STAGE_BYTES // (rows * 8)))
     return LaunchPlan(v=v, ct=ct, rows=rows, kc=kc,
-                      grid=(max(1, _cdiv(n_out, rows)), max(1, _cdiv(nvec, ct))), cap_u=cap_u,
+                      grid=(max(1, _cdiv(n_out, rows)), max(1, _cdiv(nvec, ct))),
                       stream_hints=stream_hints)
-
-
-class BlockSources(NamedTuple):
-    """The distinct sources of each block of ``rows`` consecutive output rows
-    of an ELL operator: block b's are ``sources[offsets[b]:offsets[b + 1]]``,
-    ascending, and slot (i, k) is ``local[i, k]``-th of its block's."""
-
-    rows: int
-    offsets: torch.Tensor  # int32 [blocks + 1]
-    sources: torch.Tensor  # int32 [sum of the blocks' counts]
-    local: torch.Tensor  # int16 [n_out, K]
-    max_count: int  # the most distinct sources of any block
-
-    @property
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.offsets, self.sources, self.local))
-
-
-def block_sources(idx: torch.Tensor, rows: int) -> BlockSources:
-    """``BlockSources`` of idx ``[n_out, K]`` int32 (K >= 1, rows * K < 2^15),
-    on idx's device: one sort of the (block, source) keys."""
-    n_out, k = idx.shape
-    if k < 1 or rows * k >= 1 << 15:
-        raise ValueError(f"block sources need 1 <= K and rows * K < 32768, got {rows} x {k}")
-    dev = idx.device
-    blocks = max(1, _cdiv(n_out, rows))
-    span = int(idx.max()) + 1 if idx.numel() else 1
-    blk = torch.arange(n_out, device=dev, dtype=torch.int64) // rows
-    keys = (blk[:, None] * span + idx.long()).reshape(-1)
-    uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
-    ublk = uniq // span
-    counts = torch.bincount(ublk, minlength=blocks)
-    offsets = torch.zeros(blocks + 1, dtype=torch.int64, device=dev)
-    offsets[1:] = torch.cumsum(counts, 0)
-    local = inv.reshape(n_out, k) - offsets[blk][:, None]
-    return BlockSources(rows=rows, offsets=offsets.int(), sources=(uniq - ublk * span).int(),
-                        local=local.to(torch.int16).contiguous(),
-                        max_count=int(counts.max()) if n_out else 0)
-
-
-def _operator_sources(idx: torch.Tensor, rows: int) -> BlockSources:
-    """``block_sources(idx, rows)``, computed once and kept on idx: the
-    operator's tensors live as long as the operator."""
-    cache = idx.__dict__.setdefault("_ell_block_sources", {})
-    if rows not in cache:
-        cache[rows] = block_sources(idx, rows)
-    return cache[rows]
-
-
-def plan_for(idx: torch.Tensor, f: int, aligned: bool, n_in: int,
-             threads: Optional[int] = None, tile_bytes: Optional[int] = None,
-             stream_hints: Optional[bool] = None, staged_bytes: int = STAGED_X_BYTES,
-             stage_bytes: int = STAGE_BYTES):
-    """The launch plan on idx and x ``[n_in, f]``, and the operator's block
-    sources where the plan stages them: at v = 4 with all K slots in one
-    pass, each block whose distinct sources' tile fits ``staged_bytes``
-    stages them.  Returns ``(plan, sources or None)``."""
-    n_out, k = idx.shape
-    plan = launch_plan(n_out, k, f, aligned, n_in, threads, tile_bytes, stream_hints,
-                       stage_bytes=stage_bytes)
-    if plan.v != 4 or k < 1 or plan.kc < k or plan.rows * k >= 1 << 15 or staged_bytes <= 0:
-        return plan, None
-    src = _operator_sources(idx, plan.rows)
-    cap = min(src.max_count, staged_bytes // (plan.ct * VEC_BYTES + 4))
-    if cap < 1:
-        return plan, None
-    return plan._replace(cap_u=cap), src
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -279,7 +200,7 @@ def occupancy(plan: LaunchPlan) -> int:
     """Blocks of ``plan`` one SM holds at once (the CUDA occupancy query)."""
     if _lib is None:
         build()
-    return int(_lib.ell_occupancy(plan.v, int(plan.cap_u > 0), plan.threads, plan.smem))
+    return int(_lib.ell_occupancy(plan.v, plan.threads, plan.smem))
 
 
 # -----------------------------------------------------------------------------
@@ -331,29 +252,23 @@ def _launch(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
 
 def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
                  direction: str, plan: Optional[LaunchPlan] = None) -> torch.Tensor:
-    """Launch ``name`` on checked inputs with ``plan`` (else ``plan_for``'s);
-    count the launch by direction and variant."""
+    """Launch ``name`` on checked inputs with ``plan`` (else ``launch_plan``'s);
+    count the launch by direction and by ``v``."""
     n_out, k = idx.shape
-    f = x.shape[1]
+    n_in, f = x.shape
     out = torch.empty((n_out, f), dtype=torch.float32, device=x.device)
     if n_out == 0 or f == 0:  # nothing to compute: no launch
         return out
     if _lib is None:
         build()
     if plan is None:
-        plan, src = plan_for(idx, f, _aligned(x, out), x.shape[0])
-    else:
-        src = _operator_sources(idx, plan.rows) if plan.cap_u else None
-    staged = (src.local.data_ptr(), src.offsets.data_ptr(), src.sources.data_ptr()) if src else (
-        None, None, None)
+        plan = launch_plan(n_out, k, f, _aligned(x, out), n_in)
     fn = getattr(_lib, f"{name}_f32")
     rc = fn(idx.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), n_out, k, f, plan.v,
-            plan.ct, plan.rows, plan.kc, *plan.grid, *staged, plan.cap_u, int(plan.stream_hints),
-            _nvcc.stream_ptr(x))
+            plan.ct, plan.rows, plan.kc, *plan.grid, int(plan.stream_hints), _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, name)
     LAUNCHES[name][direction] += 1
-    per = LAUNCHES_BY_VARIANT[name]
-    per[plan.variant] = per.get(plan.variant, 0) + 1
+    LAUNCHES_BY_V[name][plan.v] = LAUNCHES_BY_V[name].get(plan.v, 0) + 1
     return out
 
 

@@ -1,14 +1,13 @@
-"""The ELL kernels' launch plan and block source lists (``ops/ell_kernels.py``).
+"""The ELL kernels' launch plan (``ops/ell_kernels.py`` ``launch_plan``).
 
-The kernels run only on the card; the geometry they launch with and the
-per-operator lists of each block's distinct sources are computed here in
-Python before each launch, so these tests hold them on the CPU: every
-output row and feature of a launch is served by exactly one thread, 16-byte
-accesses are taken exactly where they are possible, the block and its
-shared memory fit what the entry points accept (csrc/ell.cu ``launch``),
-the source lists equal a numpy definition on random ELLs and on n-gram
-operators, and the wrappers pass the plan and count each launch by its
-variant.
+The kernels run only on the card; the geometry they launch with is computed
+here in Python before each launch, from the shapes alone, so these tests
+hold it on the CPU: every output row and feature of a launch is served by
+exactly one thread, 16-byte accesses are taken exactly where they are
+possible, the block and its shared memory fit what the entry points accept
+(csrc/ell.cu ``launch``), each table size takes its regime (tile, threads,
+streaming hints), including the n-gram operators' shapes, and the wrappers
+pass the plan and count each launch by the features a thread owns.
 """
 
 from __future__ import annotations
@@ -48,12 +47,9 @@ def _entry_point_takes(plan: ek.LaunchPlan, n_out: int, k: int, f: int) -> bool:
     """The checks of csrc/ell.cu ``launch`` (n_out, f > 0)."""
     ct, rows, threads = plan.ct, plan.rows, plan.threads
     nvec = f // plan.v
-    staged = ((plan.cap_u + 3) & ~3) * 4 + plan.cap_u * ct * 16 if plan.cap_u else 0
-    smem = ((rows * plan.kc + 1) & ~1) * 8 + staged
     return (plan.v in (1, 4) and f % plan.v == 0 and ct & (ct - 1) == 0 and rows >= 1
             and threads <= ek.MAX_THREADS and threads % 32 == 0 and plan.kc >= 1
-            and plan.cap_u >= 0 and smem == plan.smem <= ek.MAX_SMEM
-            and (plan.cap_u == 0 or (plan.v == 4 and plan.kc >= k >= 1))
+            and rows * plan.kc * 8 == plan.smem <= ek.MAX_SMEM
             and plan.grid[0] * rows >= n_out and plan.grid[1] * ct >= nvec
             and (plan.grid[0] - 1) * rows < n_out and (plan.grid[1] - 1) * ct < nvec
             and plan.grid[1] <= 65_535)
@@ -79,7 +75,7 @@ def test_launch_plan(aligned, variant):
         assert plan.ct * plan.v * 4 <= max(tile_bytes, 4 * plan.v), where
         assert plan.ct < 2 * max(1, f // plan.v), where
         assert plan.kc <= max(k, 1), where
-        assert plan.cap_u == 0 and plan.rows * plan.kc * 8 <= ek.STAGE_BYTES, where
+        assert plan.smem <= ek.STAGE_BYTES, where
         assert plan.threads == threads, where
         assert plan.stream_hints == (not small), where
 
@@ -91,67 +87,18 @@ def test_default_plan_at_the_paths_shapes():
     block and no streaming hints."""
     plan = ek.launch_plan(167_325, 44, 256, True, 167_325)
     assert plan == ek.LaunchPlan(v=4, ct=8, rows=16, kc=44, grid=(10_458, 8), stream_hints=True)
-    assert plan.threads == 128 and plan.smem == 5_632 and plan.variant == "v4"
+    assert plan.threads == 128 and plan.smem == 5_632
     assert ek.launch_plan(8_401, 44, 256, True, 8_401) == ek.LaunchPlan(
         v=4, ct=16, rows=16, kc=44, grid=(526, 4))
     assert ek.launch_plan(8_401, 44, 64, True, 8_401).grid == (526, 1)
-    assert ek.launch_plan(167_325, 44, 37, True, 167_325).variant == "v1"
-    staged = ek.launch_plan(167_325, 44, 256, True, 167_325, cap_u=384)
-    assert staged.smem == 5_632 + 384 * 4 + 384 * 8 * 16 and staged.variant == "staged"
-    assert _entry_point_takes(staged, 167_325, 44, 256)
-    with pytest.raises(ValueError, match="staged"):
-        ek.launch_plan(1003, 150, 256, True, 1 << 20, cap_u=10)  # K past one pass
-    with pytest.raises(ValueError, match="staged"):
-        ek.launch_plan(1003, 44, 37, True, 5000, cap_u=10)  # one element a thread
+    assert ek.launch_plan(167_325, 44, 37, True, 167_325).v == 1
 
 
 def test_bounds_are_read_from_the_source():
     src = (_nvcc.CSRC / "ell.cu").read_text()
     assert f"constexpr int kMaxThreads = {ek.MAX_THREADS};" in src
     assert f"constexpr int kMaxSmemBytes = {ek.MAX_SMEM};" in src
-    assert ek.MAX_SMEM == 227 * 1024  # an H100 block's shared memory, opted in
-
-
-def _sources_numpy(idx: np.ndarray, rows: int):
-    """The definition: block b's distinct sources ascending, and each slot's
-    position among its block's."""
-    offsets, sources = [0], []
-    local = np.zeros(idx.shape, np.int64)
-    for b in range(max(1, -(-len(idx) // rows))):
-        blk = idx[b * rows:(b + 1) * rows]
-        uniq = np.unique(blk)
-        local[b * rows:(b + 1) * rows] = np.searchsorted(uniq, blk)
-        sources.extend(uniq.tolist())
-        offsets.append(len(sources))
-    return np.array(offsets), np.array(sources, np.int64), local
-
-
-def _check_sources(idx: np.ndarray, rows: int):
-    got = ek.block_sources(torch.from_numpy(idx), rows)
-    offsets, sources, local = _sources_numpy(idx, rows)
-    assert got.rows == rows
-    assert got.offsets.dtype == torch.int32 and got.sources.dtype == torch.int32
-    assert got.local.dtype == torch.int16 and got.local.is_contiguous()
-    np.testing.assert_array_equal(got.offsets.numpy(), offsets)
-    np.testing.assert_array_equal(got.sources.numpy(), sources)
-    np.testing.assert_array_equal(got.local.numpy(), local)
-    assert got.max_count == int(np.diff(offsets).max())
-    # Each slot's staged row is its own source.
-    blk = np.arange(len(idx))[:, None] // rows
-    np.testing.assert_array_equal(sources[offsets[blk] + local], idx)
-    return got
-
-
-@pytest.mark.parametrize("rows", [1, 4, 16, 33])
-@pytest.mark.parametrize("seed,n_out,n_in,k", [
-    (0, 137, 90, 44), (1, 1003, 5000, 12), (2, 999, 200, 44), (3, 5, 3, 4), (4, 64, 1, 7),
-])
-def test_block_sources_match_numpy_on_random_ells(seed, n_out, n_in, k, rows):
-    rng = np.random.default_rng(seed)
-    idx = rng.integers(0, n_in, (n_out, k)).astype(np.int32)
-    idx[rng.integers(0, n_out, max(1, n_out // 10))] = 0  # rows of padding only
-    idx[:, k - k // 4:] = 0  # padding at the end of every row
-    _check_sources(idx, rows)
+    assert ek.MAX_SMEM == 48 * 1024  # without the opt-in attribute
 
 
 @pytest.fixture(scope="module")
@@ -162,33 +109,21 @@ def ngram3(tmp_path_factory):
 
 
 @pytest.mark.parametrize("matrix", ["mathcal_a_in", "mathcal_a_out", "undirected_norm"])
-def test_block_sources_match_numpy_on_ngram_operators(ngram3, matrix):
-    """Both orientations of the n = 3 operators, at the plan's 16 rows a
-    block; the plan stages them (cap = the most distinct sources)."""
+def test_plan_on_ngram_operators(ngram3, matrix):
+    """Both orientations of the n = 3 operators at the paths' widths: the
+    small-table regime, all K slots in one pass, every row and feature
+    covered once; a large table of the same operator takes the other."""
     src, tgt, val = transforms.csr_to_coo_arrays(getattr(ngram3, matrix)())
     adj = spmm.build_ell(src, tgt, val, ngram3.num_nodes, device="cpu")
     for idx in (adj.idx, adj.idx_t):
-        got = _check_sources(idx.numpy(), 16)
-        n = idx.shape[0]
-        assert ek.plan_for(idx, 256, True, n) == (ek.launch_plan(n, idx.shape[1], 256, True, n),
-                                                  None)  # staging is off by default
-        plan, cached = ek.plan_for(idx, 256, True, 1 << 20, staged_bytes=48 << 10)
-        assert plan.rows == 16 and plan.cap_u == min(got.max_count, (48 << 10) // 132)
-        assert plan.variant == "staged"
-        assert cached is ek.plan_for(idx, 64, True, 1 << 20, staged_bytes=48 << 10)[1]
-        np.testing.assert_array_equal(cached.local.numpy(), got.local.numpy())
-        assert ek.plan_for(idx, 37, True, n, staged_bytes=48 << 10) == (
-            ek.launch_plan(n, idx.shape[1], 37, True, n), None)
-
-
-def test_block_sources_refuse_what_int16_cannot_index():
-    with pytest.raises(ValueError, match="32768"):
-        ek.block_sources(torch.zeros(64, 2048, dtype=torch.int32), 16)
-    with pytest.raises(ValueError):
-        ek.block_sources(torch.zeros(4, 0, dtype=torch.int32), 16)
-    plan, src = ek.plan_for(torch.zeros(64, 2048, dtype=torch.int32), 256, True, 10,
-                            staged_bytes=48 << 10)
-    assert src is None and plan.variant == "v4"
+        n, k = idx.shape
+        for f in (64, 128, 256):
+            plan = ek.launch_plan(n, k, f, True, n)
+            assert (plan.v, plan.threads, plan.ct * 16, plan.kc) == (4, 256, 256, k)
+            assert not plan.stream_hints and _entry_point_takes(plan, n, k, f)
+            assert _covered_once(n, plan.grid[0], plan.rows)
+            big = ek.launch_plan(n, k, f, True, 1 << 20)
+            assert (big.threads, big.ct * 16, big.stream_hints) == (128, 128, True)
 
 
 class _FakeLib:
@@ -206,12 +141,12 @@ class _FakeLib:
         return fn
 
 
-def test_wrapper_passes_the_plan_and_counts_by_variant(monkeypatch):
+def test_wrapper_passes_the_plan_and_counts_by_v(monkeypatch):
     fake = _FakeLib()
     monkeypatch.setattr(ek, "_lib", fake)
     monkeypatch.setattr(_nvcc, "stream_ptr", lambda t: 0)
     ek.reset_launches()
-    idx = torch.zeros(1003, 150, dtype=torch.int32)  # K past one pass: gathered
+    idx = torch.zeros(1003, 150, dtype=torch.int32)
     w = torch.zeros(1003, 150)
     base = torch.zeros(5000 * 256 + 4)
     assert base.data_ptr() % 16 == 0
@@ -221,25 +156,16 @@ def test_wrapper_passes_the_plan_and_counts_by_variant(monkeypatch):
     ek._launch_cuda("ell_hbm", idx, w, torch.zeros(5000, 37), "fwd")
     plan = ek.launch_plan(1003, 150, 256, True, 1 << 20, threads=256, tile_bytes=64)
     ek._launch_cuda("ell_hbm", idx, w, aligned, "fwd", plan)
-    small = torch.arange(40, dtype=torch.int32).view(10, 4) % 7
-    staged, src = ek.plan_for(small, 256, True, 7, staged_bytes=48 << 10)
-    ek._launch_cuda("ell_hbm", small, torch.zeros(10, 4), aligned[:7], "bwd", staged)
-    want = [("ell_resident_f32", 1003, 150, 256, ek.launch_plan(1003, 150, 256, True, 5000)),
-            ("ell_resident_f32", 1003, 150, 256, ek.launch_plan(1003, 150, 256, False, 5000)),
-            ("ell_hbm_f32", 1003, 150, 37, ek.launch_plan(1003, 150, 37, True, 5000)),
-            ("ell_hbm_f32", 1003, 150, 256, plan),
-            ("ell_hbm_f32", 10, 4, 256, staged)]
-    assert fake.calls == [(n, (rows, k, f, p.v, p.ct, p.rows, p.kc, *p.grid))
-                          for n, rows, k, f, p in want]
-    assert staged.cap_u == 7 and src.max_count == 7
-    # ..., local, offsets, sources, cap_u, streaming hints, stream
-    assert fake.args[-1][-6:-3] == (src.local.data_ptr(), src.offsets.data_ptr(),
-                                    src.sources.data_ptr())
-    assert fake.args[-1][-3:-1] == (7, 0) and fake.args[0][-6:-1] == (None, None, None, 0, 0)
-    assert fake.args[3][-3:-1] == (0, 1)  # x of 1 << 20 rows: a large table
-    assert ek.launch_counts_by_variant() == {"ell_resident": {"v4": 1, "v1": 1},
-                                             "ell_hbm": {"v1": 1, "v4": 1, "staged": 1}}
+    want = [("ell_resident_f32", 256, ek.launch_plan(1003, 150, 256, True, 5000)),
+            ("ell_resident_f32", 256, ek.launch_plan(1003, 150, 256, False, 5000)),
+            ("ell_hbm_f32", 37, ek.launch_plan(1003, 150, 37, True, 5000)),
+            ("ell_hbm_f32", 256, plan)]
+    assert fake.calls == [(n, (1003, 150, f, p.v, p.ct, p.rows, p.kc, *p.grid))
+                          for n, f, p in want]
+    # ..., the plan, the streaming hints (a large table only), the stream
+    assert [a[-2] for a in fake.args] == [0, 0, 0, 1]
+    assert ek.launch_counts_by_v() == {"ell_resident": {4: 1, 1: 1}, "ell_hbm": {1: 1, 4: 1}}
     assert ek.launch_counts() == {"ell_resident": {"fwd": 1, "bwd": 1},
-                                  "ell_hbm": {"fwd": 2, "bwd": 1}}
+                                  "ell_hbm": {"fwd": 2, "bwd": 0}}
     ek.reset_launches()
-    assert ek.launch_counts_by_variant() == {"ell_resident": {}, "ell_hbm": {}}
+    assert ek.launch_counts_by_v() == {"ell_resident": {}, "ell_hbm": {}}
