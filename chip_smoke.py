@@ -71,7 +71,9 @@ Phases, each printing one JSON line as it ends:
    estimate and the measured peak beside the tier-3 peak of phase 9.
 
 ``python3 chip_smoke.py --ell-only DIR [--with-ell-path]`` runs only phase
-5 (after phase 4 with ``--with-ell-path``) on graphs kept under DIR.
+5 (after phase 4 with ``--with-ell-path``) on graphs kept under DIR;
+``--ell-step DIR`` only times the ell path's n = 4 level (30 steps through
+``HierarchicalTrainer.train_level``, ``time_ell_step``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -103,6 +105,7 @@ LARGE_WIDTHS = (64, 128, 256)  # the widths the 5-gram level's propagations take
 RAGGED_SHAPES = [((26, 676, 100), "bfloat16"), ((26, 676, 37), "float32")]
 MISALIGNED_SHAPE = (21, 441, 256)  # x a contiguous view one element past an aligned start
 ELL_WIDTHS = (64, 128, 256)
+ELL_STEP_EPOCHS = 30  # steps of the n = 4 level's step timing
 RETILE_CARRY = (21, 194_481, 64)  # A, G, f: the 5-gram level's last layer at [256, 128, 64]
 TIER_N = 5
 TIER_DIMS = (256, 128, 64)
@@ -1184,25 +1187,64 @@ def _ptxas_lines(log) -> list:
     return [ln.strip() for ln in str(log).splitlines() if "registers" in ln or "spill" in ln]
 
 
-def ell_only(torch, ek, workdir: str, with_path: bool) -> None:
-    """The ELL phases alone, on the seeded FASTA's graphs to n = 4 kept under
-    ``workdir`` (written there when absent, for a second run to reuse), the
-    ell path first when ``with_path``."""
+def time_ell_step(torch, graph_path: str, epochs: int = ELL_STEP_EPOCHS) -> dict:
+    """The ell path's n = 4 level trained alone through ``train_level`` for
+    ``epochs`` full-batch steps (the ell path's settings, seeded 64-wide
+    features and 4 seeded classes: time does not depend on their values);
+    returns the level's stats with ``step_seconds`` = train seconds / steps
+    (host clock, each step ending in the loss's read-back).  It imports
+    only what the trainer had before this script's ELL phases, so a copy of
+    an earlier tree can be timed by the same function."""
+    import numpy as np
+
+    from protgram_directgcn_torch.config import Config
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
+
+    cfg = Config()
+    cfg.apply_overrides({"gcn.spmm_mode": "pallas", "gcn.use_cluster_training": False,
+                         "gcn.default_task_type": "closest_aa",
+                         "gcn.hidden_layer_dims": [256, 128, 64],
+                         "gcn.epochs_per_level": epochs, "gcn.run_sanity_check_ppi": False})
+    graph = load_graph(graph_path)
+    trainer = HierarchicalTrainer(cfg, device=DEVICE)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((graph.num_nodes, 64)).astype(np.float32)
+    y = rng.integers(0, TIER_CLASSES, graph.num_nodes)
+    trainer.train_level(graph, x, y, TIER_CLASSES)
+    st = dict(trainer.level_stats[graph.n])
+    if not _finite(st["losses"]) or st["route"] != "ell":
+        fail(f"ell step timing: route {st['route']}, losses {st['losses']}")
+    st["step_seconds"] = st["train_seconds"] / st["epochs"]
+    torch.cuda.empty_cache()
+    return st
+
+
+def _ell_graphs(workdir: str) -> list:
+    """The seeded FASTA's graphs n = 1..4 under ``workdir`` (built when absent)."""
     from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
 
-    info = ek.build()
-    emit("device", kind=torch.cuda.get_device_name(0), build_seconds=info["seconds"],
-         ptxas=_ptxas_lines(info["log"]), ell_occupancy=_ell_occupancy(ek))
     os.makedirs(workdir, exist_ok=True)
     fasta = os.path.join(workdir, "synthetic_sprot.fasta")
     if not os.path.exists(fasta):
         write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
     graph_dir = os.path.join(workdir, "graphs")
     paths = [os.path.join(graph_dir, f"ngram_graph_n{n}.npz") for n in range(1, 5)]
-    if with_path:
-        run_ell_path(torch, ek, fasta, workdir)
     if not all(os.path.exists(p) for p in paths):
         paths = NgramGraphBuilder(n_max=4).run(fasta, graph_dir)
+    return paths
+
+
+def ell_only(torch, ek, workdir: str, with_path: bool) -> None:
+    """The ELL phases alone, on the seeded FASTA's graphs to n = 4 kept under
+    ``workdir`` (written there when absent, for a second run to reuse), the
+    ell path first when ``with_path``."""
+    info = ek.build()
+    emit("device", kind=torch.cuda.get_device_name(0), build_seconds=info["seconds"],
+         ptxas=_ptxas_lines(info["log"]), ell_occupancy=_ell_occupancy(ek))
+    paths = _ell_graphs(workdir)
+    if with_path:
+        run_ell_path(torch, ek, os.path.join(workdir, "synthetic_sprot.fasta"), workdir)
     check_ell_kernels(torch, ek, paths)
     check_ell_edges(torch, ek, paths)
     check_ell_routing(torch, ek, paths)
@@ -1219,6 +1261,9 @@ def main(argv=None) -> int:
                         help="run only the ELL kernel phases, on graphs kept under DIR")
     parser.add_argument("--with-ell-path", action="store_true",
                         help="with --ell-only: run the ell path first")
+    parser.add_argument("--ell-step", metavar="DIR",
+                        help="time only the ell path's n = 4 level's train step, on graphs "
+                             "kept under DIR")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1234,6 +1279,9 @@ def main(argv=None) -> int:
     resolve_device(DEVICE)
     if args.ell_only:
         ell_only(torch, ek, args.ell_only, args.with_ell_path)
+        return 0
+    if args.ell_step:
+        emit("ell_step", **time_ell_step(torch, _ell_graphs(args.ell_step)[3]))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
