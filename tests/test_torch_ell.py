@@ -17,7 +17,10 @@ The same seeded numpy inputs go through the JAX package and the port:
   tests/test_torch_model.py.
 
 On the CPU the wrappers run the plain versions and count nothing; the CUDA
-branch is driven with a stand-in library to show it counts one per launch.
+branch is driven with a stand-in library to show it counts one per launch,
+and ``propagate``'s card branch (``spmm._on_card`` made true) with recording
+wrappers to show that ELL and bucketed ELL operators reach the kernels in
+both directions whatever ``use_pallas`` says, never the plain version.
 """
 
 import jax
@@ -363,7 +366,7 @@ def test_cuda_branch_has_no_fallback(monkeypatch, fmt):
 
 def test_on_card_reads_the_device():
     assert not t_spmm._on_card(torch.zeros(2))
-    assert t_spmm._on_card(torch.zeros(2, device="meta")) is False
+    assert not t_spmm._on_card(torch.zeros(2, device="meta"))
 
 
 class _FakeLib:
