@@ -54,7 +54,7 @@
 //     exactly one thread.
 // A design that copied each block's distinct source rows into shared memory
 // first (cp.async) and summed from there halved the rows read from L2 but
-// ran 2x slower: a block's copies and sums do not overlap (PERF.md, PR 9).
+// ran 2x slower: a block's copies and sums do not overlap (PERF.md).
 //
 // Plain C entry points (no PyTorch headers), loaded with ctypes.  Each
 // launch entry point checks the plan it is given, returns
