@@ -27,7 +27,9 @@ Phases, each printing one JSON line as it ends:
    port's CPU path (which the CPU tests hold against the JAX package) on a
    small n = 3 hypercube graph;
 4. ell path: the same entry point on the same FASTA with
-   ``gcn.spmm_mode=pallas`` (ELL operators at every level), n = 1..4
+   ``gcn.spmm_mode=pallas`` (ELL operators at every level), n = 1..4, 30
+   epochs a level (so that the n = 4 level's step time, ``level4_step_seconds``,
+   is not mostly the first step's warm-up)
    (``gcn.use_cluster_training=false``: the n = 4 level trains full batch;
    ``gcn.default_task_type=closest_aa`` for the n = 4 level, whose default
    task, Louvain communities, is not ported; ``next_node`` there would need
@@ -44,11 +46,10 @@ Phases, each printing one JSON line as it ends:
    operator at n = 4, F = 256; edge cases (F = 37, x one element past an
    aligned start, K = 150 past one staging pass with N_out = 1,003, rows of
    padding only, a random ELL at the n = 4 size, timed), each launch's
-   variant (16-byte or one-element path) checked; ``spmm.propagate`` with
-   ``use_pallas=False`` on a CUDA ``EllAdj`` and ``BucketedEllAdj``
-   launching the kernels forward and backward and never the plain version;
-   the kernel's time at other launch plans (threads a block x feature-tile
-   bytes);
+   variant (16-byte or one-element path) checked; ``spmm.propagate`` on a
+   CUDA ``EllAdj`` and ``BucketedEllAdj`` (the formats ``gcn.spmm_mode``
+   "ell" and "bucketed" build) launching the kernels forward and backward
+   and never the plain version;
 6. ell reference: phase 3 on ELL operators through the ELL kernels;
 7. tier reference: phase 3 at memory tiers 1, 2 and 3 (remat; bf16 compute
    and node tables; per-path remat with the packed carry, so pack and
@@ -69,11 +70,6 @@ Phases, each printing one JSON line as it ends:
    ``HierarchicalTrainer.train_level`` with no pin, at the tier the plan
    picks from the card's real free memory; its plan, each tier's residency
    estimate and the measured peak beside the tier-3 peak of phase 9.
-
-``python3 chip_smoke.py --ell-only DIR [--with-ell-path]`` runs only phase
-5 (after phase 4 with ``--with-ell-path``) on graphs kept under DIR;
-``--ell-step DIR`` only times the ell path's n = 4 level (30 steps through
-``HierarchicalTrainer.train_level``, ``time_ell_step``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -105,7 +101,7 @@ LARGE_WIDTHS = (64, 128, 256)  # the widths the 5-gram level's propagations take
 RAGGED_SHAPES = [((26, 676, 100), "bfloat16"), ((26, 676, 37), "float32")]
 MISALIGNED_SHAPE = (21, 441, 256)  # x a contiguous view one element past an aligned start
 ELL_WIDTHS = (64, 128, 256)
-ELL_STEP_EPOCHS = 30  # steps of the n = 4 level's step timing
+ELL_PATH_EPOCHS = 30  # epochs a level on the ell path
 RETILE_CARRY = (21, 194_481, 64)  # A, G, f: the 5-gram level's last layer at [256, 128, 64]
 TIER_N = 5
 TIER_DIMS = (256, 128, 64)
@@ -400,7 +396,7 @@ def run_ell_path(torch, ek, fasta: str, workdir: str):
             "--set", "gcn.use_cluster_training=false",
             "--set", "gcn.default_task_type=closest_aa",
             "--set", "gcn.hidden_layer_dims=[256,128,64]",
-            "--set", "gcn.epochs_per_level=5",
+            "--set", f"gcn.epochs_per_level={ELL_PATH_EPOCHS}",
             "--set", "gcn.run_sanity_check_ppi=false",
             "--device", DEVICE]
     ek.reset_launches()
@@ -509,7 +505,7 @@ def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str) -> dict:
     ek.reset_launches()
     out = getattr(ek, name)(adj.idx, adj.w, x)
     xg = x.clone().requires_grad_(True)
-    y = spmm.propagate(adj, xg, use_pallas=True)
+    y = spmm.propagate(adj, xg)
     y.backward(cot)
     torch.cuda.synchronize()
     rec = {"launches_by_v": _expect_v(torch, ek, name, {4: 3}, what)}
@@ -629,10 +625,11 @@ def check_ell_edges(torch, ek, graph_paths):
 
 
 def check_ell_routing(torch, ek, graph_paths):
-    """``spmm.propagate`` with ``use_pallas=False`` on a CUDA ``EllAdj`` (the
-    n = 3 𝒜_in) and a CUDA ``BucketedEllAdj`` (the n = 4 𝒜_in) launches the
-    kernel of its regime forward and backward, never the plain version, and
-    agrees with the plain version."""
+    """``spmm.propagate`` on a CUDA ``EllAdj`` (the n = 3 𝒜_in) and a CUDA
+    ``BucketedEllAdj`` (the n = 4 𝒜_in), the formats ``gcn.spmm_mode``
+    "ell" and "bucketed" build, launches the kernel of its regime forward
+    and backward, never the plain version, and agrees with the plain
+    version."""
     from protgram_directgcn_torch.graph import transforms
     from protgram_directgcn_torch.graph.structure import load_graph
     from protgram_directgcn_torch.ops import spmm
@@ -652,7 +649,7 @@ def check_ell_routing(torch, ek, graph_paths):
         ek.reset_launches()
         try:
             xg = x.clone().requires_grad_(True)
-            y = spmm.propagate(adj, xg, use_pallas=False)
+            y = spmm.propagate(adj, xg)
             y.backward(cot)
             torch.cuda.synchronize()
         finally:
@@ -686,48 +683,6 @@ def check_ell_routing(torch, ek, graph_paths):
     return result
 
 
-def sweep_ell_plans(torch, ek, graph_paths):
-    """The kernel at other launch plans on the n = 3 and n = 4 𝒜_in at
-    F = 256 and 64: threads a block x feature-tile bytes x streaming hints;
-    the choice of ``ell_kernels``' plan constants, remeasured."""
-    from protgram_directgcn_torch.graph.structure import load_graph
-
-    out = []
-    for level, name in ((3, "ell_resident"), (4, "ell_hbm")):
-        adj, _ = _ell_operator(torch, load_graph(graph_paths[level - 1]), "mathcal_a_in")
-        n_out, k = adj.idx.shape
-        n_in = adj.idx_t.shape[0]
-        for f in (256, 64):
-            x = torch.randn(n_in, f, device=DEVICE,
-                            generator=torch.Generator(device=DEVICE).manual_seed(level))
-            ref = ek.ell_plain(adj.idx, adj.w, x)
-            variants = {f"{t}x{b}{'_cs' if cs else ''}": {"threads": t, "tile_bytes": b,
-                                                            "stream_hints": cs}
-                        for t in (128, 256, 512) for b in (128, 256) for cs in (False, True)}
-            times, plans = {}, {}
-            for key, kw in variants.items():
-                plan = ek.launch_plan(n_out, k, f, True, n_in, **kw)
-                got = ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan)
-                if not _ell_err(got, ref, x, k)[1]:
-                    fail(f"{name} at plan {plan} disagrees with its plain version")
-                times[key] = _device_ms(
-                    torch, lambda: ek._launch_cuda(name, adj.idx, adj.w, x, "fwd", plan),
-                    20 if level == 4 else 100)
-                plans[key] = {"rows": plan.rows, "ct": plan.ct, "smem": plan.smem,
-                              "blocks_per_sm": ek.occupancy(plan)}
-            default = ek.launch_plan(n_out, k, f, True, n_in)
-            rec = {"name": name, "level": level, "f": f, "default": default._asdict(),
-                   "default_ms": _device_ms(torch, lambda: ek._launch_cuda(
-                       name, adj.idx, adj.w, x, "fwd", default), 20 if level == 4 else 100),
-                   "ms": times, "plans": plans}
-            emit("ell_plan_sweep", **rec)
-            out.append(rec)
-            del x, ref
-        del adj
-    torch.cuda.empty_cache()
-    return out
-
-
 # -----------------------------------------------------------------------------
 # Phases 3 and 6: reference on a small input
 # -----------------------------------------------------------------------------
@@ -756,7 +711,7 @@ def check_reference(torch, ek, workdir: str, mode: str):
         dg = graph.to_device(mode=mode, device=dev)
         cfg = directgcn.DirectGCNConfig(layer_dims=(32, 64, 32, 16), num_nodes=dg.num_nodes,
                                         num_classes=40, n_gram_len=3, dropout=0.0,
-                                        decoder_dropout=0.0, use_pallas=mode == "ell")
+                                        decoder_dropout=0.0)
         if params_cpu is None:
             params_cpu = directgcn.init_directgcn_params(torch.Generator().manual_seed(3), cfg,
                                                          "cpu")
@@ -1187,84 +1142,9 @@ def _ptxas_lines(log) -> list:
     return [ln.strip() for ln in str(log).splitlines() if "registers" in ln or "spill" in ln]
 
 
-def time_ell_step(torch, graph_path: str, epochs: int = ELL_STEP_EPOCHS) -> dict:
-    """The ell path's n = 4 level trained alone through ``train_level`` for
-    ``epochs`` full-batch steps (the ell path's settings, seeded 64-wide
-    features and 4 seeded classes: time does not depend on their values);
-    returns the level's stats with ``step_seconds`` = train seconds / steps
-    (host clock, each step ending in the loss's read-back).  It imports
-    only what the trainer had before this script's ELL phases, so a copy of
-    an earlier tree can be timed by the same function."""
-    import numpy as np
-
-    from protgram_directgcn_torch.config import Config
-    from protgram_directgcn_torch.graph.structure import load_graph
-    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
-
-    cfg = Config()
-    cfg.apply_overrides({"gcn.spmm_mode": "pallas", "gcn.use_cluster_training": False,
-                         "gcn.default_task_type": "closest_aa",
-                         "gcn.hidden_layer_dims": [256, 128, 64],
-                         "gcn.epochs_per_level": epochs, "gcn.run_sanity_check_ppi": False})
-    graph = load_graph(graph_path)
-    trainer = HierarchicalTrainer(cfg, device=DEVICE)
-    rng = np.random.default_rng(9)
-    x = rng.standard_normal((graph.num_nodes, 64)).astype(np.float32)
-    y = rng.integers(0, TIER_CLASSES, graph.num_nodes)
-    trainer.train_level(graph, x, y, TIER_CLASSES)
-    st = dict(trainer.level_stats[graph.n])
-    if not _finite(st["losses"]) or st["route"] != "ell":
-        fail(f"ell step timing: route {st['route']}, losses {st['losses']}")
-    st["step_seconds"] = st["train_seconds"] / st["epochs"]
-    torch.cuda.empty_cache()
-    return st
-
-
-def _ell_graphs(workdir: str) -> list:
-    """The seeded FASTA's graphs n = 1..4 under ``workdir`` (built when absent)."""
-    from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
-
-    os.makedirs(workdir, exist_ok=True)
-    fasta = os.path.join(workdir, "synthetic_sprot.fasta")
-    if not os.path.exists(fasta):
-        write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
-    graph_dir = os.path.join(workdir, "graphs")
-    paths = [os.path.join(graph_dir, f"ngram_graph_n{n}.npz") for n in range(1, 5)]
-    if not all(os.path.exists(p) for p in paths):
-        paths = NgramGraphBuilder(n_max=4).run(fasta, graph_dir)
-    return paths
-
-
-def ell_only(torch, ek, workdir: str, with_path: bool) -> None:
-    """The ELL phases alone, on the seeded FASTA's graphs to n = 4 kept under
-    ``workdir`` (written there when absent, for a second run to reuse), the
-    ell path first when ``with_path``."""
-    info = ek.build()
-    emit("device", kind=torch.cuda.get_device_name(0), build_seconds=info["seconds"],
-         ptxas=_ptxas_lines(info["log"]), ell_occupancy=_ell_occupancy(ek))
-    paths = _ell_graphs(workdir)
-    if with_path:
-        run_ell_path(torch, ek, os.path.join(workdir, "synthetic_sprot.fasta"), workdir)
-    check_ell_kernels(torch, ek, paths)
-    check_ell_edges(torch, ek, paths)
-    check_ell_routing(torch, ek, paths)
-    sweep_ell_plans(torch, ek, paths)
-
-
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
 
-    parser = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
-    parser.add_argument("--ell-only", metavar="DIR",
-                        help="run only the ELL kernel phases, on graphs kept under DIR")
-    parser.add_argument("--with-ell-path", action="store_true",
-                        help="with --ell-only: run the ell path first")
-    parser.add_argument("--ell-step", metavar="DIR",
-                        help="time only the ell path's n = 4 level's train step, on graphs "
-                             "kept under DIR")
-    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
@@ -1277,12 +1157,6 @@ def main(argv=None) -> int:
     from protgram_directgcn_torch.utils.device import resolve_device
 
     resolve_device(DEVICE)
-    if args.ell_only:
-        ell_only(torch, ek, args.ell_only, args.with_ell_path)
-        return 0
-    if args.ell_step:
-        emit("ell_step", **time_ell_step(torch, _ell_graphs(args.ell_step)[3]))
-        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
@@ -1314,7 +1188,6 @@ def main(argv=None) -> int:
         ell_records = check_ell_kernels(torch, ek, graph_paths)
         ell_edges = check_ell_edges(torch, ek, graph_paths)
         check_ell_routing(torch, ek, graph_paths)
-        sweep_ell_plans(torch, ek, graph_paths)
         check_reference(torch, ek, workdir, "ell")
         torch.cuda.empty_cache()
         retile_records = check_retile_kernels(torch, rt)

@@ -46,8 +46,8 @@
 //   - the block stages its rows' idx/w in dynamic shared memory sized to
 //     what it serves (rows * kc * 8 bytes, kc = min(K, 16 KB / (rows * 8));
 //     5.5 KB at 16 rows and K = 44), one coalesced copy of a contiguous run
-//     when kc == K, and reads each slot as one 8-byte broadcast; the rest
-//     of the SM's 256 KB is L1;
+//     when kc == K (kept for what it saves: see the kernel), and reads each
+//     slot as one 8-byte broadcast; the rest of the SM's 256 KB is L1;
 //   - each thread issues 8 gathers, then their 8 fmaf's (then 4, then 1 at
 //     the end of a row), so 8 independent loads are in flight per thread;
 //   - out is written once, with no atomics: every output element belongs to
@@ -133,7 +133,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int k0 = 0; k0 < k; k0 += kc) {
     const int n = min(kc, k - k0);
     if (k0 > 0) __syncthreads();  // the previous chunk's slots have been read
-    if (n == k) {  // the block's slots are one contiguous run
+    // When the block's slots are one contiguous run (n == k), the copy below
+    // and the general loop after it stage the same slots; with both, the
+    // float4 body takes 40 registers (12 blocks of 128 threads an SM), and
+    // without the first, 44 (10 blocks), a 4-byte spill in the float body,
+    // 10% more time over the 4-gram table and up to 7% over the 3-gram one
+    // (PERF.md).
+    if (n == k) {
       const int64_t base = row0 * k;
       for (int t = threadIdx.x; t < live_rows * k; t += blockDim.x)
         s_slot[(t / k) * kc + t % k] =

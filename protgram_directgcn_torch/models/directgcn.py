@@ -66,7 +66,6 @@ class DirectGCNConfig:
     l2_eps: float = 1e-12
     leaky_relu_slope: float = 0.01
     decoder_hidden_floor: int = 1
-    use_pallas: bool = False  # ELL operators run the CUDA ELL kernels (spmm.propagate)
     remat: bool = False  # recompute each layer and the decoder in the backward
     remat_paths: bool = False  # recompute per path; pack sub-128 rg carries
     compute_dtype: str = "float32"  # or "bfloat16"
@@ -248,7 +247,7 @@ def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig) -> tor
     x_in = xc @ (p["w_main_in"] + p["w_shared"]).to(ct)
     x_out = xc @ (p["w_main_out"] + p["w_shared"]).to(ct)
     x_und = xc @ (p["w_und"] + p["w_shared"]).to(ct)
-    pi, po, pu = propagate3(graph, x_in, x_out, x_und, cfg.use_pallas)
+    pi, po, pu = propagate3(graph, x_in, x_out, x_und)
     # The bias sums are cast to the compute type, so under bf16 the adds
     # keep the propagated paths bf16 (directgcn.py:263-269).
     ic = pi + (p["b_main_in"] + p["b_shared_in"]).to(ct)
@@ -276,7 +275,7 @@ def _layer_paths_remat(p: Params, graph, xc: torch.Tensor, cfg: DirectGCNConfig,
 
     def path(adj):
         def contrib(w, b, gate, xv):
-            y = propagate(adj, xv @ w.to(ct), cfg.use_pallas)
+            y = propagate(adj, xv @ w.to(ct))
             return gate.to(ct) * (y + b.to(ct))
         return contrib
 

@@ -120,7 +120,7 @@ MAX_SMEM = int(_BOUNDS["kMaxSmemBytes"])
 # read a slice of x of N_in lines, which the L2 holds; 128 threads a block;
 # idx/w/out streamed past the caches.  A table of at most SMALL_TABLE_BYTES
 # stays in L2 whole: 256-byte tiles, 256 threads a block (more rows share
-# sources in L1), plain loads.  (chip_smoke.py's plan sweep measures both.)
+# sources in L1), plain loads.  (PERF.md §6 gives the sweep that chose them.)
 SMALL_TABLE_BYTES = 16 << 20
 TILE_BYTES = 128
 THREADS = 128
@@ -160,28 +160,21 @@ def _pow2_at_least(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int,
-                threads: Optional[int] = None, tile_bytes: Optional[int] = None,
-                stream_hints: Optional[bool] = None) -> LaunchPlan:
+def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int) -> LaunchPlan:
     """The launch on idx/w ``[n_out, k]`` and x ``[n_in, f]`` f32 (cached:
     a wrapper call at the small levels' sizes costs more on the host than
     its kernel).
 
     ``aligned``: x and out are 16-byte aligned.  16-byte accesses need that
-    and ``f % 4 == 0``; otherwise ``v = 1``.  A row's threads cover a
-    ``tile_bytes`` feature tile (fewer where F is narrower), a block
-    ``threads // ct`` consecutive rows, and each pass stages up to
-    ``STAGE_BYTES`` of the block's idx/w (all K slots when they fit).
-    ``threads``, ``tile_bytes`` and ``stream_hints`` default to the regime
-    of the table's size.
+    and ``f % 4 == 0``; otherwise ``v = 1``.  The regime of the table's
+    size sets the feature tile a row's threads cover (fewer threads where F
+    is narrower), the threads a block (so ``threads // ct`` consecutive
+    rows) and the streaming hints; each pass stages up to ``STAGE_BYTES``
+    of the block's idx/w (all K slots when they fit).
     """
     small = n_in * f * 4 <= SMALL_TABLE_BYTES
-    if threads is None:
-        threads = SMALL_TABLE_THREADS if small else THREADS
-    if tile_bytes is None:
-        tile_bytes = SMALL_TABLE_TILE_BYTES if small else TILE_BYTES
-    if stream_hints is None:
-        stream_hints = not small
+    threads = SMALL_TABLE_THREADS if small else THREADS
+    tile_bytes = SMALL_TABLE_TILE_BYTES if small else TILE_BYTES
     v = 4 if aligned and f % 4 == 0 else 1
     nvec = f // v
     ct = min(_pow2_at_least(max(nvec, 1)), max(1, tile_bytes // (4 * v)))
@@ -189,7 +182,7 @@ def launch_plan(n_out: int, k: int, f: int, aligned: bool, n_in: int,
     kc = max(1, min(k, STAGE_BYTES // (rows * 8)))
     return LaunchPlan(v=v, ct=ct, rows=rows, kc=kc,
                       grid=(max(1, _cdiv(n_out, rows)), max(1, _cdiv(nvec, ct))),
-                      stream_hints=stream_hints)
+                      stream_hints=not small)
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -251,9 +244,9 @@ def _launch(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
 
 
 def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
-                 direction: str, plan: Optional[LaunchPlan] = None) -> torch.Tensor:
-    """Launch ``name`` on checked inputs with ``plan`` (else ``launch_plan``'s);
-    count the launch by direction and by ``v``."""
+                 direction: str) -> torch.Tensor:
+    """Launch ``name`` on checked inputs with ``launch_plan``'s plan; count
+    the launch by direction and by ``v``."""
     n_out, k = idx.shape
     n_in, f = x.shape
     out = torch.empty((n_out, f), dtype=torch.float32, device=x.device)
@@ -261,8 +254,7 @@ def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         return out
     if _lib is None:
         build()
-    if plan is None:
-        plan = launch_plan(n_out, k, f, _aligned(x, out), n_in)
+    plan = launch_plan(n_out, k, f, _aligned(x, out), n_in)
     fn = getattr(_lib, f"{name}_f32")
     rc = fn(idx.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), n_out, k, f, plan.v,
             plan.ct, plan.rows, plan.kc, *plan.grid, int(plan.stream_hints), _nvcc.stream_ptr(x))

@@ -21,11 +21,10 @@ gets no gradient.  The block format (ops/block.py of the JAX package) is
 not ported: where the JAX package's ``build_adjacency`` would return it,
 the port raises.
 
-On the card both ELL formats run the CUDA ELL kernels (ops/ell_kernels.py),
-whatever ``use_pallas`` says: the JAX package leaves the product to XLA off
-its Pallas path, and the kernels compute the same function.  On the CPU
-they run the plain version, and ``use_pallas`` sends an ``EllAdj`` through
-the kernels' entry points (which take the plain version there too).
+The route is the device's: on the card both ELL formats run the CUDA ELL
+kernels (ops/ell_kernels.py), on the CPU their plain version.  The JAX
+package's ``use_pallas`` has no counterpart: off its Pallas path it leaves
+the product to XLA, and the kernels compute the same function.
 """
 
 from __future__ import annotations
@@ -416,13 +415,13 @@ def _propagate_bucketed_kernel(adj: BucketedEllAdj, x: torch.Tensor) -> torch.Te
         lambda g: _bucketed_apply(adj_t.idx, adj_t.w, adj_t.inv_perm, g, kernel, "bwd"))
 
 
-def propagate(adj, x: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
+def propagate(adj, x: torch.Tensor) -> torch.Tensor:
     """Sum-aggregate weighted source features at each target node.  ELL
-    operators run the ELL kernels on the card; on the CPU ``use_pallas``
-    sends an ``EllAdj`` through the kernels' entry points."""
+    operators run the ELL kernels on the card, the plain version on the
+    CPU."""
     if isinstance(adj, DenseAdj):
         return _dense_apply(adj.at, x)
-    if isinstance(adj, EllAdj) and (use_pallas or _on_card(x)):
+    if isinstance(adj, EllAdj) and _on_card(x):
         return ell_kernels.propagate_ell_kernel(adj, x)
     if isinstance(adj, BucketedEllAdj) and _on_card(x):
         return _propagate_bucketed_kernel(adj, x)
@@ -437,14 +436,14 @@ def propagate(adj, x: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
     raise TypeError(f"Unknown adjacency type: {type(adj)}")
 
 
-def propagate_transpose(adj, x: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
+def propagate_transpose(adj, x: torch.Tensor) -> torch.Tensor:
     """The transpose product ``Mᵀ x`` (out[j] = sum over edges (j -> i) of
     w * x[i]), computed directly from the stored transpose orientation;
     differentiate :func:`propagate` instead."""
     if isinstance(adj, DenseAdj):
         return _dense_apply(adj.at.T, x)
     if isinstance(adj, (EllAdj, BucketedEllAdj, CooAdj)):
-        return propagate(_swap(adj), x, use_pallas)
+        return propagate(_swap(adj), x)
     from protgram_directgcn_torch.ops import hypercube
 
     if isinstance(adj, hypercube.HypercubeAdj):
@@ -452,13 +451,12 @@ def propagate_transpose(adj, x: torch.Tensor, use_pallas: bool = False) -> torch
     raise TypeError(f"propagate_transpose: unsupported adjacency {type(adj)}")
 
 
-def propagate3(graph, x_in: torch.Tensor, x_out: torch.Tensor, x_und: torch.Tensor,
-               use_pallas: bool = False):
+def propagate3(graph, x_in: torch.Tensor, x_out: torch.Tensor, x_und: torch.Tensor):
     """The three per-path propagations of a DirectGCN layer."""
     return (
-        propagate(graph.p_in, x_in, use_pallas),
-        propagate(graph.p_out, x_out, use_pallas),
-        propagate(graph.p_und, x_und, use_pallas),
+        propagate(graph.p_in, x_in),
+        propagate(graph.p_out, x_out),
+        propagate(graph.p_und, x_und),
     )
 
 

@@ -654,7 +654,6 @@ class HierarchicalTrainer:
             max_pe_len=gcn.max_pe_len,
             dropout=gcn.dropout_rate,
             use_vector_coeffs=gcn.use_vector_coeffs,
-            use_pallas=gcn.spmm_mode == "pallas",
             remat=plan.remat,
             remat_paths=plan.remat_paths,
             compute_dtype=plan.compute_dtype,

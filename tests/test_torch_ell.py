@@ -18,9 +18,10 @@ The same seeded numpy inputs go through the JAX package and the port:
 
 On the CPU the wrappers run the plain versions and count nothing; the CUDA
 branch is driven with a stand-in library to show it counts one per launch,
-and ``propagate``'s card branch (``spmm._on_card`` made true) with recording
-wrappers to show that ELL and bucketed ELL operators reach the kernels in
-both directions whatever ``use_pallas`` says, never the plain version.
+and ``propagate``'s card branch (``spmm._on_card`` made true; on the CPU
+the wrappers' plain versions compute there) with recording wrappers to show
+that ELL and bucketed ELL operators reach the kernels in both directions,
+never the plain version.
 """
 
 import jax
@@ -260,8 +261,9 @@ def test_dispatch_reads_n_in_from_the_transpose(monkeypatch, n_out, n_in, expect
     monkeypatch.setattr(ek, "ell_hbm", recorder("ell_hbm"))
     src, tgt, w = _random_edges(3, n_out, n_in, 50)
     adj = t_spmm.build_ell(src, tgt, w, n_out, n_in, device="cpu")
+    monkeypatch.setattr(t_spmm, "_on_card", lambda t: True)
     x = torch.ones(n_in, 1, requires_grad=True)
-    t_spmm.propagate(adj, x, use_pallas=True).sum().backward()
+    t_spmm.propagate(adj, x).sum().backward()
     assert calls == [(expect, "fwd", tuple(adj.idx.shape)),
                      (expect, "bwd", tuple(adj.idx_t.shape))]
 
@@ -287,17 +289,18 @@ def _recorders(monkeypatch, calls):
     monkeypatch.setattr(ek, "ell_plain", refuse)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
 @pytest.mark.parametrize("fmt", ["build_ell", "build_bucketed_ell"])
 @pytest.mark.parametrize("n_out,n_in,expect", [
     (10, 16_384, "ell_resident"), (10, 16_385, "ell_hbm"), (16_385, 10, "ell_resident"),
 ])
-def test_cuda_branch_routes_ell_formats_through_the_kernels(monkeypatch, fmt, use_pallas,
+def test_cuda_branch_routes_ell_formats_through_the_kernels(monkeypatch, fmt, layout,
                                                             n_out, n_in, expect):
     """On the card an ``EllAdj`` and each bucket of a ``BucketedEllAdj`` run
     the kernel of their regime (picked by n_in, as propagate_ell_pallas
-    does), forward and, on the stored transpose, backward, whatever
-    ``use_pallas`` says; the values and gradient are the plain route's."""
+    does), forward and, on the stored transpose, backward, on a contiguous
+    f32 copy of a strided x; the values and gradient are the plain
+    route's."""
     src, tgt, w = _random_edges(3, n_out, n_in, 50, "hub")
     adj = getattr(t_spmm, fmt)(src, tgt, w, n_out, n_in, device="cpu")
     rng = np.random.default_rng(n_in)
@@ -310,8 +313,10 @@ def test_cuda_branch_routes_ell_formats_through_the_kernels(monkeypatch, fmt, us
     calls = []
     _recorders(monkeypatch, calls)
     monkeypatch.setattr(t_spmm, "_on_card", lambda t: True)
-    xt = torch.from_numpy(x).requires_grad_(True)
-    y = t_spmm.propagate(adj, xt, use_pallas=use_pallas)
+    xt = (torch.from_numpy(x) if layout == "contiguous"
+          else torch.from_numpy(np.ascontiguousarray(x.T)).T).requires_grad_(True)
+    assert xt.is_contiguous() == (layout == "contiguous")
+    y = t_spmm.propagate(adj, xt)
     y.backward(cot)
     if fmt == "build_ell":
         want = [(expect, "fwd", tuple(adj.idx.shape)), (expect, "bwd", tuple(adj.idx_t.shape))]
@@ -322,7 +327,7 @@ def test_cuda_branch_routes_ell_formats_through_the_kernels(monkeypatch, fmt, us
     np.testing.assert_array_equal(y.detach().numpy(), y_ref.detach().numpy())
     np.testing.assert_array_equal(xt.grad.numpy(), x_ref.grad.numpy())
     calls.clear()
-    tr = t_spmm.propagate_transpose(adj, cot, use_pallas=use_pallas)
+    tr = t_spmm.propagate_transpose(adj, cot)
     assert [c[1] for c in calls] == ["fwd"] * (len(want) // 2)
     np.testing.assert_array_equal(tr.numpy(), x_ref.grad.numpy())
 
@@ -427,12 +432,14 @@ def test_wrappers_refuse_what_the_kernel_cannot_take():
 # -----------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fmt,use_pallas", [
-    ("build_ell", True), ("build_ell", False), ("build_bucketed_ell", False),
-    ("build_coo", False),
+@pytest.mark.parametrize("fmt,route", [
+    ("build_ell", "card"), ("build_ell", "plain"), ("build_bucketed_ell", "plain"),
+    ("build_coo", "plain"),
 ])
 @pytest.mark.parametrize("case", RANDOM_CASES[:4], ids=lambda c: f"s{c[0]}")
-def test_propagate_and_gradient_match_jax(case, fmt, use_pallas):
+def test_propagate_and_gradient_match_jax(monkeypatch, case, fmt, route):
+    """"card": ``spmm._on_card`` made true, so the ELL operator goes through
+    the kernels' entry points (their plain versions on the CPU)."""
     seed, n_out, n_in, e, kind = case
     src, tgt, w = _random_edges(seed, n_out, n_in, e, kind)
     j = getattr(j_spmm, fmt)(src, tgt, w, n_out, n_in)
@@ -442,14 +449,16 @@ def test_propagate_and_gradient_match_jax(case, fmt, use_pallas):
     cot = rng.normal(size=(n_out, 24)).astype(np.float32)
     out_j, vjp = jax.vjp(lambda v: j_spmm.propagate(j, v), jnp.asarray(x))
     (dx_j,) = vjp(jnp.asarray(cot))
+    if route == "card":
+        monkeypatch.setattr(t_spmm, "_on_card", lambda t: True)
     xt = torch.from_numpy(x).requires_grad_(True)
     ek.reset_launches()
-    out_t = t_spmm.propagate(t, xt, use_pallas=use_pallas)
+    out_t = t_spmm.propagate(t, xt)
     out_t.backward(torch.from_numpy(cot))
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), rtol=1e-5, atol=1e-6)
     tr_j = j_spmm.propagate_transpose(j, jnp.asarray(cot))
-    tr_t = t_spmm.propagate_transpose(t, torch.from_numpy(cot), use_pallas=use_pallas)
+    tr_t = t_spmm.propagate_transpose(t, torch.from_numpy(cot))
     np.testing.assert_allclose(tr_t.numpy(), np.asarray(tr_j), rtol=1e-5, atol=1e-6)
     aff_j = j_spmm.propagate_affine(j, jnp.asarray(x), 0.7, -0.3)
     aff_t = t_spmm.propagate_affine(t, torch.from_numpy(x), 0.7, -0.3)
@@ -478,8 +487,9 @@ def _leaves(tree, path=()):
 
 
 @pytest.mark.parametrize("level", [1, 2, 3])
-def test_model_forward_and_gradients_match_jax_on_ell(ngram_graphs, level):
+def test_model_forward_and_gradients_match_jax_on_ell(monkeypatch, ngram_graphs, level):
     jg, tg = ngram_graphs
+    monkeypatch.setattr(t_spmm, "_on_card", lambda t: True)  # the kernels' entry points
     j_dev = jg[level - 1].to_device(mode="ell")
     t_dev = tg[level - 1].to_device(mode="pallas", device="cpu")
     assert t_dev.route == "ell"
@@ -491,7 +501,7 @@ def test_model_forward_and_gradients_match_jax_on_ell(ngram_graphs, level):
                   one_gram_dim=dims[0] if level == 1 else 0, max_pe_len=16, dropout=0.0,
                   decoder_dropout=0.0)
     jcfg = j_model.DirectGCNConfig(**common)
-    tcfg = t_model.DirectGCNConfig(**common, use_pallas=True)
+    tcfg = t_model.DirectGCNConfig(**common)
     rng = np.random.default_rng(level)
     x = rng.normal(size=(n, dims[0])).astype(np.float32)
     r_ls = rng.normal(size=(n, 5)).astype(np.float32)

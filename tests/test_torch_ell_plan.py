@@ -30,8 +30,6 @@ ROWS = (1, 21, 441, 1003, 8_401, 167_325)
 N_INS = (1, 5_000, 167_325)  # x of at most 16 MB or more at every F below
 KS = (0, 1, 4, 44, 150, 300)
 WIDTHS = (1, 3, 4, 37, 64, 100, 128, 256, 512)
-# The plans chip_smoke.py sweeps (threads a block x feature-tile bytes).
-VARIANTS = [(t, b) for t in (128, 256, 512) for b in (128, 256)]
 
 
 def _covered_once(n: int, blocks: int, per_block: int) -> bool:
@@ -55,17 +53,15 @@ def _entry_point_takes(plan: ek.LaunchPlan, n_out: int, k: int, f: int) -> bool:
             and plan.grid[1] <= 65_535)
 
 
-@pytest.mark.parametrize("variant", [None] + VARIANTS, ids=lambda v: "default" if v is None
-                         else f"{v[0]}x{v[1]}")
+@pytest.mark.parametrize("f", WIDTHS)
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
-def test_launch_plan(aligned, variant):
-    kw = {} if variant is None else {"threads": variant[0], "tile_bytes": variant[1]}
-    for n_out, k, f, n_in in itertools.product(ROWS, KS, WIDTHS, N_INS):
+def test_launch_plan(aligned, f):
+    for n_out, k, n_in in itertools.product(ROWS, KS, N_INS):
         small = n_in * f * 4 <= ek.SMALL_TABLE_BYTES
-        tile_bytes = kw.get("tile_bytes", ek.SMALL_TABLE_TILE_BYTES if small else ek.TILE_BYTES)
-        threads = kw.get("threads", ek.SMALL_TABLE_THREADS if small else ek.THREADS)
-        plan = ek.launch_plan(n_out, k, f, aligned, n_in, **kw)
-        where = f"N_out={n_out} K={k} F={f} N_in={n_in} aligned={aligned} {kw}: {plan}"
+        tile_bytes = ek.SMALL_TABLE_TILE_BYTES if small else ek.TILE_BYTES
+        threads = ek.SMALL_TABLE_THREADS if small else ek.THREADS
+        plan = ek.launch_plan(n_out, k, f, aligned, n_in)
+        where = f"N_out={n_out} K={k} F={f} N_in={n_in} aligned={aligned}: {plan}"
         assert plan.v == (4 if aligned and f % 4 == 0 else 1), where
         assert _entry_point_takes(plan, n_out, k, f), where
         # Thread t of block (bx, by): row bx * rows + t // ct, chunk by * ct + t % ct.
@@ -154,17 +150,19 @@ def test_wrapper_passes_the_plan_and_counts_by_v(monkeypatch):
     ek._launch_cuda("ell_resident", idx, w, aligned, "fwd")
     ek._launch_cuda("ell_resident", idx, w, shifted, "bwd")
     ek._launch_cuda("ell_hbm", idx, w, torch.zeros(5000, 37), "fwd")
-    plan = ek.launch_plan(1003, 150, 256, True, 1 << 20, threads=256, tile_bytes=64)
-    ek._launch_cuda("ell_hbm", idx, w, aligned, "fwd", plan)
+    large = torch.zeros(120_000, 37)  # 17.8 MB: past SMALL_TABLE_BYTES
+    ek._launch_cuda("ell_hbm", idx, w, large, "fwd")
+    plan = ek.launch_plan(1003, 150, 37, True, 120_000)
+    assert plan.stream_hints and plan.threads == ek.THREADS
     want = [("ell_resident_f32", 256, ek.launch_plan(1003, 150, 256, True, 5000)),
             ("ell_resident_f32", 256, ek.launch_plan(1003, 150, 256, False, 5000)),
             ("ell_hbm_f32", 37, ek.launch_plan(1003, 150, 37, True, 5000)),
-            ("ell_hbm_f32", 256, plan)]
+            ("ell_hbm_f32", 37, plan)]
     assert fake.calls == [(n, (1003, 150, f, p.v, p.ct, p.rows, p.kc, *p.grid))
                           for n, f, p in want]
     # ..., the plan, the streaming hints (a large table only), the stream
     assert [a[-2] for a in fake.args] == [0, 0, 0, 1]
-    assert ek.launch_counts_by_v() == {"ell_resident": {4: 1, 1: 1}, "ell_hbm": {1: 1, 4: 1}}
+    assert ek.launch_counts_by_v() == {"ell_resident": {4: 1, 1: 1}, "ell_hbm": {1: 2}}
     assert ek.launch_counts() == {"ell_resident": {"fwd": 1, "bwd": 1},
                                   "ell_hbm": {"fwd": 2, "bwd": 0}}
     ek.reset_launches()

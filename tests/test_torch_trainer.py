@@ -20,6 +20,7 @@ from protgram_directgcn_torch.__main__ import main as t_main
 from protgram_directgcn_torch.config import Config as TConfig
 from protgram_directgcn_torch.graph.builder import NgramGraphBuilder as TBuilder
 from protgram_directgcn_torch.models import directgcn as t_model
+from protgram_directgcn_torch.ops import spmm as t_spmm
 from protgram_directgcn_torch.pipeline import trainer as t_trainer
 from protgram_directgcn_torch.pipeline.labels import next_node_labels
 from protgram_directgcn_torch.utils.io import parse_fasta
@@ -53,10 +54,13 @@ def _leaves(tree, path=()):
 
 @pytest.mark.parametrize("kind", ["dense", "hypercube", "ell"])
 @pytest.mark.parametrize("l2_lambda,wd", [(1e-3, 0.0), (0.0, 1e-2)])
-def test_three_train_steps_match(graphs, kind, l2_lambda, wd):
+def test_three_train_steps_match(monkeypatch, graphs, kind, l2_lambda, wd):
     """"ell": the port under spmm_mode="pallas" (ELL operators through the
-    kernels' entry points) against the JAX package under spmm_mode="ell"."""
+    kernels' entry points, ``spmm._on_card`` made true) against the JAX
+    package under spmm_mode="ell"."""
     jg, tg = graphs
+    if kind == "ell":
+        monkeypatch.setattr(t_spmm, "_on_card", lambda t: True)
     level = 1 if kind == "dense" else 3
     j_dev = jg[level - 1].to_device(mode=kind)
     t_dev = tg[level - 1].to_device(mode="pallas" if kind == "ell" else kind, device="cpu")
@@ -66,7 +70,7 @@ def test_three_train_steps_match(graphs, kind, l2_lambda, wd):
                   one_gram_dim=dims[0] if level == 1 else 0, max_pe_len=8,
                   dropout=0.0, decoder_dropout=0.0)
     jcfg = j_model.DirectGCNConfig(**common)
-    tcfg = t_model.DirectGCNConfig(**common, use_pallas=kind == "ell")
+    tcfg = t_model.DirectGCNConfig(**common)
     rng = np.random.default_rng(level)
     x = rng.normal(size=(n, dims[0])).astype(np.float32)
     y = np.zeros(n, np.int64)
