@@ -30,10 +30,11 @@ Phases, each printing one JSON line as it ends:
    ``gcn.spmm_mode=pallas`` (ELL operators at every level), n = 1..4, 30
    epochs a level (so that the n = 4 level's step time, ``level4_step_seconds``,
    is not mostly the first step's warm-up)
-   (``gcn.use_cluster_training=false``: the n = 4 level trains full batch;
-   ``gcn.default_task_type=closest_aa`` for the n = 4 level, whose default
-   task, Louvain communities, is not ported; ``next_node`` there would need
-   a [N, N] decoder output, 150 GB at 194,481 nodes),
+   (``gcn.use_cluster_training=false``: the n = 4 level trains full batch,
+   the step this phase times; ``gcn.default_task_type=closest_aa`` for the
+   n = 4 level, so that its step is not the cluster path's;
+   ``next_node`` there would need a [N, N] decoder output, 112 GB at
+   167,325 nodes),
    with the ELL kernels' launch counts set to 0 before and read after:
    levels 1-3 must run ``ell_resident`` and level 4 ``ell_hbm``, forward and
    backward;
@@ -51,25 +52,40 @@ Phases, each printing one JSON line as it ends:
    "ell" and "bucketed" build) launching the kernels forward and backward
    and never the plain version;
 6. ell reference: phase 3 on ELL operators through the ELL kernels;
-7. tier reference: phase 3 at memory tiers 1, 2 and 3 (remat; bf16 compute
+7. cluster path: the same entry point on the same FASTA with
+   ``gcn.spmm_mode=pallas`` at n = 1..4, 5 epochs a level, and every other
+   knob at its default: n <= 3 full batch through ``ell_resident``; the
+   n = 4 level (167,325 nodes, above ``cluster_training_threshold_nodes``)
+   on its default task, Louvain communities (the C++ sweep), and on
+   Cluster-GCN batches (335 BFS clusters of at most 500 nodes, dense
+   [budget, budget] blocks, device-resident), its eval pass through
+   ``ell_hbm``; the pooled embeddings and their 64-column PCA written
+   (``.npz`` where h5py is absent) and read back; the Louvain, batch build
+   and n = 4 step times;
+8. louvain: the C++ Louvain sweep against the numpy sweep on the n = 3
+   graph (8,401 nodes): byte-equal labels, both times;
+9. cluster reference: one train step's loss and gradients on three n = 4
+   batches of each block format (dense, and padded ELL through
+   ``ell_resident``), card against the port's CPU path;
+10. tier reference: phase 3 at memory tiers 1, 2 and 3 (remat; bf16 compute
    and node tables; per-path remat with the packed carry, so pack and
    unpack run on the card), card against the port's CPU path;
-8. retile kernels: pack and unpack at the 5-gram tier-3 carry (A = 21,
+11. retile kernels: pack and unpack at the 5-gram tier-3 carry (A = 21,
    G = 194,481 padded to 194,482, f = 64), float32 and bfloat16, the
    exact-width and the 128-padded pack input, forward and the autograd
    backward, held bit for bit against their plain versions; timed like
    K1/K2, beside one PyTorch call of the same function;
-9. tier path: the entry point with ``graph_builder.ngram_max_n=5``, dims
+12. tier path: the entry point with ``graph_builder.ngram_max_n=5``, dims
    [256, 128, 64], ``gcn.default_task_type=closest_aa`` and the plan's
    device budget pinned to 32 GiB (``HierarchicalTrainer._hbm_override``),
    at which the plan keeps n = 1..4 at tier 0 and puts the 5-gram level
    (4,084,101 hypercube nodes) at tier 3; each level's plan and peak
    device allocation, and K1/K2/pack/unpack launches in the n = 5 level's
    training;
-10. tier plan from free memory: the 5-gram level trained again through
+13. tier plan from free memory: the 5-gram level trained again through
    ``HierarchicalTrainer.train_level`` with no pin, at the tier the plan
    picks from the card's real free memory; its plan, each tier's residency
-   estimate and the measured peak beside the tier-3 peak of phase 9.
+   estimate and the measured peak beside the tier-3 peak of phase 12.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -102,6 +118,7 @@ RAGGED_SHAPES = [((26, 676, 100), "bfloat16"), ((26, 676, 37), "float32")]
 MISALIGNED_SHAPE = (21, 441, 256)  # x a contiguous view one element past an aligned start
 ELL_WIDTHS = (64, 128, 256)
 ELL_PATH_EPOCHS = 30  # epochs a level on the ell path
+CLUSTER_PATH_EPOCHS = 5
 RETILE_CARRY = (21, 194_481, 64)  # A, G, f: the 5-gram level's last layer at [256, 128, 64]
 TIER_N = 5
 TIER_DIMS = (256, 128, 64)
@@ -743,7 +760,187 @@ def check_reference(torch, ek, workdir: str, mode: str):
 
 
 # -----------------------------------------------------------------------------
-# Phase 7: tier reference on a small input
+# Phases 7-9: cluster path, Louvain and the cluster reference
+# -----------------------------------------------------------------------------
+
+
+def run_cluster_path(torch, ek, fasta: str, workdir: str):
+    """``--stages graph,gcn`` at n = 1..4 with ``gcn.spmm_mode=pallas`` and
+    every other knob at its default but the epochs and the PPI check:
+    n <= 3 full batch through ``ell_resident``; n = 4 (above the cluster
+    threshold, off the hypercube) on Louvain labels and Cluster-GCN batches,
+    its eval pass through ``ell_hbm``; the pooled embeddings written with
+    their PCA.  Returns (ELL launch counts, graph paths, the n = 4 level's
+    stats)."""
+    import numpy as np
+
+    from protgram_directgcn_torch.config import GCNConfig
+    from protgram_directgcn_torch.utils.io import read_embeddings
+
+    argv = ["--fasta", fasta, "--out", os.path.join(workdir, "cluster_out"),
+            "--stages", "graph,gcn",
+            "--set", "graph_builder.ngram_max_n=4",
+            "--set", "gcn.spmm_mode=pallas",
+            "--set", "gcn.hidden_layer_dims=[256,128,64]",
+            "--set", f"gcn.epochs_per_level={CLUSTER_PATH_EPOCHS}",
+            "--set", "gcn.run_sanity_check_ppi=false",
+            "--device", DEVICE]
+    ek.reset_launches()
+    result, seconds = _drive(torch, argv)
+    counts = ek.launch_counts()
+
+    defaults = GCNConfig()
+    stats = result["trainer"].level_stats
+    for n in (1, 2, 3, 4):
+        if n not in stats:
+            fail(f"cluster path: level n={n} did not train")
+        st = stats[n]
+        if not _finite(st["losses"]):
+            fail(f"cluster path: level n={n} has non-finite losses {st['losses']}")
+        emit("cluster_path_level", level=n, **st)
+    for n in (1, 2, 3):
+        st = stats[n]
+        if st["route"] != "ell" or st["task"] != "next_node":
+            fail(f"cluster path: level n={n} took {st['route']} / {st['task']}, not ell full "
+                 "batch on next_node")
+        for direction in ("fwd", "bwd"):
+            if st["launches"]["ell_resident"][direction] <= 0:
+                fail(f"cluster path: level n={n}: ell_resident {direction} was never launched")
+    st = stats[4]
+    want_clusters = min(defaults.max_clusters, max(defaults.min_clusters, -(
+        -st["nodes"] // defaults.target_nodes_per_cluster)))
+    got = (st["route"], st["block_format"], st["resident"], st["clusters"])
+    if got != ("cluster", "dense", True, want_clusters) or (
+            st["budget"] > defaults.cluster_dense_max_budget):
+        fail(f"cluster path: n = 4 took route {st['route']}, {st['clusters']} {st['block_format']} "
+             f"batches of budget {st['budget']}, resident {st['resident']}; expected "
+             f"{want_clusters} dense resident batches of budget <= "
+             f"{defaults.cluster_dense_max_budget}")
+    if st["task"] != "community" or st["num_classes"] <= 1:
+        fail(f"cluster path: n = 4 task {st['task']} with {st['num_classes']} classes")
+    if st["eval_launches"]["ell_hbm"]["fwd"] <= 0 or ek.resident_supported(st["nodes"]):
+        fail(f"cluster path: the n = 4 eval pass did not run ell_hbm ({st['eval_launches']})")
+    path = result["embeddings_path"]
+    pca = read_embeddings(path)
+    vecs = np.stack(list(pca.values()))
+    n_pooled = len(result["pooled"])
+    if (not path.rsplit("/", 1)[1].startswith(f"gcn_n4_embeddings_pca{defaults.pca_target_dim}.")
+            or len(pca) != n_pooled or vecs.shape != (n_pooled, defaults.pca_target_dim)
+            or vecs.dtype != np.float16 or not np.isfinite(vecs).all()):
+        fail(f"cluster path: PCA file {path}: {len(pca)} proteins of {n_pooled}, shape "
+             f"{vecs.shape}, {vecs.dtype}")
+    emit("cluster_path", seconds=seconds, launches=counts, level4_nodes=st["nodes"],
+         level4_clusters=st["clusters"], level4_budget=st["budget"],
+         level4_classes=st["num_classes"], louvain_seconds=st["louvain_seconds"],
+         cluster_build_seconds=st["cluster_build_seconds"],
+         level4_operator_seconds=st["operator_seconds"],
+         level4_steps=st["steps"], level4_step_seconds=st["train_seconds"] / st["steps"],
+         pca_file=path.rsplit("/", 1)[1], pca_shape=list(vecs.shape),
+         **_pooled(result, TIER_DIMS[-1]))
+    return counts, result["graphs"], st
+
+
+def check_louvain(graph_paths, level4_louvain_seconds: float):
+    """The C++ Louvain sweep against the numpy one on the n = 3 graph's
+    community adjacency (A_out + A_outᵀ, as ``community_labels`` builds
+    it): byte-equal labels; both times."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from protgram_directgcn_torch.graph import community
+    from protgram_directgcn_torch.graph.structure import load_graph
+
+    graph = load_graph(graph_paths[2])
+    n = graph.num_nodes
+    a = sp.coo_matrix((graph.weight, (graph.src, graph.tgt)), shape=(n, n)).tocsr()
+    adj = a + a.T
+    times, labels = {}, {}
+    for name, sweep in (("native", None), ("plain", community.sweep_plain)):
+        t0 = time.monotonic()
+        labels[name] = community.louvain_communities(adj, seed=42, sweep=sweep)
+        times[name] = time.monotonic() - t0
+    same = (labels["native"].dtype == labels["plain"].dtype
+            and labels["native"].tobytes() == labels["plain"].tobytes())
+    if not same:
+        fail("louvain: the C++ sweep's labels differ from the numpy sweep's on the n = 3 graph")
+    emit("louvain", level=3, nodes=n, edges=int(adj.nnz),
+         communities=int(labels["native"].max()) + 1, byte_equal=same,
+         native_seconds=times["native"], plain_seconds=times["plain"],
+         build=community.BUILD_INFO, level4_louvain_seconds=level4_louvain_seconds)
+
+
+def check_cluster_reference(torch, ek, graph_path: str, classes: int):
+    """One train step's loss and every parameter gradient on the card
+    against the same step on the CPU, from the same parameters, on three
+    n = 4 Cluster-GCN batches of each block format: dense (the default
+    ``cluster_dense_max_budget``) and padded ELL (the cap below the budget;
+    ``ell_resident`` on the card).  Dropout 0, TF32 off, rtol 1e-4 and atol
+    1e-5 x max|leaf| (``check_reference``'s tolerance)."""
+    import numpy as np
+
+    from protgram_directgcn_torch.config import Config
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.models import directgcn
+    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer, _loss_fn
+
+    graph = load_graph(graph_path)
+    n = graph.num_nodes
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((n, TIER_DIMS[-1])).astype(np.float32)
+    y = rng.integers(0, classes, n)
+    dims = (TIER_DIMS[-1],) + tuple(TIER_DIMS)
+    cfg = directgcn.DirectGCNConfig(layer_dims=dims, num_nodes=n, num_classes=classes,
+                                    n_gram_len=4, dropout=0.0, decoder_dropout=0.0)
+    params_cpu = directgcn.init_directgcn_params(torch.Generator().manual_seed(4), cfg, "cpu")
+    result = {}
+    for fmt, cap in (("dense", Config().gcn.cluster_dense_max_budget), ("ell", 0)):
+        config = Config()
+        config.gcn.cluster_dense_max_budget = cap
+        t0 = time.monotonic()
+        batches, _ = HierarchicalTrainer(config, device="cpu")._make_cluster_batches(
+            graph, x, y, config.random_state)
+        build_seconds = time.monotonic() - t0
+        if (type(batches[0].graph.p_in).__name__ == "DenseAdj") != (fmt == "dense"):
+            fail(f"cluster reference: the {fmt} cap built {type(batches[0].graph.p_in).__name__}")
+        ek.reset_launches()
+        worst, compared = 0.0, 0
+        for bi in (0, len(batches) // 2, len(batches) - 1):
+            grads = {}
+            for dev in (DEVICE, "cpu"):
+                b = batches[bi].to_device(dev)
+                params = _tree_to(torch, params_cpu, dev)
+                for p in directgcn.param_leaves(params):
+                    p.requires_grad_(True)
+                loss, _ = _loss_fn(params, b.graph, b.x, b.y, b.mask, b.weight_factor, None, cfg,
+                                   config.gcn.l2_reg_lambda, b.original_indices)
+                loss.backward()
+                grads[dev] = [loss.detach().cpu().reshape(1)] + [
+                    p.grad.cpu() for p in directgcn.param_leaves(params)]
+                del params, b, loss
+            for i, (got, ref) in enumerate(zip(grads[DEVICE], grads["cpu"])):
+                if not bool(torch.isfinite(got).all()):
+                    fail(f"cluster reference: {fmt} batch {bi} tensor {i} is not finite")
+                err = (got - ref).abs()
+                if not bool((err <= 1e-5 * max(1.0, float(ref.abs().max()))
+                             + 1e-4 * ref.abs()).all()):
+                    fail(f"cluster reference: {fmt} batch {bi} tensor {i}: card and CPU "
+                         f"disagree, max abs err {float(err.max())}")
+                worst = max(worst, float(err.max()))
+                compared += 1
+            del grads
+        counts = ek.launch_counts()
+        if fmt == "ell" and not (counts["ell_resident"]["fwd"] and counts["ell_resident"]["bwd"]):
+            fail(f"cluster reference: the ELL blocks did not run ell_resident ({counts})")
+        result[fmt] = {"clusters": len(batches), "budget": int(batches[0].x.shape[0]),
+                       "build_seconds": build_seconds, "tensors_compared": compared,
+                       "max_abs_err": worst, "ell_launches": counts}
+        del batches
+        torch.cuda.empty_cache()
+    emit("cluster_reference", level=4, nodes=n, classes=classes, **result)
+
+
+# -----------------------------------------------------------------------------
+# Phase 10: tier reference on a small input
 # -----------------------------------------------------------------------------
 
 
@@ -839,7 +1036,7 @@ def check_tier_reference(torch, rt, workdir: str):
 
 
 # -----------------------------------------------------------------------------
-# Phase 8: retile kernels
+# Phase 11: retile kernels
 # -----------------------------------------------------------------------------
 
 
@@ -928,7 +1125,7 @@ def check_retile_kernels(torch, rt):
 
 
 # -----------------------------------------------------------------------------
-# Phase 9: tier path
+# Phase 12: tier path
 # -----------------------------------------------------------------------------
 
 
@@ -1025,12 +1222,13 @@ def run_free_memory_level(torch, config, graph_path: str, tier3_peak: int):
 
 
 def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
-                  tier_counts):
+                  tier_counts, cluster_counts):
     """One entry per kernel.  K1/K2: their numbers at the main path's widest
     shape, the 5-gram shape's, and the worst error of each type over every
     shape.  ELL: their numbers at F = 256 on their level's 𝒜_in, every F
     under ``by_f``, the transpose orientation, the other operators and the
-    edge cases.  Retile: their numbers in bf16 at the 5-gram
+    edge cases; their launches on the ell path, and on the cluster path
+    under ``launches_cluster_path``.  Retile: their numbers in bf16 at the 5-gram
     carry (pack: the 128-padded input, which has a one-call library
     equivalent; the exact-width input under ``exact_width``), float32 under
     ``by_dtype``, and their launches on the tier path."""
@@ -1082,6 +1280,8 @@ def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_re
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": ell_counts[name]["fwd"] + ell_counts[name]["bwd"],
             "launches_fwd": ell_counts[name]["fwd"], "launches_bwd": ell_counts[name]["bwd"],
+            "launches_on": "ell path",
+            "launches_cluster_path": cluster_counts[name],
             "shape": {key: top[key] for key in ("level", "matrix", "n_out", "k", "n_in", "k_t",
                                                 "nnz", "f")},
             "dtype": "float32", "max_abs_err": max(top[e] for e in errs),
@@ -1190,6 +1390,10 @@ def main() -> int:
         check_ell_routing(torch, ek, graph_paths)
         check_reference(torch, ek, workdir, "ell")
         torch.cuda.empty_cache()
+        cluster_counts, cluster_graphs, level4 = run_cluster_path(torch, ek, fasta, workdir)
+        torch.cuda.empty_cache()
+        check_louvain(cluster_graphs, level4["louvain_seconds"])
+        check_cluster_reference(torch, ek, cluster_graphs[3], level4["num_classes"])
         retile_records = check_retile_kernels(torch, rt)
         tier_counts, tier_config, graph_path, tier3_peak = run_tier_path(
             torch, hk, rt, fasta, workdir)
@@ -1197,7 +1401,7 @@ def main() -> int:
         run_free_memory_level(torch, tier_config, graph_path, tier3_peak)
 
     kernels = _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
-                            tier_counts)
+                            tier_counts, cluster_counts)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -55,9 +55,9 @@ def build_config(args) -> Config:
 
 def main(argv=None):
     """Run the requested stages; returns ``{"graphs": [...], "trainer": ...,
-    "pooled": {protein_id: vector}, "seconds": {"graph": s, "gcn": s}}``
-    (trainer and pooled are None, and "gcn" absent, when only the graph stage
-    ran)."""
+    "pooled": {protein_id: vector}, "embeddings_path": the last embeddings
+    file written, "seconds": {"graph": s, "gcn": s}}`` (trainer, pooled and
+    the path are None, and "gcn" absent, when only the graph stage ran)."""
     args = parse_args(argv)
     wanted = {s.strip() for s in args.stages.split(",") if s.strip()}
     if wanted - _PORTED:
@@ -78,10 +78,11 @@ def main(argv=None):
         trainer = HierarchicalTrainer(cfg, device=args.device)
     t0 = time.monotonic()
     result = {"graphs": NgramGraphBuilder(cfg).run(), "trainer": trainer, "pooled": None,
-              "seconds": {"graph": time.monotonic() - t0}}
+              "embeddings_path": None, "seconds": {"graph": time.monotonic() - t0}}
     if trainer is not None:
         t_gcn = time.monotonic()
-        result["pooled"] = trainer.run()
+        result["embeddings_path"] = trainer.run()
+        result["pooled"] = trainer.pooled
         result["seconds"]["gcn"] = time.monotonic() - t_gcn
     logger.info("pipeline finished in %.1fs", time.monotonic() - t0)
     return result

@@ -5,9 +5,9 @@ what this slice runs (paths, graph builder, GCN trainer), and the same dotted
 ``--set`` overrides.  ``GraphBuilderConfig`` and ``GCNConfig`` keep every
 field of the JAX package, so ``--set`` lines written for it apply here; the
 trainer raises where a setting asks for a path this slice does not have
-(cluster training, whose batch fields are read by nothing yet).  Where
-``apply_pca``, ``run_sanity_check_ppi`` or ``checkpoint_every_epochs`` is
-set, the trainer logs that it does not act on it.
+(memory tier 4, ``oversize_policy``).  Where ``run_sanity_check_ppi`` or
+``checkpoint_every_epochs`` is set, the trainer logs that it does not act on
+it.
 """
 
 from __future__ import annotations

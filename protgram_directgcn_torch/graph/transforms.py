@@ -76,11 +76,14 @@ def undirected_normalized_matrix(src: np.ndarray, tgt: np.ndarray, n: int) -> sp
     if n == 0:
         return sp.csr_matrix((0, 0), dtype=np.float32)
     if len(src):
-        pairs = np.stack([src.astype(np.int64), tgt.astype(np.int64)], axis=1)
-        pairs = np.unique(pairs, axis=0)
-        sym = np.concatenate([pairs, pairs[:, ::-1]], axis=0)
-        sym = np.unique(sym, axis=0)
-        rows, cols = sym[:, 0], sym[:, 1]
+        # Unique (src, tgt) pairs in lexicographic order, as np.unique(axis=0)
+        # gives them, through the int64 key src * n + tgt (0 <= tgt < n):
+        # one integer sort in place of a row sort of pairs.
+        src, tgt = src.astype(np.int64), tgt.astype(np.int64)
+        keys = np.unique(src * n + tgt)
+        rows, cols = keys // n, keys % n
+        sym = np.unique(np.concatenate([keys, cols * n + rows]))
+        rows, cols = sym // n, sym % n
     else:
         rows = np.empty(0, dtype=np.int64)
         cols = np.empty(0, dtype=np.int64)

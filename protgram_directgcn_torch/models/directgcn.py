@@ -12,7 +12,9 @@ P(X·W_main) + P(X·W_shared) == P(X·(W_main + W_shared))), the per-path biases
 ``b_main + b_shared``, and the hierarchical gates and per-node constant.  On
 hypercube levels the carry stays in the kernels' rg layout [A, G, F] through
 every layer; per-node parameters are viewed [A, G, ·] to match (a constant
-may also be stored rg, as the trainer does on those levels).
+may also be stored rg, as the trainer does on those levels).  A Cluster-GCN
+batch passes ``original_indices``: the per-node parameters are gathered at
+the batch's node ids.
 
 The memory tiers of the trainer's plan set four fields of the config, with
 the JAX package's numerics: ``compute_dtype="bfloat16"`` runs projections,
@@ -223,11 +225,29 @@ def _rg_view(lead, t):
     return t.reshape(tuple(lead) + tuple(t.shape[-1:])) if getattr(t, "dim", lambda: 0)() == 2 else t
 
 
-def _combine_paths(p: Params, x: torch.Tensor, ic, oc, uc) -> torch.Tensor:
+def _gather_node_params(p: Params, original_indices: Optional[torch.Tensor]):
+    """The per-node gates and constant, gathered at a subgraph batch's
+    original node ids (directgcn.py:188-201; reference:
+    protgram_directgcn.py:116-128).  A constant stored rg ``[A, G, out]``
+    is flattened first.  With ``original_indices=None``, or scalar gates,
+    the tables as they are."""
+    if original_indices is not None and p["c_in"].dim() == 2:
+        gates = tuple(p[n][original_indices] for n in _GATES)
+        const = p["constant"]
+        if const is not None and const.dim() == 3:
+            const = const.reshape(-1, const.shape[-1])
+        const = const[original_indices] if const is not None else 0.0
+    else:
+        gates = tuple(p[n] for n in _GATES)
+        const = p["constant"] if p["constant"] is not None else 0.0
+    return gates, const
+
+
+def _combine_paths(p: Params, x: torch.Tensor, ic, oc, uc,
+                   original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Hierarchical gating + per-node constant
     (reference combine: protgram_directgcn.py:131-135)."""
-    c_in, c_out, c_dir, c_und, c_all = (p[n] for n in _GATES)
-    const = p["constant"] if p["constant"] is not None else 0.0
+    (c_in, c_out, c_dir, c_und, c_all), const = _gather_node_params(p, original_indices)
     if x.dim() == 3:
         lead = x.shape[:2]
         c_in, c_out, c_dir, c_und, c_all, const = (
@@ -237,13 +257,15 @@ def _combine_paths(p: Params, x: torch.Tensor, ic, oc, uc) -> torch.Tensor:
     return c_all * (undirected + directed) + const
 
 
-def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig) -> torch.Tensor:
+def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig,
+                 original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused DirectGCN layer (reference forward: protgram_directgcn.py:93-135;
-    JAX directgcn.py:206-296)."""
+    JAX directgcn.py:206-296).  ``original_indices``: a subgraph batch's
+    node ids in the level's node space (Cluster-GCN), or None."""
     ct = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else x.dtype
     xc = x.to(ct)
     if x.dim() == 3 and cfg.remat_paths:
-        return _layer_paths_remat(p, graph, xc, cfg, ct)
+        return _layer_paths_remat(p, graph, xc, cfg, ct, original_indices)
     x_in = xc @ (p["w_main_in"] + p["w_shared"]).to(ct)
     x_out = xc @ (p["w_main_out"] + p["w_shared"]).to(ct)
     x_und = xc @ (p["w_und"] + p["w_shared"]).to(ct)
@@ -253,11 +275,12 @@ def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig) -> tor
     ic = pi + (p["b_main_in"] + p["b_shared_in"]).to(ct)
     oc = po + (p["b_main_out"] + p["b_shared_out"]).to(ct)
     uc = pu + (p["b_und"] + p["b_shared_und"]).to(ct)
-    return _combine_paths(p, x, ic, oc, uc)
+    return _combine_paths(p, x, ic, oc, uc, original_indices)
 
 
 def _layer_paths_remat(p: Params, graph, xc: torch.Tensor, cfg: DirectGCNConfig,
-                       ct: torch.dtype) -> torch.Tensor:
+                       ct: torch.dtype,
+                       original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
     """rg-layout layer with each gated path recomputed on its own
     (directgcn.py:299-430):
 
@@ -267,11 +290,11 @@ def _layer_paths_remat(p: Params, graph, xc: torch.Tensor, cfg: DirectGCNConfig,
     The gate product is folded into each path's checkpoint, so the backward
     needs one path's propagated output at a time for its gate gradient."""
     lead = xc.shape[:2]
-    c_in, c_out, c_dir, c_und, c_all = (p[n] for n in _GATES)
+    (c_in, c_out, c_dir, c_und, c_all), const = _gather_node_params(p, original_indices)
     gate_in = _rg_view(lead, c_dir * c_all * c_in)
     gate_out = _rg_view(lead, c_dir * c_all * c_out)
     gate_und = _rg_view(lead, c_und * c_all)
-    const = _rg_view(lead, p["constant"]) if p["constant"] is not None else 0.0
+    const = _rg_view(lead, const)
 
     def path(adj):
         def contrib(w, b, gate, xv):
@@ -307,18 +330,20 @@ def dropout_seeds(gen: Optional[torch.Generator], count: int) -> List[Optional[i
 
 def apply_layers(params: Params, graph, h: torch.Tensor, cfg: DirectGCNConfig, *,
                  train: bool, seeds: Sequence[Optional[int]],
-                 rg_lead: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                 rg_lead: Optional[Tuple[int, int]] = None,
+                 original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The GCN stack on a flat or rg carry: layer, residual, leaky ReLU,
     dropout (directgcn.py:512-581).  Under ``cfg.remat_paths`` an rg carry
     of a width in ``retile.WIDTHS`` leaves a layer packed, and the next
-    layer (or the caller) unpacks it."""
+    layer (or the caller) unpacks it.  ``original_indices``: see
+    :func:`_layer_apply`."""
     ct = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     pack = cfg.remat_paths and rg_lead is not None
 
     def layer_block(layer_p, rp, hh, seed):
         if pack:
             hh = unpack_rg_carry(hh, layer_p["w_main_in"].shape[0], rg_lead[1])
-        gcn_out = _layer_apply(layer_p, graph, hh, cfg)
+        gcn_out = _layer_apply(layer_p, graph, hh, cfg, original_indices)
         # Residual weights cast to the carry type (directgcn.py:547-551).
         res_out = hh if rp is None else hh @ rp["w"].to(hh.dtype) + rp["b"].to(hh.dtype)
         # Pack before the activation tail: packing is a permutation with zero
@@ -365,6 +390,7 @@ def _apply_pe(params: Params, x: torch.Tensor, cfg: DirectGCNConfig) -> torch.Te
 
 def directgcn_apply(params: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig, *,
                     train: bool = False, gen: Optional[torch.Generator] = None,
+                    original_indices: Optional[torch.Tensor] = None,
                     flatten_rg: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (log_softmax logits, L2-normalised embeddings)
     (reference: protgram_directgcn.py:195-222).
@@ -374,17 +400,22 @@ def directgcn_apply(params: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig
     ``flatten_rg=False`` returns rg outputs, which the training loss uses.
     ``gen`` draws the dropout masks' seeds when ``train``.  The embeddings
     are f32; the log-softmax, computed in f32, is stored in the carry type.
+    ``original_indices`` (a Cluster-GCN batch: ``graph`` is the batch's
+    subgraph, ``x`` its flat rows) gathers the per-node parameters at the
+    batch's node ids in the level's node space.
     """
     h = _apply_pe(params, x, cfg)
     rg_lead = None
-    if h.dim() == 3:
+    if original_indices is None and h.dim() == 3:
         rg_lead = tuple(h.shape[:2])
-    elif isinstance(graph.p_in, HypercubeAdj) and h.shape[0] == graph.p_in.n_out:
+    elif (original_indices is None and isinstance(graph.p_in, HypercubeAdj)
+          and h.shape[0] == graph.p_in.n_out):
         rg_lead = graph.p_in.feature_shape
         h = h.reshape(rg_lead + tuple(h.shape[-1:]))
     n_layers = len(params["layers"])
     seeds = dropout_seeds(gen if train else None, n_layers + 1)
-    h = apply_layers(params, graph, h, cfg, train=train, seeds=seeds, rg_lead=rg_lead)
+    h = apply_layers(params, graph, h, cfg, train=train, seeds=seeds, rg_lead=rg_lead,
+                     original_indices=original_indices)
     if rg_lead is not None:
         h = unpack_rg_carry(h, cfg.layer_dims[-1], rg_lead[1])
     logits = apply_decoder(params["decoder"], h, cfg, train=train, seed=seeds[-1])

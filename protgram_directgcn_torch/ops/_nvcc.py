@@ -1,13 +1,14 @@
-"""Build a CUDA source of ``csrc/`` into a plain-C shared library, and the
+"""Build a source of ``csrc/`` into a plain-C shared library, and the
 checks every kernel wrapper shares.
 
-``compile_source(name)`` runs ``nvcc`` for ``sm_90a`` on ``csrc/<name>.cu``
-into ``_build/lib<name>_<hash>.so`` (gitignored), keyed by the hash of the
-source and the flags, so a library is built once per source version.  The
-kernel modules load the result with ``ctypes`` and declare its argument
-types themselves (``c_void_p`` for every pointer and the stream).  Sources
-include no PyTorch header, so a build takes seconds.  Builds of different
-sources may run at the same time (``subprocess`` releases the GIL).
+``compile_source(name)`` runs ``nvcc`` for ``sm_90a`` on ``csrc/<name>.cu``,
+and ``compile_host_source(name)`` runs ``g++`` on the host code
+``csrc/<name>.cpp``, into ``_build/lib<name>_<hash>.so`` (gitignored), keyed
+by the hash of the source and the flags, so a library is built once per
+source version.  The modules load the result with ``ctypes`` and declare its
+argument types themselves (``c_void_p`` for every pointer and the stream).
+Sources include no PyTorch header, so a build takes seconds.  Builds of
+different sources may run at the same time (``subprocess`` releases the GIL).
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Host code: no FMA contraction and no fast-math, so that float64 sums and
+# products round as numpy's do.
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
 
 def nvcc() -> str:
@@ -44,15 +48,28 @@ def nvcc() -> str:
 
 
 def compile_source(name: str) -> Dict[str, object]:
-    """Compile ``csrc/<name>.cu`` unless a library for its hash exists.
+    """Compile ``csrc/<name>.cu`` with nvcc unless a library for its hash
+    exists.
 
     Returns ``{"path", "seconds", "built", "log"}``: ``seconds`` is the nvcc
     wall time (0 when the library already existed) and ``log`` the
     compiler's output (ptxas register/shared-memory report).
     """
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    return _compile(CSRC / f"{name}.cu", nvcc(), NVCC_FLAGS)
+
+
+def compile_host_source(name: str) -> Dict[str, object]:
+    """Compile ``csrc/<name>.cpp`` with g++ (``GXX_FLAGS``) unless a library
+    for its hash exists; returns what :func:`compile_source` returns."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found (needed to build csrc/{name}.cpp)")
+    return _compile(CSRC / f"{name}.cpp", gxx, GXX_FLAGS)
+
+
+def _compile(source: Path, compiler: str, flags) -> Dict[str, object]:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    path = BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
     info: Dict[str, object] = {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
     if path.exists():
         return info
@@ -61,11 +78,12 @@ def compile_source(name: str) -> Dict[str, object]:
     os.close(fd)
     t0 = time.monotonic()
     try:
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(source)],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {source}:\n{proc.stdout}{proc.stderr}"
+                f"{os.path.basename(compiler)} failed ({proc.returncode}) on {source}:\n"
+                f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, path)
     finally:

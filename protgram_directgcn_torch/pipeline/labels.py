@@ -1,8 +1,8 @@
 """Self-supervised task labels for hierarchical GCN training.
 
-Port of protgram_directgcn_tpu/pipeline/labels.py:24-56, 71-117:
-``next_node`` and ``closest_aa``.  ``community`` (Louvain) waits for a later
-slice.
+Port of protgram_directgcn_tpu/pipeline/labels.py:24-117: ``next_node``,
+``community`` (Louvain, graph/community.py) and ``closest_aa``, the same
+labels byte for byte.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Tuple
 import numpy as np
 import scipy.sparse as sp
 
+from protgram_directgcn_torch.graph.community import louvain_communities
 from protgram_directgcn_torch.graph.structure import NgramGraph
 
 AMINO_ACID_ALPHABET = list("ACDEFGHIKLMNPQRSTVWY")
@@ -41,6 +42,20 @@ def next_node_labels(graph: NgramGraph, seed: int = 42) -> Tuple[np.ndarray, int
         chosen = (pri == best_pri[src]) & is_max
         labels[src[chosen]] = tgt[chosen]
     return labels, n
+
+
+def community_labels(graph: NgramGraph, seed: int = 42) -> Tuple[np.ndarray, int]:
+    """Louvain communities of A_in_w + A_out_w treated as undirected
+    (reference: protgram_directgcn_trainer.py:200-220)."""
+    n = graph.num_nodes
+    if n == 0:
+        return np.empty(0, dtype=np.int64), 1
+    a_out = sp.coo_matrix((graph.weight, (graph.src, graph.tgt)), shape=(n, n)).tocsr()
+    combined = a_out + a_out.T
+    if combined.nnz == 0:
+        return np.zeros(n, dtype=np.int64), 1
+    labels = louvain_communities(combined, seed=seed)
+    return labels, int(labels.max()) + 1
 
 
 def closest_aa_labels(graph: NgramGraph, k_hops: int, seed: int = 42) -> Tuple[np.ndarray, int]:
@@ -82,10 +97,8 @@ def generate_labels(graph: NgramGraph, task_type: str, k_hops: int = 3,
                     seed: int = 42) -> Tuple[np.ndarray, int]:
     if task_type == "next_node":
         return next_node_labels(graph, seed)
+    if task_type == "community":
+        return community_labels(graph, seed)
     if task_type == "closest_aa":
         return closest_aa_labels(graph, k_hops, seed)
-    if task_type == "community":
-        raise NotImplementedError(
-            f"task {task_type!r} is not ported yet (ROADMAP Queue 1); use next_node"
-        )
     raise ValueError(f"Unsupported task type: {task_type}")

@@ -1,11 +1,12 @@
 """Hierarchical DirectGCN trainer: per-n-gram-level training with feature
 cascading and protein pooling.
 
-Port of protgram_directgcn_tpu/pipeline/trainer.py:54-197, 256-278,
-1271-1374, 1396-1634, 1816-2182 (reference:
-src/pipeline/protgram_directgcn_trainer.py:68-426) for full-batch,
-single-device training.  Each level's plan (``_level_plan``) picks the first
-memory tier that fits the device, with the JAX package's ladder:
+Port of protgram_directgcn_tpu/pipeline/trainer.py:54-230, 256-278,
+1271-1374, 1396-1634, 1691-2204 (reference:
+src/pipeline/protgram_directgcn_trainer.py:68-426) for single-device
+training, full batch or on Cluster-GCN batches.  Each level's plan
+(``_level_plan``) picks the first memory tier that fits the device, with the
+JAX package's ladder:
 
 0. float32 compute and node parameters, no remat, Adam;
 1. tier 0 + remat (each layer recomputed in the backward pass);
@@ -20,10 +21,16 @@ K1/K2 hypercube operators, and the others on the format
 compute type.  ``spmm_mode="pallas"`` trains every level on ELL operators
 through the CUDA ELL kernels.
 
+A level above ``gcn.cluster_training_threshold_nodes`` trains on Cluster-GCN
+batches (``_make_cluster_batches``: BFS parts, dense or padded-ELL blocks)
+under ``gcn.use_cluster_training``, unless its operators are the hypercube
+and ``gcn.cluster_auto_fullbatch`` holds; its embeddings come from the eval
+pass on the full level.  ``run`` writes the pooled embeddings (H5 where
+h5py imports, else ``.npz``) and, under ``gcn.apply_pca``, their PCA.
+
 Not ported yet (ROADMAP Queue 1): memory tier 4 (the layer-staged step) and
-the ``oversize_policy`` beyond tier 3, cluster training, the in-training
-checkpoint/resume, and the H5/PCA export and PPI sanity check after pooling
-(their knobs log a warning).
+the ``oversize_policy`` beyond tier 3, the in-training checkpoint/resume and
+the PPI sanity check after pooling (their knobs log a warning).
 """
 
 from __future__ import annotations
@@ -31,12 +38,13 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from protgram_directgcn_torch.config import Config
+from protgram_directgcn_torch.graph.partition import partition_nodes
 from protgram_directgcn_torch.graph.structure import DeviceGraph, NgramGraph, load_graph
 from protgram_directgcn_torch.models.directgcn import (
     DirectGCNConfig,
@@ -47,6 +55,7 @@ from protgram_directgcn_torch.models.directgcn import (
 )
 from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, retile
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
+from protgram_directgcn_torch.ops.spmm import DenseAdj, EllAdj, _ell_one_sided
 from protgram_directgcn_torch.pipeline.labels import generate_labels
 from protgram_directgcn_torch.utils import embeddings as emb_utils
 from protgram_directgcn_torch.utils.device import resolve_device
@@ -55,6 +64,7 @@ from protgram_directgcn_torch.utils.io import (
     generate_regex_id_map,
     logger,
     parse_fasta,
+    write_embeddings,
 )
 
 
@@ -301,11 +311,14 @@ def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _loss_fn(params, graph, x, y, mask, weight_factor, gen, model_cfg, l2_lambda):
+def _loss_fn(params, graph, x, y, mask, weight_factor, gen, model_cfg, l2_lambda,
+             original_indices=None):
     """Masked next-node NLL plus ``l2_lambda`` times the sum of squares of
-    every parameter (in f32); returns (loss, primary)."""
+    every parameter (in f32); returns (loss, primary).  ``original_indices``:
+    a Cluster-GCN batch's node ids (the model gathers its per-node
+    parameters there)."""
     log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
-                                flatten_rg=False)
+                                original_indices=original_indices, flatten_rg=False)
     if log_sm.dim() == 3:
         # rg output: view the label/mask vectors [A, G] to match.
         y = y.reshape(log_sm.shape[:2])
@@ -317,13 +330,14 @@ def _loss_fn(params, graph, x, y, mask, weight_factor, gen, model_cfg, l2_lambda
 
 
 def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_lambda: float):
-    """One full-batch step: loss and gradients, then the optimizer update.
-    Returns (loss, primary) as computed before the update."""
+    """One step on the full level or a Cluster-GCN batch: loss and
+    gradients, then the optimizer update.  Returns (loss, primary) as
+    computed before the update."""
 
-    def step(params, graph, x, y, mask, weight_factor, gen):
+    def step(params, graph, x, y, mask, weight_factor, gen, original_indices=None):
         opt.zero_grad(set_to_none=True)
         loss, primary = _loss_fn(params, graph, x, y, mask, weight_factor, gen, model_cfg,
-                                 l2_lambda)
+                                 l2_lambda, original_indices)
         loss.backward()
         opt.step()
         return loss.detach(), primary.detach()
@@ -356,6 +370,10 @@ def _launch_counts() -> Dict[str, Dict[str, int]]:
     """Launches so far of every kernel, per direction (K1/K2, ELL, retile)."""
     return {**hyper_kernels.launch_counts(), **ell_kernels.launch_counts(),
             **retile.launch_counts()}
+
+
+def _launch_diff(before, after) -> Dict[str, Dict[str, int]]:
+    return {k: {d: after[k][d] - before[k][d] for d in after[k]} for k in after}
 
 
 # The "auto" levers of each memory tier (trainer.py:1492-1500): compute
@@ -391,10 +409,47 @@ class LevelPlan:
     residency: int
 
 
+@dataclasses.dataclass
+class ClusterBatch:
+    """One padded Cluster-GCN subgraph batch (trainer.py:1297-1321): numpy
+    arrays while host-held, tensors once ``to_device`` has copied it.  Every
+    batch of a level has the same node budget (and ELL widths)."""
+
+    graph: DeviceGraph  # DenseAdj or EllAdj blocks over the budget's nodes
+    x: Any  # [budget, F] f32, zero rows past the cluster
+    y: Any  # [budget] int32 (int64 on a device)
+    mask: Any  # [budget] f32, 1 on the cluster's nodes
+    weight_factor: float  # cluster size / level size
+    original_indices: Any  # [budget] int32 node ids in the level's node space (int64 on a device)
+
+    def to_device(self, device) -> "ClusterBatch":
+        def dev(a, dtype=None):
+            return torch.as_tensor(a).to(device=device, dtype=dtype)
+
+        def adj(m):
+            if isinstance(m, DenseAdj):
+                return DenseAdj(at=dev(m.at))
+            return EllAdj(idx=dev(m.idx), w=dev(m.w), idx_t=dev(m.idx_t), w_t=dev(m.w_t))
+
+        g = self.graph
+        return ClusterBatch(
+            graph=DeviceGraph(adj(g.p_in), adj(g.p_out), adj(g.p_und), num_nodes=g.num_nodes),
+            x=dev(self.x), y=dev(self.y, torch.int64), mask=dev(self.mask),
+            weight_factor=self.weight_factor,
+            original_indices=dev(self.original_indices, torch.int64))
+
+
+def _batch_arrays(b: ClusterBatch) -> List[np.ndarray]:
+    """A host batch's arrays, in the JAX package's tree order."""
+    mats = [b.graph.p_in, b.graph.p_out, b.graph.p_und]
+    leaves = [a for m in mats for a in ((m.at,) if isinstance(m, DenseAdj)
+                                        else (m.idx, m.w, m.idx_t, m.w_t))]
+    return leaves + [b.x, b.y, b.mask, b.original_indices]
+
+
 # Knobs that the JAX trainer acts on and this one does not yet, each with
 # the ROADMAP item that ports it.
 _UNPORTED_KNOBS = (
-    ("apply_pca", "Queue 1, item 3: export after pooling"),
     ("run_sanity_check_ppi", "Queue 1, item 10: the PPI sanity check"),
     ("checkpoint_every_epochs", "Queue 1, item 4: in-training checkpoint and resume"),
 )
@@ -421,6 +476,8 @@ class HierarchicalTrainer:
         # and the device's peak allocation.
         self.level_stats: Dict[int, dict] = {}
         self.pool_seconds = 0.0
+        # The final level's pooled {protein_id: vector} of the last run().
+        self.pooled: Optional[Dict[str, np.ndarray]] = None
 
     # ------------------------------------------------------------------
 
@@ -605,12 +662,97 @@ class HierarchicalTrainer:
         return graph.to_device(mode="auto" if mode == "hypercube" else mode, feat_dim=feat_dim,
                                dtype=dtype, device=self.device)
 
+    def _make_cluster_batches(self, graph: NgramGraph, x: np.ndarray, y: np.ndarray,
+                              seed: int, node_map: Optional[np.ndarray] = None
+                              ) -> Tuple[List[ClusterBatch], bool]:
+        """Cluster-GCN subgraph batches padded to one node budget
+        (trainer.py:1691-1815; reference: protgram_directgcn_trainer.py:152-198).
+
+        ``ceil(n / target_nodes_per_cluster)`` BFS parts of 𝒜_in + 𝒜_out
+        (clamped to [min_clusters, max_clusters]); the budget is the largest
+        part rounded up to a multiple of 8.  Blocks are dense Aᵀ
+        ``[budget, budget]`` while the budget is at most
+        ``cluster_dense_max_budget``, else padded ELL with one width per
+        matrix across the clusters.  Returns ``(batches, resident)``: the
+        batches are copied to the device while their total bytes fit
+        ``cluster_device_budget_bytes``, and stay host numpy otherwise (one
+        is copied a step)."""
+        gcn = self.gcn
+        n = graph.num_nodes
+        num_clusters = int(np.ceil(n / gcn.target_nodes_per_cluster))
+        num_clusters = min(max(gcn.min_clusters, num_clusters), gcn.max_clusters)
+        logger.info("partitioning %d nodes into %d clusters", n, num_clusters)
+
+        m_in, m_out, m_und = graph.mathcal_a_in(), graph.mathcal_a_out(), graph.undirected_norm()
+        labels = partition_nodes((m_in + m_out).tocsr(), num_clusters, method="bfs", seed=seed)
+        sizes = np.bincount(labels, minlength=num_clusters)
+        budget = -(-int(sizes.max()) // 8) * 8
+        dense = budget <= gcn.cluster_dense_max_budget
+        cluster_nodes = [nd for nd in (np.nonzero(labels == c)[0] for c in range(num_clusters))
+                         if len(nd)]
+
+        def sub_coo(m, nodes):
+            block = m[nodes][:, nodes].tocoo()
+            return (block.row.astype(np.int64), block.col.astype(np.int64),
+                    block.data.astype(np.float32))
+
+        def max_deg(m):
+            k = 0
+            for nodes in cluster_nodes:
+                r, c, _ = sub_coo(m, nodes)
+                if len(c):
+                    k = max(k, int(np.bincount(c).max()), int(np.bincount(r).max()))
+            return max(4, -(-k // 4) * 4)
+
+        # One ELL width per matrix across the clusters (trainer.py:1751-1761).
+        k_widths = [None] * 3 if dense else [max_deg(m) for m in (m_in, m_out, m_und)]
+
+        def make_adj(m, nodes, k):
+            r, c, v = sub_coo(m, nodes)
+            if dense:
+                at = np.zeros((budget, budget), np.float32)
+                np.add.at(at, (c, r), v)  # Aᵀ: aggregate at targets
+                return DenseAdj(at=at)
+            idx, w = _ell_one_sided(r, c, v, budget)
+            idx_t, w_t = _ell_one_sided(c, r, v, budget)
+            pad = lambda a: np.pad(a, ((0, 0), (0, k - a.shape[1])))  # noqa: E731
+            return EllAdj(idx=pad(idx), w=pad(w), idx_t=pad(idx_t), w_t=pad(w_t))
+
+        batches = []
+        for nodes in cluster_nodes:
+            dg = DeviceGraph(p_in=make_adj(m_in, nodes, k_widths[0]),
+                             p_out=make_adj(m_out, nodes, k_widths[1]),
+                             p_und=make_adj(m_und, nodes, k_widths[2]), num_nodes=budget)
+            x_sub = np.zeros((budget, x.shape[1]), dtype=np.float32)
+            x_sub[: len(nodes)] = x[nodes]
+            y_sub = np.zeros(budget, dtype=np.int32)
+            y_sub[: len(nodes)] = y[nodes]
+            mask = np.zeros(budget, dtype=np.float32)
+            mask[: len(nodes)] = 1.0
+            # Per-node parameters live in the level's device node space.
+            orig = np.zeros(budget, dtype=np.int32)
+            orig[: len(nodes)] = nodes if node_map is None else node_map[nodes]
+            batches.append(ClusterBatch(graph=dg, x=x_sub, y=y_sub, mask=mask,
+                                        weight_factor=float(len(nodes) / n),
+                                        original_indices=orig))
+
+        total_bytes = sum(a.nbytes for b in batches for a in _batch_arrays(b))
+        resident = total_bytes <= gcn.cluster_device_budget_bytes
+        logger.info("cluster batches: %d x budget=%d (%s blocks) = %.2f GB total -> %s",
+                    len(batches), budget, "dense" if dense else "ell", total_bytes / 1e9,
+                    "device-resident" if resident else
+                    f"host-streamed (budget {gcn.cluster_device_budget_bytes / 1e9:.2f} GB)")
+        if resident:
+            batches = [b.to_device(self.device) for b in batches]
+        return batches, resident
+
     # ------------------------------------------------------------------
 
     def train_level(self, graph: NgramGraph, x_np: np.ndarray, y_np: np.ndarray,
                     num_classes: int) -> Tuple[dict, np.ndarray, DirectGCNConfig, DeviceGraph]:
-        """Train one n-gram level full-batch; returns (params, node
-        embeddings of the real nodes, model config, device graph)."""
+        """Train one n-gram level, full batch or on Cluster-GCN batches;
+        returns (params, node embeddings of the real nodes, model config,
+        device graph of the full level)."""
         gcn = self.gcn
         dev = self.device
         n_val = graph.n
@@ -631,11 +773,6 @@ class HierarchicalTrainer:
         if use_cluster and gcn.cluster_auto_fullbatch and full_graph.route == "hypercube":
             logger.info("auto-routing n=%d to full-batch (hypercube operators built)", n_val)
             use_cluster = False
-        if use_cluster:
-            raise NotImplementedError(
-                f"level n={n_val}: cluster training ({graph.num_nodes} nodes > "
-                f"{gcn.cluster_training_threshold_nodes}) is not ported yet (ROADMAP Queue 1)"
-            )
 
         def pad_nodes(arr: np.ndarray) -> np.ndarray:
             """Scatter real-node rows into the device graph's node space."""
@@ -681,32 +818,68 @@ class HierarchicalTrainer:
         drop_gen = torch.Generator().manual_seed(
             self.config.random_state * 7919 + n_val)
 
-        # The input in the compute type (trainer.py:2031-2032), rg on the hypercube.
-        x = torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev).to(
-            torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32)
-        if full_graph.route == "hypercube":
-            x = x.reshape(full_graph.p_in.feature_shape + (feat_dim,))
-        y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
-        mask = torch.from_numpy(pad_nodes(np.ones(graph.num_nodes, dtype=np.float32))).to(dev)
-
-        launches0 = _launch_counts()
-        losses = []
-        t0 = time.monotonic()
-        for epoch in range(1, gcn.epochs_per_level + 1):
-            loss, _ = step(params, full_graph, x, y, mask, 1.0, drop_gen)
-            loss_val = float(loss)
-            losses.append(loss_val)
+        def end_epoch(epoch: int, loss: float) -> bool:
+            """Step the plateau scheduler; True where early stopping ends the level."""
             if sched is not None:
-                set_learning_rate(opt, sched.step(loss_val))
-            if stopper is not None and stopper.should_stop(loss_val):
+                set_learning_rate(opt, sched.step(loss))
+            if stopper is not None and stopper.should_stop(loss):
                 logger.info("early stop at epoch %d (best %.5f)", epoch, stopper.best_loss)
-                break
+                return True
+            return False
+
+        stats: Dict[str, Any] = {"route": "cluster" if use_cluster else full_graph.route}
+        losses: List[float] = []
+        if use_cluster:
+            t_build = time.monotonic()
+            batches, resident = self._make_cluster_batches(
+                graph, x_np, y_np, self.config.random_state, node_map=node_map)
+            stats.update(clusters=len(batches), budget=int(batches[0].x.shape[0]),
+                         block_format=("dense" if isinstance(batches[0].graph.p_in, DenseAdj)
+                                       else "ell"),
+                         resident=resident, cluster_build_seconds=time.monotonic() - t_build)
+            shuffle_rng = np.random.default_rng(self.config.random_state + n_val)
+            launches0 = _launch_counts()
+            t0 = time.monotonic()
+            for epoch in range(1, gcn.epochs_per_level + 1):
+                batch_losses = []
+                for bi in shuffle_rng.permutation(len(batches)):
+                    # Streaming: this batch alone is copied to the device.
+                    b = batches[bi] if resident else batches[bi].to_device(dev)
+                    batch_losses.append(step(params, b.graph, b.x, b.y, b.mask, b.weight_factor,
+                                             drop_gen, b.original_indices)[0])
+                # One read-back an epoch, summed in batch order as the JAX
+                # loop sums float(loss) of each batch (trainer.py:2000-2005).
+                epoch_loss = 0.0
+                for v in torch.stack(batch_losses).tolist():
+                    epoch_loss += v
+                losses.append(epoch_loss / len(batches))
+                if end_epoch(epoch, losses[-1]):
+                    break
+            stats["steps"] = len(losses) * len(batches)
+            del batches
+        else:
+            # The input in the compute type (trainer.py:2031-2032), rg on the hypercube.
+            x = torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev).to(
+                torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32)
+            if full_graph.route == "hypercube":
+                x = x.reshape(full_graph.p_in.feature_shape + (feat_dim,))
+            y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
+            mask = torch.from_numpy(pad_nodes(np.ones(graph.num_nodes, dtype=np.float32))).to(dev)
+            launches0 = _launch_counts()
+            t0 = time.monotonic()
+            for epoch in range(1, gcn.epochs_per_level + 1):
+                loss, _ = step(params, full_graph, x, y, mask, 1.0, drop_gen)
+                losses.append(float(loss))
+                if end_epoch(epoch, losses[-1]):
+                    break
+            stats["steps"] = len(losses)
+            del x
         seconds = time.monotonic() - t0
         launches1 = _launch_counts()
-        logger.info("n=%d full-batch training on %s (%s): %d epochs in %.2fs (final loss %.5f)",
-                    n_val, dev, full_graph.route, len(losses), seconds,
-                    losses[-1] if losses else float("nan"))
-        del x, opt, step
+        logger.info("n=%d %s training on %s (%s operators): %d epochs in %.2fs "
+                    "(final loss %.5f)", n_val, stats["route"], dev, full_graph.route,
+                    len(losses), seconds, losses[-1] if losses else float("nan"))
+        del opt, step
 
         # Eval-mode embeddings on the full graph (reference: models_utils.py:264-273).
         t_eval = time.monotonic()
@@ -718,8 +891,9 @@ class HierarchicalTrainer:
         if node_map is not None:
             embeds = embeds[node_map]
         eval_seconds = time.monotonic() - t_eval
+        launches2 = _launch_counts()
         self.level_stats[n_val] = {
-            "route": full_graph.route,
+            **stats,
             "plan": dataclasses.asdict(plan),
             "nodes": graph.num_nodes,
             "device_nodes": total_nodes,
@@ -728,8 +902,9 @@ class HierarchicalTrainer:
             "operator_seconds": operator_seconds,  # host build + copy of the operators
             "train_seconds": seconds,
             "eval_seconds": eval_seconds,  # eval pass and copy of the embeddings to the host
-            "launches": {k: {d: launches1[k][d] - launches0[k][d] for d in launches1[k]}
-                         for k in launches1},
+            # Training's kernel launches, and the eval pass's.
+            "launches": _launch_diff(launches0, launches1),
+            "eval_launches": _launch_diff(launches1, launches2),
             # From the operators' build to the eval pass (None off the card).
             "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else None),
@@ -748,12 +923,17 @@ class HierarchicalTrainer:
 
     def run(self, fasta_path: Optional[os.PathLike] = None,
             graphs_dir: Optional[os.PathLike] = None,
-            output_dir: Optional[os.PathLike] = None) -> Optional[Dict[str, np.ndarray]]:
+            output_dir: Optional[os.PathLike] = None) -> Optional[str]:
         """Train every level, cascade features, checkpoint each level's
-        embeddings to ``level_{n}.npz`` (and resume from them), and return the
-        final level's embeddings mean-pooled per protein."""
+        embeddings to ``level_{n}.npz`` (and resume from them), mean-pool the
+        final level's embeddings per protein (kept as ``self.pooled``), and
+        write them to ``gcn_n{n}_embeddings`` and, under ``gcn.apply_pca``,
+        their PCA to ``gcn_n{n}_embeddings_pca{dim}`` (``.h5``, or ``.npz``
+        where h5py is absent) (trainer.py:2164-2204).  Returns the path of
+        the last file written, or None when the final level is missing."""
         cfg = self.config
         self._warn_unported_knobs()
+        self.pooled = None
         fasta_path = fasta_path or cfg.paths.input_fasta
         graphs_dir = graphs_dir or cfg.paths.graph_objects_dir
         output_dir = ensure_dir(output_dir or cfg.paths.gcn_embeddings_dir)
@@ -796,15 +976,21 @@ class HierarchicalTrainer:
                 logger.error("previous level embeddings missing for n=%d; skipping", n_val)
                 continue
             x = self._initial_features(graph, prev_vocab, prev_embeds, cfg.random_state + n_val)
+            t_labels = time.monotonic()
             y, num_classes = generate_labels(graph, task, self.gcn.closest_aa_k_hops,
                                              cfg.random_state)
+            label_seconds = time.monotonic() - t_labels
             # Keep only the embeddings: the level's operators and parameters
             # leave the device before the next level.
             embeds = self.train_level(graph, x, y, num_classes)[1]
             level_embeds[n_val] = embeds
             np.savez_compressed(ckpt_path, embeddings=embeds)
+            st = self.level_stats[n_val]
+            st.update(task=task, num_classes=num_classes)
+            if task == "community":
+                st["louvain_seconds"] = label_seconds
             # Features, labels, operators, training, eval pass and checkpoint.
-            self.level_stats[n_val]["level_seconds"] = time.monotonic() - t_level
+            st["level_seconds"] = time.monotonic() - t_level
 
         if n_max not in level_embeds or level_embeds[n_max].size == 0:
             logger.error("final level n=%d embeddings missing; cannot pool", n_max)
@@ -820,5 +1006,15 @@ class HierarchicalTrainer:
         if self.id_map:
             pooled = {self.id_map.get(k, k): v for k, v in pooled.items()}
         self.pool_seconds = time.monotonic() - t_pool
-        logger.info("pooled n=%d embeddings for %d proteins", n_max, len(pooled))
-        return pooled
+        self.pooled = pooled
+        final_path = write_embeddings(
+            os.path.join(str(output_dir), f"gcn_n{n_max}_embeddings.h5"), pooled)
+        logger.info("primary embeddings saved to %s (%d proteins)", final_path, len(pooled))
+        if self.gcn.apply_pca and pooled:
+            pca = emb_utils.apply_pca(pooled, self.gcn.pca_target_dim)
+            if pca:
+                dim = next(iter(pca.values())).shape[0]
+                final_path = write_embeddings(
+                    os.path.join(str(output_dir), f"gcn_n{n_max}_embeddings_pca{dim}.h5"), pca)
+                logger.info("PCA embeddings saved to %s", final_path)
+        return final_path

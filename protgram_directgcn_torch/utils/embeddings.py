@@ -1,8 +1,9 @@
-"""Pooling of n-gram embeddings to proteins.
+"""Pooling of n-gram embeddings to proteins, and their PCA.
 
-Port of protgram_directgcn_tpu/utils/embeddings.py:67
-(reference: models_utils.py:209-262): each protein is the mean of the
-embeddings of its in-vocabulary n-grams; proteins with none are dropped.
+Port of protgram_directgcn_tpu/utils/embeddings.py:23-55, 67
+(reference: models_utils.py:87-136, 209-262).  Pooling: each protein is the
+mean of the embeddings of its in-vocabulary n-grams; proteins with none are
+dropped.
 Vectorised over the whole corpus: n-grams are packed into uint64 keys (the
 graph builder's order-preserving packing) and looked up in the packed
 vocabulary; the per-protein sums are one sparse-dense product, so they are
@@ -11,10 +12,59 @@ added in another order than the JAX package's per-protein loop.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+import torch
+
+from protgram_directgcn_torch.utils.io import logger
+
+
+def _is_constant_feature(var: torch.Tensor, mean: torch.Tensor, n: int) -> torch.Tensor:
+    """sklearn's ``_is_constant_feature``: a variance within float64's
+    rounding of zero."""
+    eps = torch.finfo(torch.float64).eps
+    return var <= n * eps * var + (n * mean * eps) ** 2
+
+
+def apply_pca(embeddings: Dict[str, np.ndarray], target_dim: int,
+              output_dtype=np.float16) -> Optional[Dict[str, np.ndarray]]:
+    """StandardScaler then PCA to ``min(target_dim, dim, n_samples)``
+    components, float16 output (utils/embeddings.py:23-55 of the JAX
+    package, which calls sklearn).  In torch on the host, in float64: the
+    columns centred and divided by their population std (a constant column
+    by 1), then ``torch.linalg.svd``; each component's sign makes its
+    largest-magnitude loading positive (sklearn 1.9's
+    ``svd_flip(u_based_decision=False)``)."""
+    items = [(k, v.astype(np.float32)) for k, v in embeddings.items()
+             if v is not None and v.size > 0]
+    if not items:
+        logger.error("PCA: no valid embeddings provided")
+        return None
+    ids = [k for k, _ in items]
+    mat = torch.from_numpy(np.stack([v for _, v in items])).double()
+    n_samples, dim = mat.shape
+    actual = min(target_dim, dim, n_samples)
+    if actual <= 0:
+        return {k: v.astype(output_dtype) for k, v in items}
+    if actual < target_dim:
+        logger.warning("PCA: adjusted target dim %d -> %d", target_dim, actual)
+    mean = mat.mean(0)
+    var = mat.var(0, correction=0)
+    std = torch.where(_is_constant_feature(var, mean, n_samples), 1.0, var.sqrt())
+    scaled = (mat - mean) / std
+    centred = scaled - scaled.mean(0)
+    _, s, vt = torch.linalg.svd(centred, full_matrices=False)
+    rows = torch.arange(vt.shape[0])
+    vt = vt * torch.sign(vt[rows, vt.abs().argmax(1)])[:, None]
+    out = centred @ vt[:actual].T
+    total = float((s ** 2).sum())
+    explained = float((s[:actual] ** 2).sum()) / total if total else 0.0
+    logger.info("PCA %s -> %s (explained variance %.4f)", tuple(mat.shape), tuple(out.shape),
+                explained)
+    out = out.numpy().astype(output_dtype)
+    return {pid: vec for pid, vec in zip(ids, out)}
 
 
 def _pack_strings(strings: np.ndarray, n: int) -> np.ndarray:

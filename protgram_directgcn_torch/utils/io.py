@@ -1,8 +1,9 @@
-"""FASTA parsing, protein-id mapping and the package logger.
+"""FASTA parsing, protein-id mapping, the embeddings file and the package
+logger.
 
 JAX-free copy of what the slice needs from protgram_directgcn_tpu/utils/io.py
-(parse_fasta :38, the regex id map :172-287); no h5py here: H5 export waits
-for a later slice.
+(parse_fasta :38, the regex id map :172-287, write_h5_embeddings :295).
+h5py is optional: where it does not import, the embeddings go to ``.npz``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,13 @@ import os
 import re
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple, Union
+
+import numpy as np
+
+try:  # optional: absent on some machines, where write_embeddings writes .npz
+    import h5py
+except ImportError:
+    h5py = None
 
 logger = logging.getLogger("protgram_torch")
 if not logger.handlers:
@@ -104,3 +112,34 @@ def ensure_dir(path: Union[str, os.PathLike]) -> Path:
     p = Path(path)
     p.mkdir(parents=True, exist_ok=True)
     return p
+
+
+def write_embeddings(path: Union[str, os.PathLike], embeddings: Dict[str, np.ndarray]) -> str:
+    """Write ``{protein_id: vector}``, one dataset (H5) or array (``.npz``)
+    per key, and return the path written: ``path`` as H5 where h5py imports
+    (utils/io.py:295-305 of the JAX package), else ``path`` with the suffix
+    ``.npz`` (read it back with ``np.load``)."""
+    os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
+    items = {k: v for k, v in embeddings.items() if v is not None}
+    if h5py is not None:
+        with h5py.File(path, "w") as hf:
+            for key, vec in items.items():
+                hf.create_dataset(key, data=vec)
+        return str(path)
+    out = str(Path(path).with_suffix(".npz"))
+    with open(out, "wb") as f:  # np.savez would append .npz to a str path
+        np.savez(f, **items)
+    logger.info("h5py is not installed: wrote %s as .npz", out)
+    return out
+
+
+def read_embeddings(path: Union[str, os.PathLike]) -> Dict[str, np.ndarray]:
+    """``{protein_id: vector}`` from a file :func:`write_embeddings` wrote
+    (H5 needs h5py; ``.npz`` needs numpy alone)."""
+    if str(path).endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    if h5py is None:
+        raise RuntimeError(f"reading {path} needs h5py, which is not installed")
+    with h5py.File(path, "r") as hf:
+        return {k: hf[k][()] for k in hf.keys()}

@@ -122,9 +122,17 @@ def test_closest_aa_labels_match(fasta, level, k_hops):
 
 
 def test_unported_label_tasks_raise(toy_fasta):
-    _, tg = _both_graphs(toy_fasta)
-    with pytest.raises(NotImplementedError):
-        t_labels.generate_labels(tg[1], "community")
+    """The community task, which this test once found unported, now gives
+    the JAX package's Louvain labels byte for byte at every level; an
+    unknown task still raises."""
+    jg, tg = _both_graphs(toy_fasta)
+    for level in (1, 2, 3):
+        yj, cj = j_labels.generate_labels(jg[level - 1], "community", seed=7)
+        yt, ct = t_labels.generate_labels(tg[level - 1], "community", seed=7)
+        assert ct == cj
+        _same_bytes(yt, yj)
+    with pytest.raises(ValueError, match="Unsupported task type"):
+        t_labels.generate_labels(tg[1], "louvain")
 
 
 @pytest.mark.parametrize("n_val", [1, 2, 3])

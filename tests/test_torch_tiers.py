@@ -680,7 +680,9 @@ def test_train_level_gives_the_format_the_widest_layer(graphs):
 ])
 def test_unported_knobs_warn(tmp_path, caplog, knob, value, item):
     """Satellite repair: a knob the trainer does not act on logs one
-    warning naming its ROADMAP item, and nothing when it is off."""
+    warning naming its ROADMAP item, and nothing when it is off.
+    ``apply_pca`` (ROADMAP Queue 1 item 3) is ported: it writes the PCA
+    file of a real run and logs no such warning."""
     cfg = TConfig()
     for k in ("apply_pca", "run_sanity_check_ppi", "checkpoint_every_epochs"):
         setattr(cfg.gcn, k, 0 if k == "checkpoint_every_epochs" else False)
@@ -688,12 +690,24 @@ def test_unported_knobs_warn(tmp_path, caplog, knob, value, item):
     cfg.paths.base_output_dir = tmp_path
     cfg.id_mapping_mode = "none"
     cfg.graph_builder.ngram_max_n = 1
+    ported = knob == "apply_pca"
+    fasta = tmp_path / "absent.fasta"
+    if ported:
+        fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=30, lo=10, hi=40)
+        cfg.apply_overrides({"gcn.hidden_layer_dims": [8], "gcn.one_gram_init_dim": 8,
+                             "gcn.epochs_per_level": 1})
+        TBuilder(cfg).run(fasta, cfg.paths.graph_objects_dir)
     t_logger.addHandler(caplog.handler)
     try:
         with caplog.at_level(logging.WARNING):
-            assert t_trainer.HierarchicalTrainer(cfg, device="cpu").run(
-                fasta_path=tmp_path / "absent.fasta") is None
+            path = t_trainer.HierarchicalTrainer(cfg, device="cpu").run(fasta_path=fasta)
     finally:
         t_logger.removeHandler(caplog.handler)
     warned = [r.getMessage() for r in caplog.records if "not acted on" in r.getMessage()]
+    if ported:
+        assert warned == []
+        assert path == str(cfg.paths.gcn_embeddings_dir / "gcn_n1_embeddings_pca8.h5")
+        assert (cfg.paths.gcn_embeddings_dir / "gcn_n1_embeddings.h5").exists()
+        return
+    assert path is None
     assert len(warned) == 1 and f"gcn.{knob}" in warned[0] and item in warned[0]

@@ -202,7 +202,9 @@ def test_run_end_to_end_on_cpu(tmp_path):
     cfg = _small_cfg(tmp_path, fasta)
     TBuilder(cfg).run()
     tt = t_trainer.HierarchicalTrainer(cfg, device="cpu")
-    pooled = tt.run()
+    path = tt.run()
+    pooled = tt.pooled
+    assert path.endswith("gcn_n3_embeddings_pca8.h5")
     assert len(pooled) == 80
     vecs = np.stack(list(pooled.values()))
     assert vecs.shape == (80, 8) and np.isfinite(vecs).all()
@@ -213,7 +215,8 @@ def test_run_end_to_end_on_cpu(tmp_path):
         assert (cfg.paths.gcn_embeddings_dir / "level_checkpoints" / f"level_{n}.npz").exists()
     # A second run resumes every level from its checkpoint and pools the same.
     again = t_trainer.HierarchicalTrainer(cfg, device="cpu")
-    pooled2 = again.run()
+    again.run()
+    pooled2 = again.pooled
     assert again.level_stats == {}
     for k in pooled:
         np.testing.assert_array_equal(pooled2[k], pooled[k])
@@ -221,8 +224,8 @@ def test_run_end_to_end_on_cpu(tmp_path):
 
 def test_run_ell_path_on_cpu(tmp_path):
     """The ELL path end to end: spmm_mode="pallas" at n = 1..4, cluster
-    training off, closest_aa labels at n = 4 (its default task, Louvain
-    communities, is not ported)."""
+    training off, closest_aa labels at n = 4 (the full-batch ELL path that
+    ``chip_smoke.run_ell_path`` times)."""
     fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=40, lo=40, hi=120)
     cfg = _small_cfg(tmp_path, fasta)
     cfg.apply_overrides({"graph_builder.ngram_max_n": 4, "gcn.spmm_mode": "pallas",
@@ -230,7 +233,8 @@ def test_run_ell_path_on_cpu(tmp_path):
                          "gcn.default_task_type": "closest_aa"})
     TBuilder(cfg).run()
     tt = t_trainer.HierarchicalTrainer(cfg, device="cpu")
-    pooled = tt.run()
+    tt.run()
+    pooled = tt.pooled
     assert len(pooled) == 40
     vecs = np.stack(list(pooled.values()))
     assert vecs.shape == (40, 8) and np.isfinite(vecs).all()
@@ -308,16 +312,25 @@ def test_hypercube_over_budget_falls_back_to_dense(tmp_path):
 
 
 def test_cluster_training_is_refused_off_the_hypercube(graphs):
+    """Cluster training, which this test once found refused, now takes the
+    level off the hypercube above the threshold (``route == "cluster"``), and the
+    hypercube route still trains full batch (``cluster_auto_fullbatch``)."""
     _, tg = graphs
     cfg = TConfig()
     cfg.apply_overrides({"gcn.cluster_training_threshold_nodes": 10,
+                         "gcn.target_nodes_per_cluster": 10,
                          "gcn.hidden_layer_dims": [4], "gcn.epochs_per_level": 1})
     tt = t_trainer.HierarchicalTrainer(cfg, device="cpu")
-    g3 = tg[2]  # dense route: its hypercube is > 4x the vocabulary
+    g3 = tg[2]  # off the hypercube: its hypercube is > 4x the vocabulary
     x = np.zeros((g3.num_nodes, 4), np.float32)
     y, classes = next_node_labels(g3)
-    with pytest.raises(NotImplementedError, match="cluster training"):
-        tt.train_level(g3, x, y, classes)
+    _, emb, _, dev_graph = tt.train_level(g3, x, y, classes)
+    st = tt.level_stats[3]
+    assert dev_graph.route != "hypercube" and st["route"] == "cluster"
+    assert st["clusters"] == -(-g3.num_nodes // 10) and st["steps"] == st["clusters"]
+    assert st["block_format"] == "dense" and st["resident"]
+    assert emb.shape == (g3.num_nodes, 4) and np.isfinite(emb).all()
     tt.gcn.spmm_mode = "hypercube"  # full batch on the hypercube route
     _, emb, _, _ = tt.train_level(g3, x, y, classes)
+    assert tt.level_stats[3]["route"] == "hypercube" and tt.level_stats[3]["steps"] == 1
     assert emb.shape == (g3.num_nodes, 4) and np.isfinite(emb).all()
