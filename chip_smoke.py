@@ -85,7 +85,24 @@ Phases, each printing one JSON line as it ends:
 13. tier plan from free memory: the 5-gram level trained again through
    ``HierarchicalTrainer.train_level`` with no pin, at the tier the plan
    picks from the card's real free memory; its plan, each tier's residency
-   estimate and the measured peak beside the tier-3 peak of phase 12.
+   estimate and the measured peak beside the tier-3 peak of phase 12;
+14. native ETL: the FASTA's n = 1..4 graphs built by the C++ ETL and by
+   numpy, byte for byte equal, with both times (every path's graph stage
+   above must have taken the C++ ETL at every level);
+15. checkpoint: the main path's n = 3 level through ``train_level`` with
+   ``gcn.checkpoint_every_epochs=2``, cut after 4 epochs and resumed to 6,
+   against an uncut 6-epoch run; the ``metrics.jsonl`` lines of both; and
+   three float32 steps of the staged step (tier 4) against the fused one
+   at n = 3;
+16. tier-4 level: the tier path's 5-gram level through ``train_level`` with
+   the plan's budget pinned between its tier-4 and tier-3 needs: tier 4
+   (the layer-staged step), K1/K2/pack/unpack launched forward and backward,
+   its peak beside phase 12's tier-3 peak, and the byte model's tier-3 and
+   tier-4 needs at Swiss-Prot's 5-gram level (26^5 hypercube nodes).  It
+   reuses phase 13's operators (the same bf16 banks) in place of a second
+   host build;
+17. degrade level: the tier path's 4-gram level with the budget pinned below
+   its tier-4 need: the plan halves the dims and the level trains at them.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -124,6 +141,8 @@ TIER_N = 5
 TIER_DIMS = (256, 128, 64)
 TIER_PIN = 32 << 30  # n = 1..4 fit tier 0 and the 5-gram level tier 3 (PERF.md)
 TIER_CLASSES = 4  # closest_aa with closest_aa_k_hops = 3
+SWISSPROT_HYPER_NODES = 26**5  # 25 letters and the space at n = 5
+CHECKPOINT_EVERY = 2
 BF16_GRAD_NORM_REL = 0.25  # tests/test_torch_tiers.py
 SOURCES = {
     "hyper_k1": "protgram_directgcn_torch/csrc/hyper.cu",
@@ -144,6 +163,10 @@ REPLACES = {
 
 
 def emit(phase: str, **fields) -> None:
+    """One JSON line, with the bytes still allocated on the card as it ends."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_available():
+        fields.setdefault("device_allocated_bytes", torch.cuda.memory_allocated())
     print(json.dumps({"phase": phase, "elapsed_s": round(time.monotonic() - T0, 3), **fields}),
           flush=True)
 
@@ -157,11 +180,20 @@ def fail(msg: str) -> None:
 # -----------------------------------------------------------------------------
 
 
+_SIDE_STREAM = []  # the one side stream of every capture
+
+
 def _device_ms(torch, fn, iters: int, replays: int = 5) -> float:
     """Device time of one call: ``iters`` calls captured in one CUDA graph,
     replayed ``replays`` times after a warm-up replay, timed with CUDA
-    events.  The host's cost of issuing each call is outside the graph."""
-    side = torch.cuda.Stream()
+    events.  The host's cost of issuing each call is outside the graph.
+    Every capture shares one side stream: cuBLAS keeps a workspace for each
+    stream it has run on (64 MiB here) and never frees it, so a stream a
+    call left ~1.1 GB allocated on the card after the kernel phase, inside
+    every later peak."""
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture (library handles, allocator)
         for _ in range(3):
@@ -351,6 +383,16 @@ def _drive(torch, argv):
     return result, time.monotonic() - t0
 
 
+def _native_etl(result, path: str) -> dict:
+    """Fail unless every level of a run's graph stage took the C++ ETL;
+    return its seconds by level."""
+    etl = result["graph_etl"]
+    fell_back = {n: st["etl"] for n, st in etl.items() if st["etl"] != "native"}
+    if fell_back or not etl:
+        fail(f"{path}: the graph stage fell back to numpy at levels {fell_back}")
+    return {str(n): st["seconds"] for n, st in etl.items()}
+
+
 def _pooled(result, dim: int) -> dict:
     """Check one finite ``dim``-wide pooled vector per protein."""
     import numpy as np
@@ -394,8 +436,9 @@ def run_main_path(torch, hk, fasta: str, workdir: str):
             for direction in ("fwd", "bwd"):
                 if st["launches"][k][direction] <= 0:
                     fail(f"level n={n}: {k} {direction} was never launched")
-    emit("main_path", seconds=seconds, launches=counts, **_pooled(result, 64))
-    return counts
+    emit("main_path", seconds=seconds, launches=counts,
+         graph_etl_seconds=_native_etl(result, "main path"), **_pooled(result, 64))
+    return counts, result["graphs"]
 
 
 # -----------------------------------------------------------------------------
@@ -440,6 +483,7 @@ def run_ell_path(torch, ek, fasta: str, workdir: str):
         fail(f"ell path: the n = 4 level's {stats[4]['nodes']} nodes are in the resident regime")
     emit("ell_path", seconds=seconds, launches=counts,
          launches_by_v=ek.launch_counts_by_v(),
+         graph_etl_seconds=_native_etl(result, "ell path"),
          level4_nodes=stats[4]["nodes"],
          level4_step_seconds=stats[4]["train_seconds"] / max(1, stats[4]["epochs"]),
          **_pooled(result, 64))
@@ -830,6 +874,7 @@ def run_cluster_path(torch, ek, fasta: str, workdir: str):
         fail(f"cluster path: PCA file {path}: {len(pca)} proteins of {n_pooled}, shape "
              f"{vecs.shape}, {vecs.dtype}")
     emit("cluster_path", seconds=seconds, launches=counts, level4_nodes=st["nodes"],
+         graph_etl_seconds=_native_etl(result, "cluster path"),
          level4_clusters=st["clusters"], level4_budget=st["budget"],
          level4_classes=st["num_classes"], louvain_seconds=st["louvain_seconds"],
          cluster_build_seconds=st["cluster_build_seconds"],
@@ -1177,9 +1222,9 @@ def run_tier_path(torch, hk, rt, fasta: str, workdir: str):
             if last["launches"][k][direction] <= 0:
                 fail(f"tier path: level n={TIER_N}: {k} {direction} was never launched")
     emit("tier_path", seconds=seconds, launches=counts, pin_bytes=TIER_PIN,
-         **_pooled(result, TIER_DIMS[-1]))
+         graph_etl_seconds=_native_etl(result, "tier path"), **_pooled(result, TIER_DIMS[-1]))
 
-    return counts, trainer.config, result["graphs"][TIER_N - 1], last["peak_device_bytes"]
+    return counts, trainer.config, result["graphs"], last["peak_device_bytes"]
 
 
 def run_free_memory_level(torch, config, graph_path: str, tier3_peak: int):
@@ -1199,7 +1244,8 @@ def run_free_memory_level(torch, config, graph_path: str, tier3_peak: int):
     budget = trainer._device_memory()
     _, alpha = vocab_char_codes(graph.vocab)
     n_hyper = max(alpha**TIER_N, graph.num_nodes)
-    estimates = {tier: sum(trainer._residency(n_hyper, TIER_DIMS[-1], TIER_CLASSES, *lv))
+    estimates = {tier: sum(trainer._residency(n_hyper, TIER_DIMS[-1], TIER_CLASSES, *lv,
+                                              staged=tier == 4))
                  for tier, lv in TIER_LEVERS.items()}
     rng = np.random.default_rng(9)
     x = rng.standard_normal((graph.num_nodes, TIER_DIMS[-1])).astype(np.float32)
@@ -1216,6 +1262,282 @@ def run_free_memory_level(torch, config, graph_path: str, tier3_peak: int):
          residency_estimate_bytes_by_tier=estimates,
          slack_and_min_bank_bytes=trainer._PLAN_SLACK + trainer._MIN_BANK,
          measured_peak_bytes_at_tier_3=tier3_peak)
+
+
+# -----------------------------------------------------------------------------
+# Phases 14-17: native ETL, checkpoints, tier 4 and the degrade policy
+# -----------------------------------------------------------------------------
+
+
+def check_native_etl(fasta: str):
+    """The FASTA's n = 1..4 graphs by the C++ ETL and by numpy: byte-equal
+    arrays, each way's seconds."""
+    from protgram_directgcn_torch import native
+    from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
+    from protgram_directgcn_torch.utils.io import parse_fasta
+
+    seqs = list(parse_fasta(fasta))
+    graphs, ways = {}, {}
+    for way in ("native", "numpy"):
+        builder = NgramGraphBuilder(n_max=4, use_native=way == "native")
+        t0 = time.monotonic()
+        graphs[way] = builder.build_from_sequences(seqs)
+        ways[way] = {"seconds": time.monotonic() - t0,
+                     "level_seconds": {str(n): st["seconds"] for n, st in builder.stats.items()}}
+        took = {n: st["etl"] for n, st in builder.stats.items()}
+        if set(took.values()) != {way}:
+            fail(f"native_etl: the {way} build took {took}")
+    for a, b in zip(graphs["native"], graphs["numpy"]):
+        for field in ("vocab", "src", "tgt", "weight"):
+            x, y = getattr(a, field), getattr(b, field)
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                fail(f"native_etl: n={a.n} {field} differs between the C++ and numpy ETL")
+    emit("native_etl", levels=4, sequences=len(seqs), byte_equal=True,
+         nodes={str(g.n): g.num_nodes for g in graphs["native"]},
+         edges={str(g.n): g.num_edges for g in graphs["native"]},
+         native_seconds=ways["native"]["seconds"], numpy_seconds=ways["numpy"]["seconds"],
+         by_level=ways, build={k: native.BUILD_INFO.get(k) for k in ("path", "seconds", "built")})
+
+
+def _cpu_leaves(torch, params):
+    from protgram_directgcn_torch.models.directgcn import param_leaves
+
+    return [p.detach().float().cpu() for p in param_leaves(params)]
+
+
+def _leaves_close(torch, got, ref, rtol: float, atol_rel: float, what: str) -> float:
+    """Fail unless every leaf is within rtol and atol_rel * max|leaf|;
+    returns the worst error relative to its leaf's max."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        scale = max(1.0, float(b.abs().max()))
+        err = (a - b).abs()
+        if not bool(torch.isfinite(a).all()) or not bool(
+                (err <= atol_rel * scale + rtol * b.abs()).all()):
+            fail(f"{what}: leaf {i} differs, max abs err {float(err.max())}")
+        worst = max(worst, float(err.max()) / scale)
+    return worst
+
+
+def check_checkpoint(torch, hk, graph_path: str, workdir: str):
+    """The main path's n = 3 level through ``train_level`` with
+    ``checkpoint_every_epochs=2`` and the default dropout: cut after 4
+    epochs, resumed to 6, against an uncut 6-epoch run (rtol 1e-6, atol
+    1e-6 x max|leaf|); both metric logs; then three float32 steps of the
+    staged step against the fused one from the same parameters, dropout 0
+    (rtol 1e-4, atol 1e-5 x max|leaf|, the CPU tests' tolerance)."""
+    import numpy as np
+
+    from protgram_directgcn_torch.config import Config
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.models import directgcn
+    from protgram_directgcn_torch.pipeline import trainer as tr
+    from protgram_directgcn_torch.pipeline.labels import next_node_labels
+    from protgram_directgcn_torch.utils.metrics import MetricLogger, read_metrics
+
+    graph = load_graph(graph_path)
+    y, classes = next_node_labels(graph)
+    x = np.random.default_rng(13).standard_normal((graph.num_nodes, TIER_DIMS[-1])).astype(
+        np.float32)
+    root = os.path.join(workdir, "checkpoint")
+
+    def level(epochs: int, run: str):
+        config = Config()
+        config.gcn.hidden_layer_dims = list(TIER_DIMS)
+        config.gcn.epochs_per_level = epochs
+        config.gcn.checkpoint_every_epochs = CHECKPOINT_EVERY
+        trainer = tr.HierarchicalTrainer(config, device=DEVICE)
+        with MetricLogger(os.path.join(root, run, "run_n3"), "gcn_n3") as metrics:
+            params = trainer.train_level(graph, x, y, classes, metrics=metrics,
+                                         ckpt_dir=os.path.join(root, run, "train_state_n3"))[0]
+        return _cpu_leaves(torch, params), trainer.level_stats[3]
+
+    hk.reset_launches()
+    t0 = time.monotonic()
+    level(4, "cut")
+    cut_steps = sorted(os.listdir(os.path.join(root, "cut", "train_state_n3")))
+    resumed, res_st = level(6, "cut")
+    uncut, uncut_st = level(6, "uncut")
+    seconds = time.monotonic() - t0
+    counts = hk.launch_counts()
+    if cut_steps != ["step_2", "step_4"] or res_st["start_epoch"] != 5 or res_st["epochs"] != 2:
+        fail(f"checkpoint: the cut run saved {cut_steps}; the resumed one started at epoch "
+             f"{res_st['start_epoch']} and ran {res_st['epochs']}")
+    if res_st["route"] != "hypercube" or not all(counts[k][d] for k in counts
+                                                 for d in ("fwd", "bwd")):
+        fail(f"checkpoint: route {res_st['route']}, K1/K2 launches {counts}")
+    worst = _leaves_close(torch, resumed, uncut, 1e-6, 1e-6, "checkpoint: resumed vs uncut")
+    logs = {run: read_metrics(os.path.join(root, run, "run_n3")) for run in ("cut", "uncut")}
+    for run, recs in logs.items():
+        if ([r.get("step") for r in recs] != list(range(1, 7)) or any(
+                set(r) != {"t", "run", "step", "level", "loss", "lr"} or r["level"] != 3
+                for r in recs)):
+            fail(f"checkpoint: the {run} run's metrics.jsonl holds {recs}")
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(logs["cut"][4:], logs["uncut"][4:]))
+    if loss_err > 1e-6:
+        fail(f"checkpoint: resumed losses differ from the uncut run's by {loss_err}")
+
+    # Staged (tier 4) against fused, float32, at the main path's n = 3 shape.
+    dg = graph.to_device(mode="hypercube", device=DEVICE)
+    dims = (TIER_DIMS[-1],) + TIER_DIMS
+    cfg = directgcn.DirectGCNConfig(layer_dims=dims, num_nodes=dg.num_nodes, num_classes=classes,
+                                    n_gram_len=3, dropout=0.0, decoder_dropout=0.0, remat=True,
+                                    remat_paths=True)
+    params0 = tr._node_params_to_rg(directgcn.init_directgcn_params(
+        torch.Generator().manual_seed(6), cfg, "cpu"), dg)
+    lead = dg.p_in.feature_shape
+    node_map = dg.node_map.cpu().numpy()
+    xs = np.zeros((dg.num_nodes, dims[0]), np.float32)
+    xs[node_map] = x
+    ys = np.zeros(dg.num_nodes, np.int64)
+    ys[node_map] = y
+    ms = np.zeros(dg.num_nodes, np.float32)
+    ms[node_map] = 1.0
+    xt = torch.from_numpy(xs).to(DEVICE).reshape(lead + (dims[0],))
+    yt, mt = torch.from_numpy(ys).to(DEVICE), torch.from_numpy(ms).to(DEVICE)
+    runs = {}
+    for staged in (False, True):
+        params = _tree_to(torch, params0, DEVICE)
+        for p in directgcn.param_leaves(params):
+            p.requires_grad_(True)
+        opt = tr.make_optimizer(params, 1e-3, 0.0, factor_node_params_above=dg.num_nodes)
+        step = (tr.make_train_step_staged if staged else tr.make_train_step)(cfg, opt, 1e-7)
+        losses = [float(step(params, dg, xt, yt, mt, 1.0, None)[0]) for _ in range(3)]
+        runs[staged] = (losses, _cpu_leaves(torch, params))
+        del params, opt, step
+    staged_worst = _leaves_close(torch, runs[True][1], runs[False][1], 1e-4, 1e-5,
+                                 "checkpoint: staged vs fused")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs[True][0], runs[False][0]))
+    if loss_rel > 1e-4:
+        fail(f"checkpoint: staged losses {runs[True][0]} vs fused {runs[False][0]}")
+    del dg, xt
+    torch.cuda.empty_cache()
+    emit("checkpoint", level=3, nodes=graph.num_nodes, every=CHECKPOINT_EVERY,
+         cut_checkpoints=cut_steps, resumed_start_epoch=res_st["start_epoch"],
+         resumed_vs_uncut_worst_rel=worst, resumed_loss_rel_err=loss_err,
+         metrics_lines={run: len(recs) for run, recs in logs.items()},
+         losses={"resumed": res_st["losses"], "uncut": uncut_st["losses"]},
+         level_seconds=seconds, k1k2_launches=counts,
+         staged_vs_fused={"losses_fused": runs[False][0], "losses_staged": runs[True][0],
+                          "loss_rel_err": loss_rel, "worst_rel": staged_worst})
+
+
+def run_tier4_level(torch, hk, rt, config, graph_path: str, tier3_peak: int):
+    """The 5-gram level through ``train_level`` with the plan's budget
+    pinned halfway between its tier-4 and tier-3 needs: tier 4, the
+    hypercube route, finite losses, K1/K2/pack/unpack forward and backward;
+    the peak beside the tier-3 peak; the tier-3 and tier-4 needs at
+    Swiss-Prot's 5-gram level."""
+    import numpy as np
+
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.ops.hypercube import vocab_char_codes
+    from protgram_directgcn_torch.pipeline.trainer import TIER_LEVERS, HierarchicalTrainer
+
+    graph = load_graph(graph_path)
+    trainer = HierarchicalTrainer(config, device=DEVICE)
+    _, alpha = vocab_char_codes(graph.vocab)
+    n_hyper = max(alpha**TIER_N, graph.num_nodes)
+    floor = trainer._PLAN_SLACK + trainer._MIN_BANK
+
+    def need(nodes: int, tier: int) -> int:
+        return sum(trainer._residency(nodes, TIER_DIMS[-1], TIER_CLASSES, *TIER_LEVERS[tier],
+                                      staged=tier == 4))
+
+    needs = {tier: need(n_hyper, tier) for tier in (3, 4)}
+    pin = floor + (needs[3] + needs[4]) // 2
+    trainer._hbm_override = pin
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((graph.num_nodes, TIER_DIMS[-1])).astype(np.float32)
+    y = rng.integers(0, TIER_CLASSES, graph.num_nodes)
+    hk.reset_launches()
+    rt.reset_launches()
+    t0 = time.monotonic()
+    trainer.train_level(graph, x, y, TIER_CLASSES)
+    seconds = time.monotonic() - t0
+    counts = {**hk.launch_counts(), **rt.launch_counts()}
+    st = trainer.level_stats[TIER_N]
+    if (st["plan"]["tier"], st["staged"], st["route"]) != (4, True, "hypercube") or not _finite(
+            st["losses"]):
+        fail(f"tier-4 level: plan tier {st['plan']['tier']}, staged {st['staged']}, route "
+             f"{st['route']}, losses {st['losses']}")
+    for k in ("k1", "k2", "pack", "unpack"):
+        for direction in ("fwd", "bwd"):
+            if st["launches"][k][direction] <= 0:
+                fail(f"tier-4 level: {k} {direction} was never launched")
+    torch.cuda.empty_cache()
+    swiss = {str(tier): need(SWISSPROT_HYPER_NODES, tier) + floor for tier in (3, 4)}
+    emit("tier4_level", level=TIER_N, hypercube_nodes=n_hyper, pin_bytes=pin,
+         need_bytes_with_floor={str(t): v + floor for t, v in needs.items()},
+         level_seconds=seconds, phase_launches=counts, **st,
+         tier3_peak_bytes=tier3_peak,
+         swissprot_5gram={"hypercube_nodes": SWISSPROT_HYPER_NODES,
+                          "need_bytes_with_floor": swiss})
+
+
+def run_degrade_level(torch, config, graph_path: str):
+    """The 4-gram level with the plan's budget pinned halfway between its
+    tier-4 needs at the configured dims and at half of them: the degrade
+    policy names the halved dims and the level trains at them."""
+    import numpy as np
+
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.ops.hypercube import vocab_char_codes
+    from protgram_directgcn_torch.pipeline.trainer import TIER_LEVERS, HierarchicalTrainer
+
+    graph = load_graph(graph_path)
+    trainer = HierarchicalTrainer(config, device=DEVICE)
+    _, alpha = vocab_char_codes(graph.vocab)
+    n_hyper = max(alpha**graph.n, graph.num_nodes)
+    half = tuple(d // 2 for d in TIER_DIMS)
+
+    def need(dims) -> int:
+        return sum(trainer._residency(n_hyper, TIER_DIMS[-1], TIER_CLASSES, *TIER_LEVERS[4],
+                                      staged=True, out_dims=dims))
+
+    pin = trainer._PLAN_SLACK + trainer._MIN_BANK + (need(TIER_DIMS) + need(half)) // 2
+    trainer._hbm_override = pin
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((graph.num_nodes, TIER_DIMS[-1])).astype(np.float32)
+    y = rng.integers(0, TIER_CLASSES, graph.num_nodes)
+    t0 = time.monotonic()
+    emb = trainer.train_level(graph, x, y, TIER_CLASSES)[1]
+    seconds = time.monotonic() - t0
+    st = trainer.level_stats[graph.n]
+    want = [TIER_DIMS[-1]] + list(half)
+    if (tuple(st["plan"]["layer_dims_override"] or ()) != half or st["layer_dims"] != want
+            or emb.shape != (graph.num_nodes, half[-1]) or not _finite(st["losses"])):
+        fail(f"degrade level: planned {st['plan']['layer_dims_override']}, trained "
+             f"{st['layer_dims']}, embeddings {emb.shape}, losses {st['losses']}")
+    torch.cuda.empty_cache()
+    emit("degrade_level", level=graph.n, hypercube_nodes=n_hyper, pin_bytes=pin,
+         configured_dims=list(TIER_DIMS), level_seconds=seconds, **st)
+
+
+class _OperatorCache:
+    """``HierarchicalTrainer._to_device_graph`` memoised by level and
+    compute type while active: phases 13 and 16 train the same 5-gram level
+    on the same bf16 operators, built once on the host."""
+
+    def __init__(self, trainer_cls):
+        self.cls, self.real, self.built = trainer_cls, trainer_cls._to_device_graph, {}
+
+    def __enter__(self):
+        real, built = self.real, self.built
+
+        def cached(trainer, graph, plan, feat_dim=128):
+            key = (graph.n, plan.compute_dtype)
+            if key not in built:
+                built[key] = real(trainer, graph, plan, feat_dim)
+            return built[key]
+
+        self.cls._to_device_graph = cached
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._to_device_graph = self.real
+        self.built.clear()
 
 
 # -----------------------------------------------------------------------------
@@ -1354,6 +1676,7 @@ def main() -> int:
     from protgram_directgcn_torch.ops import hyper_kernels as hk
     from protgram_directgcn_torch.ops import hypercube as hyper
     from protgram_directgcn_torch.ops import retile as rt
+    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
     from protgram_directgcn_torch.utils.device import resolve_device
 
     resolve_device(DEVICE)
@@ -1379,7 +1702,7 @@ def main() -> int:
         fasta = os.path.join(workdir, "synthetic_sprot.fasta")
         residues = write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
         emit("main_path_input", sequences=N_SEQS, residues=residues)
-        counts = run_main_path(torch, hk, fasta, workdir)
+        counts, main_graphs = run_main_path(torch, hk, fasta, workdir)
         check_reference(torch, ek, workdir, "hypercube")
         check_tier_reference(torch, rt, workdir)
         torch.cuda.empty_cache()
@@ -1395,10 +1718,17 @@ def main() -> int:
         check_louvain(cluster_graphs, level4["louvain_seconds"])
         check_cluster_reference(torch, ek, cluster_graphs[3], level4["num_classes"])
         retile_records = check_retile_kernels(torch, rt)
-        tier_counts, tier_config, graph_path, tier3_peak = run_tier_path(
+        tier_counts, tier_config, tier_graphs, tier3_peak = run_tier_path(
             torch, hk, rt, fasta, workdir)
         torch.cuda.empty_cache()
-        run_free_memory_level(torch, tier_config, graph_path, tier3_peak)
+        with _OperatorCache(HierarchicalTrainer):
+            run_free_memory_level(torch, tier_config, tier_graphs[TIER_N - 1], tier3_peak)
+            torch.cuda.empty_cache()
+            run_tier4_level(torch, hk, rt, tier_config, tier_graphs[TIER_N - 1], tier3_peak)
+        torch.cuda.empty_cache()
+        run_degrade_level(torch, tier_config, tier_graphs[3])
+        check_native_etl(fasta)
+        check_checkpoint(torch, hk, main_graphs[2], workdir)
 
     kernels = _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
                             tier_counts, cluster_counts)

@@ -54,10 +54,12 @@ def build_config(args) -> Config:
 
 
 def main(argv=None):
-    """Run the requested stages; returns ``{"graphs": [...], "trainer": ...,
-    "pooled": {protein_id: vector}, "embeddings_path": the last embeddings
-    file written, "seconds": {"graph": s, "gcn": s}}`` (trainer, pooled and
-    the path are None, and "gcn" absent, when only the graph stage ran)."""
+    """Run the requested stages; returns ``{"graphs": [...], "graph_etl":
+    {n: the builder's stats of level n, with the ETL path it took},
+    "trainer": ..., "pooled": {protein_id: vector}, "embeddings_path": the
+    last embeddings file written, "seconds": {"graph": s, "gcn": s}}``
+    (trainer, pooled and the path are None, and "gcn" absent, when only the
+    graph stage ran)."""
     args = parse_args(argv)
     wanted = {s.strip() for s in args.stages.split(",") if s.strip()}
     if wanted - _PORTED:
@@ -77,8 +79,10 @@ def main(argv=None):
     if "gcn" in wanted:  # fail before the ETL when the device is absent
         trainer = HierarchicalTrainer(cfg, device=args.device)
     t0 = time.monotonic()
-    result = {"graphs": NgramGraphBuilder(cfg).run(), "trainer": trainer, "pooled": None,
-              "embeddings_path": None, "seconds": {"graph": time.monotonic() - t0}}
+    builder = NgramGraphBuilder(cfg)
+    result = {"graphs": builder.run(), "graph_etl": builder.stats, "trainer": trainer,
+              "pooled": None, "embeddings_path": None,
+              "seconds": {"graph": time.monotonic() - t0}}
     if trainer is not None:
         t_gcn = time.monotonic()
         result["embeddings_path"] = trainer.run()

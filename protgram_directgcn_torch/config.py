@@ -3,11 +3,9 @@
 Same field names and defaults as protgram_directgcn_tpu/config.py:89-190 for
 what this slice runs (paths, graph builder, GCN trainer), and the same dotted
 ``--set`` overrides.  ``GraphBuilderConfig`` and ``GCNConfig`` keep every
-field of the JAX package, so ``--set`` lines written for it apply here; the
-trainer raises where a setting asks for a path this slice does not have
-(memory tier 4, ``oversize_policy``).  Where ``run_sanity_check_ppi`` or
-``checkpoint_every_epochs`` is set, the trainer logs that it does not act on
-it.
+field of the JAX package, so ``--set`` lines written for it apply here.
+Where ``run_sanity_check_ppi`` is set, the trainer logs that it does not act
+on it (the PPI check is not ported yet).
 """
 
 from __future__ import annotations
@@ -58,8 +56,8 @@ class GraphBuilderConfig:
     propagation_epsilon: float = 1e-9
     add_boundary_spaces: bool = True
     sequences_per_shard: int = 50_000
-    # The native C++ ETL is not ported yet: the builder always packs n-grams
-    # with numpy (same graphs, byte for byte).
+    # Use the C++ ETL (native.py) where it builds; numpy otherwise (the same
+    # graphs, byte for byte).
     use_native: bool = True
 
 

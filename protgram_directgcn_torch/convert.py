@@ -3,7 +3,9 @@
 The functions take trees of arrays that ``np.asarray`` reads (numpy arrays,
 or the JAX package's arrays, which convert without this module importing
 JAX) and return torch tensors on ``device``: the card unless the caller asks
-for the CPU (``utils.device.resolve_device``).
+for the CPU (``utils.device.resolve_device``).  ``opt_state_from_jax``
+reads the JAX package's optax states by their fields (named tuples), so it
+needs no optax either.
 """
 
 from __future__ import annotations
@@ -106,3 +108,75 @@ def ell_from_jax(adj: Any, device: Union[str, torch.device] = "cuda"
                          for k in ("src", "tgt", "w", "src_t", "tgt_t", "w_t")},
                       n_out=int(adj.n_out), n_in=int(adj.n_in))
     return EllAdj(**{k: _tensor(getattr(adj, k), device) for k in ("idx", "w", "idx_t", "w_t")})
+
+
+def _leaf_pairs(jtree: Any, ptree: Any):
+    """(JAX leaf, port tensor) of two trees of the same layout, skipping the
+    leaves an optax mask left out (``MaskedNode``) and None subtrees."""
+    if ptree is None or type(jtree).__name__ == "MaskedNode":
+        return
+    if isinstance(ptree, dict):
+        for k in ptree:
+            yield from _leaf_pairs(jtree[k], ptree[k])
+    elif isinstance(ptree, (list, tuple)):
+        for jv, pv in zip(jtree, ptree):
+            yield from _leaf_pairs(jv, pv)
+    else:
+        yield jtree, ptree
+
+
+def _named_tuples(obj: Any):
+    """Every named tuple inside an optax state (depth first)."""
+    if hasattr(obj, "_fields"):
+        yield obj
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _named_tuples(v)
+
+
+def _carry_state(state: Any, params: Any, opt: torch.optim.Optimizer) -> None:
+    for st in _named_tuples(state):
+        fields = tuple(st._fields)
+        if "hyperparams" in fields:
+            for group in opt.param_groups:
+                group["lr"] = float(np.asarray(st.hyperparams["learning_rate"]))
+        elif fields == ("count", "mu", "nu"):  # optax ScaleByAdamState
+            step = int(np.asarray(st.count))
+            for (mu, p), (nu, _) in zip(_leaf_pairs(st.mu, params), _leaf_pairs(st.nu, params)):
+                opt.state[p] = {"step": step, "mu": _tensor(mu, p.device).float(),
+                                "nu": _tensor(nu, p.device).float()}
+        elif fields == ("count", "v_row", "v_col", "v"):  # optax FactoredState
+            step = int(np.asarray(st.count))
+            for (vr, p), (vc, _), (v, _) in zip(_leaf_pairs(st.v_row, params),
+                                                _leaf_pairs(st.v_col, params),
+                                                _leaf_pairs(st.v, params)):
+                full = np.asarray(v).shape == tuple(p.shape)
+                opt.state[p] = {"step": step, **(
+                    {"v": _tensor(v, p.device).float()} if full else
+                    {"v_row": _tensor(vr, p.device).float(),
+                     "v_col": _tensor(vc, p.device).float()})}
+
+
+def opt_state_from_jax(state: Any, params: Any, opt: torch.optim.Optimizer) -> None:
+    """Carry the JAX package's optimizer state into ``opt`` (a
+    ``TrainOptimizer`` over ``params``), in place: each leaf's Adam moments
+    or Adafactor moments (full, or factored row and column) in float32 with
+    the step count, and the learning rate of ``inject_hyperparams``.  A
+    staged step's ``StagedOptState`` holds one state per stage over that
+    stage's sub-tree, a stage per layer and the decoder's last, as the JAX
+    trainer builds it (trainer.py:1952-1958, 337-342); each is carried onto
+    the same leaves of ``params``."""
+    stages = getattr(state, "stages", None)
+    if stages is None:
+        _carry_state(state, params, opt)
+        return
+    n_layers = len(params["layers"])
+    bounds = list(range(n_layers + 1)) + [n_layers]
+    for k, st in enumerate(stages):
+        lo, hi = bounds[k], bounds[k + 1]
+        sub = {"layers": params["layers"][lo:hi], "res_projs": params["res_projs"][lo:hi]}
+        if k == len(stages) - 1:
+            sub["decoder"] = params["decoder"]
+        _carry_state(st, sub, opt)

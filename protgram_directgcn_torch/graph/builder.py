@@ -1,13 +1,19 @@
-"""N-gram transition graph ETL (numpy).
+"""N-gram transition graph ETL: the C++ kernels, or numpy.
 
-Port of the numpy packing path of protgram_directgcn_tpu/graph/builder.py:
-n-grams packed into uint64 keys (big-endian bytes, so sorted keys == sorted
-strings == the reference's sorted-id assignment, data_builder.py:164-172),
-a vocabulary merged from per-shard ``np.unique``, and edges between
-consecutive n-grams of each padded sequence aggregated with
-``np.unique(return_counts)``.  A leading space on the first sequence and a
-trailing space on every sequence (data_builder.py:29-35).  The C++ ETL of the
-JAX package (``native``) is not ported; its graphs equal these.
+Port of protgram_directgcn_tpu/graph/builder.py: n-grams packed into uint64
+keys (big-endian bytes, so sorted keys == sorted strings == the reference's
+sorted-id assignment, data_builder.py:164-172), a vocabulary merged from
+per-shard unique keys, and edges between consecutive n-grams of each padded
+sequence aggregated by sorting their packed (src, tgt) keys.  A leading
+space on the first sequence and a trailing space on every sequence
+(data_builder.py:29-35).
+
+Under ``graph_builder.use_native`` (the default) each shard goes through the
+C++ ETL (``native.py``, ``csrc/ngram_etl.cpp``) where the library builds,
+else through numpy; both give the same graphs, byte for byte.  Shards are
+packed by ``graph_builder.workers`` threads (ctypes releases the GIL).  The
+path each level took and its seconds are kept in ``NgramGraphBuilder.stats``
+and logged, so a fallback to numpy shows.
 
 Output: one ``ngram_graph_n{n}.npz`` per level, in the JAX package's format.
 """
@@ -16,7 +22,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -68,7 +74,7 @@ class NgramGraphBuilder:
 
     def __init__(self, config: Optional[Config] = None, n_max: Optional[int] = None,
                  epsilon: Optional[float] = None, add_boundary_spaces: Optional[bool] = None,
-                 shard_size: Optional[int] = None):
+                 shard_size: Optional[int] = None, use_native: Optional[bool] = None):
         cfg = config or Config()
         gb = cfg.graph_builder
         self.config = cfg
@@ -78,6 +84,11 @@ class NgramGraphBuilder:
             add_boundary_spaces if add_boundary_spaces is not None else gb.add_boundary_spaces
         )
         self.shard_size = shard_size if shard_size is not None else gb.sequences_per_shard
+        self.use_native = use_native if use_native is not None else gb.use_native
+        self.workers = max(1, int(gb.workers))
+        # Per level of the last build: {"etl": "native" | "numpy", "seconds",
+        # "nodes", "edges"}.
+        self.stats: Dict[int, dict] = {}
         if self.n_max > _MAX_PACK_N:
             raise ValueError(f"n_max {self.n_max} > {_MAX_PACK_N} not supported by uint64 packing")
 
@@ -85,25 +96,55 @@ class NgramGraphBuilder:
         """Build all levels in one pass over in-memory sequences."""
         processed = list(preprocess_sequences(sequences, self.add_boundary_spaces))
         seq_bytes = [np.frombuffer(s.encode("latin-1"), dtype=np.uint8) for s in processed]
+        use_native = False
+        if self.use_native:
+            from protgram_directgcn_torch import native
+
+            use_native = native.available()
         graphs = []
+        self.stats = {}
         for n in range(1, self.n_max + 1):
             t0 = time.monotonic()
-            graphs.append(self._build_level(seq_bytes, n))
-            logger.info(
-                "built n=%d graph: %d nodes, %d edges (%.2fs)",
-                n, graphs[-1].num_nodes, graphs[-1].num_edges, time.monotonic() - t0,
-            )
+            graphs.append(self._build_level(seq_bytes, n, use_native))
+            g = graphs[-1]
+            self.stats[n] = {"etl": "native" if use_native else "numpy",
+                             "seconds": time.monotonic() - t0, "nodes": g.num_nodes,
+                             "edges": g.num_edges}
+            logger.info("built n=%d graph (%s ETL): %d nodes, %d edges (%.2fs)",
+                        n, self.stats[n]["etl"], g.num_nodes, g.num_edges,
+                        self.stats[n]["seconds"])
         return graphs
 
-    def _build_level(self, seq_bytes: List[np.ndarray], n: int) -> NgramGraph:
-        vocab_keys = np.empty(0, dtype=np.uint64)
-        per_shard: List[Tuple[np.ndarray, np.ndarray]] = []
-        for s in range(0, len(seq_bytes), self.shard_size):
-            keys_list = [_pack_ngrams(b, n) for b in seq_bytes[s : s + self.shard_size]]
+    def _build_level(self, seq_bytes: List[np.ndarray], n: int,
+                     use_native: bool = False) -> NgramGraph:
+        """One level, shard by shard (builder.py:117-170 of the JAX package)."""
+        if use_native:
+            from protgram_directgcn_torch import native
+
+        def pack_shard(shard):
+            if use_native:
+                keys, lens = native.pack_ngrams_batch(shard, n)
+                return keys, lens, native.aggregate_u64(keys)[0]
+            keys_list = [_pack_ngrams(b, n) for b in shard]
             lens = np.array([len(k) for k in keys_list], dtype=np.int64)
             keys = np.concatenate(keys_list) if keys_list else np.empty(0, np.uint64)
+            return keys, lens, np.unique(keys)
+
+        shards = [seq_bytes[s : s + self.shard_size]
+                  for s in range(0, len(seq_bytes), self.shard_size)]
+        if self.workers > 1 and len(shards) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=self.workers) as pool:
+                packed = list(pool.map(pack_shard, shards))  # in shard order
+        else:
+            packed = [pack_shard(s) for s in shards]
+
+        vocab_keys = np.empty(0, dtype=np.uint64)
+        per_shard: List[Tuple[np.ndarray, np.ndarray]] = []
+        for keys, lens, shard_unique in packed:
             per_shard.append((keys, lens))
-            vocab_keys = np.union1d(vocab_keys, np.unique(keys))
+            vocab_keys = np.union1d(vocab_keys, shard_unique)
 
         num_nodes = len(vocab_keys)
         vocab = _unpack_keys(vocab_keys, n)
@@ -113,6 +154,16 @@ class NgramGraphBuilder:
         agg_counts = np.empty(0, dtype=np.int64)
         nn = np.uint64(max(num_nodes, 1))
         for keys, lens in per_shard:
+            if use_native:
+                if len(keys) == 0:
+                    continue
+                ids = native.lookup_sorted(vocab_keys, keys)
+                pair_keys = native.emit_pairs(ids, lens, int(nn))
+                if len(pair_keys) == 0:
+                    continue
+                uk, counts = native.aggregate_u64(pair_keys)
+                agg_keys, agg_counts = native.merge_aggregates(agg_keys, agg_counts, uk, counts)
+                continue
             if len(keys) < 2:
                 continue
             ids = np.searchsorted(vocab_keys, keys).astype(np.uint64)

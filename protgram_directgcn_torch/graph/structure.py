@@ -3,7 +3,7 @@
 Port of protgram_directgcn_tpu/graph/structure.py:53-213.  ``NgramGraph`` and
 its ``.npz`` format are the JAX package's, so either package reads the
 other's graphs.  ``DeviceGraph`` holds torch operators (ops/spmm.py,
-ops/hypercube.py) for each of 𝒜_in, 𝒜_out and the undirected sym-norm
+ops/block.py, ops/hypercube.py) for each of 𝒜_in, 𝒜_out and the undirected sym-norm
 matrix, recomputed from the raw edges at load time
 (reference: protgram_directgcn_trainer.py:294-299).
 """
@@ -18,12 +18,13 @@ import numpy as np
 import torch
 
 from protgram_directgcn_torch.graph import transforms
+from protgram_directgcn_torch.ops.block import BlockNgramAdj
 from protgram_directgcn_torch.ops.hypercube import HypercubeAdj
 from protgram_directgcn_torch.ops.spmm import BucketedEllAdj, CooAdj, DenseAdj, EllAdj
 
-Adjacency = Union[DenseAdj, EllAdj, BucketedEllAdj, CooAdj, HypercubeAdj]
+Adjacency = Union[DenseAdj, EllAdj, BucketedEllAdj, CooAdj, BlockNgramAdj, HypercubeAdj]
 _ROUTES = ((DenseAdj, "dense"), (HypercubeAdj, "hypercube"), (EllAdj, "ell"),
-           (BucketedEllAdj, "bucketed"), (CooAdj, "coo"))
+           (BucketedEllAdj, "bucketed"), (CooAdj, "coo"), (BlockNgramAdj, "block"))
 
 
 @dataclasses.dataclass
@@ -43,7 +44,7 @@ class DeviceGraph:
 
     @property
     def route(self) -> str:
-        """The format of ``p_in``: dense, hypercube, ell, bucketed or coo."""
+        """The format of ``p_in``: dense, hypercube, ell, bucketed, coo or block."""
         return next(name for cls, name in _ROUTES if isinstance(self.p_in, cls))
 
 
@@ -99,14 +100,16 @@ class NgramGraph:
         ``mode``: "hypercube" (gather-free banks over [alphabet^n], n >= 2;
         the three matrices share ``hbm_budget``), or a format of
         ``spmm.build_adjacency``: "auto" (chosen by its byte model for
-        ``feat_dim``-wide features), "dense", "ell" ("pallas" is "ell"),
-        "bucketed" or "coo".  The 𝒜 matrices are symmetric-pattern by
+        ``feat_dim``-wide features; at n >= 2 it may take the block format
+        over the vocabulary's (n-1)-gram keys), "dense", "ell" ("pallas" is
+        "ell"), "bucketed", "coo" or "block".  The 𝒜 matrices are symmetric-pattern by
         construction, so (row→col) edges feed the (src→tgt,
         aggregate-at-tgt) operator directly
         (reference: protgram_directgcn_trainer.py:362-367).
         """
         from protgram_directgcn_torch.ops.hypercube import build_hypercube, vocab_char_codes
-        from protgram_directgcn_torch.ops.spmm import build_adjacency, ngram_node_keys
+        from protgram_directgcn_torch.ops.block import ngram_node_keys
+        from protgram_directgcn_torch.ops.spmm import build_adjacency
 
         mats = (self.mathcal_a_in(), self.mathcal_a_out(), self.undirected_norm())
         if mode == "hypercube":

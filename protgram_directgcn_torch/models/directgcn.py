@@ -26,10 +26,13 @@ backward pass (``torch.utils.checkpoint``); ``remat_paths`` recomputes each
 of a layer's three gated paths on its own and, on an rg carry, packs a
 sub-128-wide layer output through the retile kernels (ops/retile.py).
 Dropout masks come from per-layer seeds drawn once per forward pass, so a
-recompute replays the forward's masks.  Not ported: the literal
-6-propagation layer (``fused=False``), the manual per-path VJP with its
-optimisation barriers (tier 4's staged step uses it) and the TPU's 128-lane
-weight padding.
+recompute replays the forward's masks.  ``apply_layer_range`` runs a slice
+of the stack and ``apply_decoder`` the head, so that the trainer's
+layer-staged step (memory tier 4) can run one layer at a time;
+``fused=False`` is the literal 6-propagation layer (a parity reference).
+Not ported: the JAX package's manual per-path VJP with its optimisation
+barriers (the torch staged step recomputes a layer with autograd instead)
+and the TPU's 128-lane weight padding.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ class DirectGCNConfig:
     l2_eps: float = 1e-12
     leaky_relu_slope: float = 0.01
     decoder_hidden_floor: int = 1
+    fused: bool = True  # False: the literal 6-propagation layer (directgcn.py:279-294)
     remat: bool = False  # recompute each layer and the decoder in the backward
     remat_paths: bool = False  # recompute per path; pack sub-128 rg carries
     compute_dtype: str = "float32"  # or "bfloat16"
@@ -164,19 +168,22 @@ def named_leaves(params: Params) -> List[Tuple[str, torch.Tensor]]:
     """(name of the innermost dict key, tensor) for every tensor of a
     parameter tree, in :func:`param_leaves`' order."""
     out: List[Tuple[str, torch.Tensor]] = []
-
-    def walk(t, name):
-        if isinstance(t, torch.Tensor):
-            out.append((name, t))
-        elif isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], k)
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v, name)
-
-    walk(params, "")
+    _walk_leaves(params, "", out)
     return out
+
+
+def _walk_leaves(t, name: str, out: list) -> None:
+    # Module level, not a closure: a recursive closure over ``out`` is a
+    # reference cycle that keeps every parameter alive until the garbage
+    # collector runs (a finished level's node tables stayed on the card).
+    if isinstance(t, torch.Tensor):
+        out.append((name, t))
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _walk_leaves(t[k], k, out)
+    elif isinstance(t, (list, tuple)):
+        for v in t:
+            _walk_leaves(v, name, out)
 
 
 # ----------------------------------------------------------------------------
@@ -264,6 +271,8 @@ def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig,
     node ids in the level's node space (Cluster-GCN), or None."""
     ct = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else x.dtype
     xc = x.to(ct)
+    if not cfg.fused:
+        return _layer_literal(p, graph, xc, ct, original_indices)
     if x.dim() == 3 and cfg.remat_paths:
         return _layer_paths_remat(p, graph, xc, cfg, ct, original_indices)
     x_in = xc @ (p["w_main_in"] + p["w_shared"]).to(ct)
@@ -276,6 +285,22 @@ def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig,
     oc = po + (p["b_main_out"] + p["b_shared_out"]).to(ct)
     uc = pu + (p["b_und"] + p["b_shared_und"]).to(ct)
     return _combine_paths(p, x, ic, oc, uc, original_indices)
+
+
+def _layer_literal(p: Params, graph, xc: torch.Tensor, ct: torch.dtype,
+                   original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The literal dataflow (directgcn.py:279-294): each path propagates its
+    main and its shared projection on their own, 6 propagations a layer."""
+    xs = xc @ p["w_shared"].to(ct)
+
+    def path(adj, w_main, b_main, b_shared):
+        return ((propagate(adj, xc @ p[w_main].to(ct)) + p[b_main].to(ct))
+                + (propagate(adj, xs) + p[b_shared].to(ct)))
+
+    ic = path(graph.p_in, "w_main_in", "b_main_in", "b_shared_in")
+    oc = path(graph.p_out, "w_main_out", "b_main_out", "b_shared_out")
+    uc = path(graph.p_und, "w_und", "b_und", "b_shared_und")
+    return _combine_paths(p, xc, ic, oc, uc, original_indices)
 
 
 def _layer_paths_remat(p: Params, graph, xc: torch.Tensor, cfg: DirectGCNConfig,
@@ -328,15 +353,17 @@ def dropout_seeds(gen: Optional[torch.Generator], count: int) -> List[Optional[i
     return torch.randint(0, 2**62, (count,), generator=gen, device=gen.device).tolist()
 
 
-def apply_layers(params: Params, graph, h: torch.Tensor, cfg: DirectGCNConfig, *,
-                 train: bool, seeds: Sequence[Optional[int]],
-                 rg_lead: Optional[Tuple[int, int]] = None,
-                 original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The GCN stack on a flat or rg carry: layer, residual, leaky ReLU,
-    dropout (directgcn.py:512-581).  Under ``cfg.remat_paths`` an rg carry
-    of a width in ``retile.WIDTHS`` leaves a layer packed, and the next
-    layer (or the caller) unpacks it.  ``original_indices``: see
-    :func:`_layer_apply`."""
+def apply_layer_range(params: Params, graph, h: torch.Tensor, cfg: DirectGCNConfig,
+                      start: int, stop: int, *, train: bool, seeds: Sequence[Optional[int]],
+                      rg_lead: Optional[Tuple[int, int]] = None,
+                      original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GCN layers ``[start, stop)`` on a flat or rg carry: layer, residual,
+    leaky ReLU, dropout (directgcn.py:512-581).  Under ``cfg.remat_paths``
+    an rg carry of a width in ``retile.WIDTHS`` leaves a layer packed, and
+    the next layer (or the caller) unpacks it, so a slice hands over and
+    takes packed carries.  ``seeds`` holds the whole net's seeds (one a
+    layer, then the decoder's), so that a slice drops what the whole stack
+    drops.  ``original_indices``: see :func:`_layer_apply`."""
     ct = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     pack = cfg.remat_paths and rg_lead is not None
 
@@ -354,8 +381,9 @@ def apply_layers(params: Params, graph, h: torch.Tensor, cfg: DirectGCNConfig, *
             out = _dropout(out, cfg.dropout, seed)
         return out.to(ct) if ct is not None else out
 
-    for i, (p, rp) in enumerate(zip(params["layers"], params["res_projs"])):
-        h = _maybe_checkpoint(cfg.remat, layer_block, p, rp, h, seeds[i])
+    for i in range(start, stop):
+        h = _maybe_checkpoint(cfg.remat, layer_block, params["layers"][i],
+                              params["res_projs"][i], h, seeds[i])
     return h
 
 
@@ -414,8 +442,8 @@ def directgcn_apply(params: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig
         h = h.reshape(rg_lead + tuple(h.shape[-1:]))
     n_layers = len(params["layers"])
     seeds = dropout_seeds(gen if train else None, n_layers + 1)
-    h = apply_layers(params, graph, h, cfg, train=train, seeds=seeds, rg_lead=rg_lead,
-                     original_indices=original_indices)
+    h = apply_layer_range(params, graph, h, cfg, 0, n_layers, train=train, seeds=seeds,
+                          rg_lead=rg_lead, original_indices=original_indices)
     if rg_lead is not None:
         h = unpack_rg_carry(h, cfg.layer_dims[-1], rg_lead[1])
     logits = apply_decoder(params["decoder"], h, cfg, train=train, seed=seeds[-1])

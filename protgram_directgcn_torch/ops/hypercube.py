@@ -31,14 +31,7 @@ import numpy as np
 import torch
 
 from protgram_directgcn_torch.ops import hyper_kernels
-
-
-class BlockStructureError(ValueError):
-    """The edge set does not factor over the n-gram keys."""
-
-
-class BankBudgetError(BlockStructureError):
-    """The banks would exceed the caller's device-memory budget."""
+from protgram_directgcn_torch.ops.block import BankBudgetError, BlockStructureError
 
 
 @dataclasses.dataclass

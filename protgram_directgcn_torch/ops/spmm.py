@@ -8,6 +8,7 @@ w * x[j]`` (reference: protgram_directgcn.py:100-140, PyG aggr='add').
 - ``EllAdj``: padded neighbour lists ``[N, K]`` in both orientations;
 - ``BucketedEllAdj``: degree-bucketed ELL for degree-skewed graphs;
 - ``CooAdj``: target-sorted COO and a segment sum (``index_add``);
+- ``BlockNgramAdj``: the prefix/suffix block factors (ops/block.py);
 - ``HypercubeAdj``: the gather-free K1/K2 pair (ops/hypercube.py).
 
 Under bf16 compute a dense operator is stored bf16 and the edge-list
@@ -16,10 +17,8 @@ formats keep f32 weights; all of them return f32 (the JAX package's
 kernels' f32 cast of x, pallas_spmm.py:83, :220).  The hypercube returns
 the carry's type.  The builders are the JAX package's numpy code and give
 the same arrays byte for byte.  Every format's backward reads its stored
-transpose orientation (no scatter over the forward's indices); the graph
-gets no gradient.  The block format (ops/block.py of the JAX package) is
-not ported: where the JAX package's ``build_adjacency`` would return it,
-the port raises.
+transpose orientation (the block format its transposed factors; no
+scatter over the forward's indices); the graph gets no gradient.
 
 The route is the device's: on the card both ELL formats run the CUDA ELL
 kernels (ops/ell_kernels.py), on the CPU their plain version.  The JAX
@@ -35,7 +34,8 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from protgram_directgcn_torch.ops import ell_kernels
+from protgram_directgcn_torch.ops import block, ell_kernels
+from protgram_directgcn_torch.ops.block import BlockNgramAdj
 
 Device = Union[str, torch.device]
 
@@ -238,48 +238,6 @@ def choose_format(n_out: int, n_in: int, nnz: int, feat_dim: int = 128) -> str:
     return "ell" if deg >= 1.0 else "coo"
 
 
-# ----------------------------------------------------------------------------
-# The block format's selection rule (the format itself is not ported)
-# ----------------------------------------------------------------------------
-
-
-def ngram_node_keys(vocab: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Prefix/suffix (n-1)-gram key ids for a sorted equal-length vocabulary
-    (protgram_directgcn_tpu/ops/block.py:74-96)."""
-    vocab = np.asarray(vocab)
-    n_nodes = len(vocab)
-    if n_nodes == 0:
-        return np.zeros(0, np.int64), np.zeros(0, np.int64), 0
-    n = len(str(vocab[0]))
-    if n < 2:
-        z = np.zeros(n_nodes, np.int64)
-        return z, z, 1
-    arr = vocab.astype(f"U{n}")
-    chars = arr.view("U1").reshape(n_nodes, n)
-    prefix = np.ascontiguousarray(chars[:, :-1]).view(f"U{n - 1}").reshape(n_nodes)
-    suffix = np.ascontiguousarray(chars[:, 1:]).view(f"U{n - 1}").reshape(n_nodes)
-    keys, inv = np.unique(np.concatenate([prefix, suffix]), return_inverse=True)
-    return inv[:n_nodes], inv[n_nodes:], len(keys)
-
-
-def _block_structure_fits(src, tgt, pk, sk, num_keys: int, max_block: int = 64) -> bool:
-    """Whether the JAX package's ``build_block_ngram`` (block.py:117-177)
-    would succeed: key groups of at most ``max_block`` nodes, and every
-    off-diagonal edge in the A pattern (sk[src] == pk[tgt]) or the Aᵀ
-    pattern (pk[src] == sk[tgt])."""
-    pk = np.asarray(pk, np.int64)
-    sk = np.asarray(sk, np.int64)
-    for key in (pk, sk):
-        counts = np.bincount(key, minlength=num_keys)
-        if max(1, int(counts.max()) if num_keys else 1) > max_block:
-            return False
-    src = np.asarray(src, np.int64)
-    tgt = np.asarray(tgt, np.int64)
-    off = src != tgt
-    s, t = src[off], tgt[off]
-    return bool(((sk[s] == pk[t]) | (pk[s] == sk[t])).all())
-
-
 def build_adjacency(
     src: np.ndarray,
     tgt: np.ndarray,
@@ -291,11 +249,13 @@ def build_adjacency(
     dtype: torch.dtype = torch.float32,
     node_keys: Optional[Tuple[np.ndarray, np.ndarray, int]] = None,
     device: Device = "cuda",
-) -> Union[DenseAdj, EllAdj, BucketedEllAdj, CooAdj]:
+) -> Union[DenseAdj, EllAdj, BucketedEllAdj, CooAdj, BlockNgramAdj]:
     """The device adjacency in the requested or auto-selected format, by the
-    JAX package's rule (spmm.py:301-381).  Raises NotImplementedError where
-    that rule picks the block format (``node_keys`` given, ROADMAP Queue 1,
-    item 4).  The hypercube format is built by ``NgramGraph.to_device``."""
+    JAX package's rule (spmm.py:301-381).  ``node_keys`` (prefix key, suffix
+    key, key count) unlocks the block format for a square matrix: taken
+    under "auto" where its gathered rows beat the edge formats' and the
+    edges factor over the keys.  The hypercube format is built by
+    ``NgramGraph.to_device``."""
     n_in = n_out if n_in is None else n_in
     if mode in ("auto", "block") and node_keys is not None and n_out == n_in and len(src):
         pk, sk, num_keys = node_keys
@@ -303,14 +263,14 @@ def build_adjacency(
         r_est = int(counts_s.max()) if len(counts_s) else 1
         block_rows = num_keys * r_est + n_out  # random rows per pass
         worthwhile = block_rows < 0.9 * len(src) and r_est <= 64
-        picks_block = mode == "block" or (
-            worthwhile and choose_format(n_out, n_in, len(src), feat_dim) != "dense"
-            and _block_structure_fits(src, tgt, pk, sk, num_keys))
-        if picks_block:
-            raise NotImplementedError(
-                "the block adjacency format (ops/block.py) is not ported yet "
-                "(ROADMAP Queue 1, item 4); the JAX package would use it here"
-            )
+        if mode == "block" or (worthwhile
+                               and choose_format(n_out, n_in, len(src), feat_dim) != "dense"):
+            try:
+                return block.build_block_ngram(src, tgt, w, n_out, pk, sk, num_keys,
+                                               device=device)
+            except block.BlockStructureError:
+                if mode == "block":
+                    raise
     if mode == "auto":
         mode = choose_format(n_out, n_in, len(src), feat_dim)
         if mode == "ell" and len(tgt):
@@ -429,6 +389,8 @@ def propagate(adj, x: torch.Tensor) -> torch.Tensor:
         adj_t = _swap(adj)
         return _LinearOp.apply(x, lambda v: _edge_apply(adj, v),
                                lambda g: _edge_apply(adj_t, g))
+    if isinstance(adj, BlockNgramAdj):
+        return block.propagate_block(adj, x)
     from protgram_directgcn_torch.ops import hypercube
 
     if isinstance(adj, hypercube.HypercubeAdj):

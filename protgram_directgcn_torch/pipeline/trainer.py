@@ -12,7 +12,12 @@ JAX package's ladder:
 1. tier 0 + remat (each layer recomputed in the backward pass);
 2. bfloat16 compute and node parameters + remat;
 3. tier 2 + factored Adafactor moments for the node tables + per-path remat
-   (the packed sub-128 carry of the retile kernels on hypercube levels).
+   (the packed sub-128 carry of the retile kernels on hypercube levels);
+4. tier 3 + the layer-staged step (``make_train_step_staged``): one layer's
+   backward and update at a time.
+
+Where no tier fits, ``gcn.oversize_policy`` decides: "degrade" halves the
+hidden dims until tier 4 fits and trains the level at them, "error" raises.
 
 All optimizer state is float32.  Under ``gcn.spmm_mode="auto"`` levels
 n >= 2 whose character hypercube is at most 4x the vocabulary train on the
@@ -25,12 +30,16 @@ A level above ``gcn.cluster_training_threshold_nodes`` trains on Cluster-GCN
 batches (``_make_cluster_batches``: BFS parts, dense or padded-ELL blocks)
 under ``gcn.use_cluster_training``, unless its operators are the hypercube
 and ``gcn.cluster_auto_fullbatch`` holds; its embeddings come from the eval
-pass on the full level.  ``run`` writes the pooled embeddings (H5 where
-h5py imports, else ``.npz``) and, under ``gcn.apply_pca``, their PCA.
+pass on the full level.  ``run`` logs each level's parameters and, on a
+full-batch level, its loss and learning rate every epoch
+(``utils/metrics.py``, ``level_checkpoints/run_n{n}``), saves the training
+state every ``gcn.checkpoint_every_epochs`` epochs and resumes from the
+latest (``utils/checkpoint.py``, ``level_checkpoints/train_state_n{n}``),
+and writes the pooled embeddings (H5 where h5py imports, else ``.npz``)
+and, under ``gcn.apply_pca``, their PCA.
 
-Not ported yet (ROADMAP Queue 1): memory tier 4 (the layer-staged step) and
-the ``oversize_policy`` beyond tier 3, the in-training checkpoint/resume and
-the PPI sanity check after pooling (their knobs log a warning).
+Not ported yet (ROADMAP Queue 1): the PPI sanity check after pooling (its
+knob logs a warning).
 """
 
 from __future__ import annotations
@@ -38,25 +47,31 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from protgram_directgcn_torch.config import Config
 from protgram_directgcn_torch.graph.partition import partition_nodes
 from protgram_directgcn_torch.graph.structure import DeviceGraph, NgramGraph, load_graph
 from protgram_directgcn_torch.models.directgcn import (
     DirectGCNConfig,
+    apply_decoder,
+    apply_layer_range,
     directgcn_apply,
+    dropout_seeds,
     init_directgcn_params,
     named_leaves,
     param_leaves,
+    unpack_rg_carry,
 )
 from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, retile
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.ops.spmm import DenseAdj, EllAdj, _ell_one_sided
 from protgram_directgcn_torch.pipeline.labels import generate_labels
+from protgram_directgcn_torch.utils import checkpoint as ckpt
 from protgram_directgcn_torch.utils import embeddings as emb_utils
 from protgram_directgcn_torch.utils.device import resolve_device
 from protgram_directgcn_torch.utils.io import (
@@ -66,6 +81,7 @@ from protgram_directgcn_torch.utils.io import (
     parse_fasta,
     write_embeddings,
 )
+from protgram_directgcn_torch.utils.metrics import MetricLogger
 
 
 class PlateauScheduler:
@@ -319,14 +335,19 @@ def _loss_fn(params, graph, x, y, mask, weight_factor, gen, model_cfg, l2_lambda
     parameters there)."""
     log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
                                 original_indices=original_indices, flatten_rg=False)
+    primary = _masked_nll(log_sm, y, mask)
+    l2 = sum(torch.sum(torch.square(p.float())) for p in param_leaves(params))
+    return primary * weight_factor + l2_lambda * l2, primary
+
+
+def _masked_nll(log_sm: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The mean negative log-likelihood of the labels over the masked nodes;
+    an rg output ``[A, G, C]`` views the label and mask vectors ``[A, G]``."""
     if log_sm.dim() == 3:
-        # rg output: view the label/mask vectors [A, G] to match.
         y = y.reshape(log_sm.shape[:2])
         mask = mask.reshape(log_sm.shape[:2])
     per_node = -torch.gather(log_sm, -1, y[..., None])[..., 0]
-    primary = torch.sum(per_node * mask) / torch.clamp(mask.sum(), min=1.0)
-    l2 = sum(torch.sum(torch.square(p.float())) for p in param_leaves(params))
-    return primary * weight_factor + l2_lambda * l2, primary
+    return torch.sum(per_node * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_lambda: float):
@@ -341,6 +362,129 @@ def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_l
         loss.backward()
         opt.step()
         return loss.detach(), primary.detach()
+
+    return step
+
+
+def _l2_sum(leaves) -> torch.Tensor:
+    """Sum of squares of the leaves in f32, slice by slice (bounded f32
+    temporaries where a node table holds 10^9 elements)."""
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    with torch.no_grad():
+        for p in leaves:
+            for sl in _slices(p):
+                total += torch.sum(torch.square(p[sl].float()))
+    return total
+
+
+def _add_l2_grads(leaves, l2_lambda: float) -> None:
+    """The gradient of ``l2_lambda * sum(p.float() ** 2)`` added to each
+    leaf's gradient in f32 and rounded to the gradient's type, as the JAX
+    staged step adds it (trainer.py:350-357)."""
+    if not l2_lambda:
+        return
+    with torch.no_grad():
+        for p in leaves:
+            for sl in _slices(p):
+                p.grad[sl] = (p.grad[sl].float() + 2.0 * l2_lambda * p[sl].float()).to(p.grad.dtype)
+
+
+def _packable(width: int) -> bool:
+    """Whether a carry of this width packs below 128 lanes (pack_rg_carry)."""
+    return width < 128 and 128 % width == 0
+
+
+def make_train_step_staged(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer,
+                           l2_lambda: float):
+    """Memory tier 4: the fused step's update, one layer at a time
+    (make_train_step_staged, trainer.py:279-1265 of the JAX package).
+
+    - The layers run forward without autograd, one stage a layer.  A
+      stage's input carry is kept where it is x, the decoder's input, or a
+      width that packs below 128 lanes (JAX ``held``, trainer.py:1022-1034);
+      another one is recomputed from the nearest kept carry below it when
+      its layer's backward needs it.
+    - The decoder and the loss run with autograd; the decoder's parameters
+      are updated at once and the carry's cotangent kept.
+    - From the last layer down: the layer is recomputed from its input
+      carry with autograd (layer and per-path remat, the packed carry, as
+      the plan sets them), the cotangent is backpropagated, the layer's
+      parameters are updated and their gradients freed before the next
+      layer down.
+
+    The update equals the fused step's: every gradient is taken at the
+    step's starting parameters (a layer's recompute reads only layers below
+    it, not updated yet), L2 is added to the gradient (``_add_l2_grads``),
+    Adam and Adafactor update each leaf on its own with its own step count,
+    and the dropout masks come from the same per-layer seeds.  No
+    positional-encoding table (n = 1 levels train fused).  Returns (loss,
+    primary) as computed before the update."""
+    if model_cfg.one_gram_dim:
+        raise ValueError("the staged step takes no positional-encoding table (n >= 2 levels)")
+    dims = model_cfg.layer_dims
+    n_layers = len(dims) - 1
+    # held[k]: carry k (layer k's input; k = n_layers: the decoder's) is kept.
+    held = [True] + [_packable(dims[k]) for k in range(1, n_layers)] + [True]
+
+    def update(leaves) -> None:
+        _add_l2_grads(leaves, l2_lambda)
+        opt.step()  # only the leaves with a gradient move
+        for p in leaves:
+            p.grad = None
+
+    def step(params, graph, x, y, mask, weight_factor, gen, original_indices=None):
+        if original_indices is not None:
+            raise ValueError("the staged step trains the full level, not a subgraph batch")
+        opt.zero_grad(set_to_none=True)
+        rg_lead = tuple(x.shape[:2]) if x.dim() == 3 else None
+        seeds = dropout_seeds(gen, n_layers + 1)
+
+        def layer(k, c):
+            return apply_layer_range(params, graph, c, model_cfg, k, k + 1, train=True,
+                                     seeds=seeds, rg_lead=rg_lead)
+
+        carries: List[Optional[torch.Tensor]] = [x] + [None] * n_layers
+        with torch.no_grad():
+            c = x
+            for k in range(n_layers):
+                c = layer(k, c)
+                if held[k + 1]:
+                    carries[k + 1] = c
+            del c
+
+        h = carries[n_layers].detach().requires_grad_(True)
+        carries[n_layers] = None
+        hh = h if rg_lead is None else unpack_rg_carry(h, dims[-1], rg_lead[1])
+        logits = apply_decoder(params["decoder"], hh, model_cfg, train=True, seed=seeds[-1])
+        log_sm = F.log_softmax(logits.float(), dim=-1).to(logits.dtype)
+        primary = _masked_nll(log_sm, y, mask)
+        (primary * weight_factor).backward()
+        del hh, logits, log_sm
+        leaves = param_leaves(params["decoder"])
+        l2_sum = _l2_sum(leaves)
+        update(leaves)
+        g = h.grad
+        del h
+
+        for k in reversed(range(n_layers)):
+            c = carries[k]
+            if c is None:  # recompute from the nearest kept carry below
+                j = max(i for i in range(k) if carries[i] is not None)
+                with torch.no_grad():
+                    c = carries[j]
+                    for t in range(j, k):
+                        c = layer(t, c)
+            c = c.detach().requires_grad_(k > 0)
+            layer(k, c).backward(g)
+            leaves = param_leaves({"layer": params["layers"][k], "res": params["res_projs"][k]})
+            l2_sum = l2_sum + _l2_sum(leaves)
+            update(leaves)
+            g = c.grad
+            if k > 0:
+                carries[k] = None
+            del c
+        loss = primary.detach() * weight_factor + l2_lambda * l2_sum
+        return loss, primary.detach()
 
     return step
 
@@ -376,20 +520,23 @@ def _launch_diff(before, after) -> Dict[str, Dict[str, int]]:
     return {k: {d: after[k][d] - before[k][d] for d in after[k]} for k in after}
 
 
-# The "auto" levers of each memory tier (trainer.py:1492-1500): compute
+# The "auto" levers of each memory tier (trainer.py:1492-1505): compute
 # type, node-table type, remat, factored node moments, per-path remat.
+# Tier 4 adds the layer-staged step to tier 3's (``_STAGED_TIER``).
 TIER_LEVERS = {
     0: ("float32", "float32", False, False, False),
     1: ("float32", "float32", True, False, False),
     2: ("bfloat16", "bfloat16", True, False, False),
     3: ("bfloat16", "bfloat16", True, True, True),
+    4: ("bfloat16", "bfloat16", True, True, True),
 }
+_STAGED_TIER = 4
 
 # Full-width buffers live at once in a step's backward pass, fitted to the
 # peaks ``chip_smoke.py`` measures on an NVIDIA H100 (PERF.md §6): 15 where
 # a layer's three paths are recomputed or saved together (the 5-gram level
 # at tier 2, the 4-gram level at tier 0), 8 where per-path remat recomputes
-# one path at a time (the 5-gram level at tier 3; rg levels only).
+# one path at a time (the 5-gram level at tiers 3 and 4; rg levels only).
 _WORKSPACE_BUFFERS = 15
 _WORKSPACE_BUFFERS_PER_PATH = 8
 
@@ -407,6 +554,12 @@ class LevelPlan:
     factored: bool  # node tables train with factored Adafactor moments
     bank_budget: int  # device bytes left for the propagation operators
     residency: int
+    # > 0: the layer-staged step (tier 4, a stage per layer); the JAX
+    # package's split value, (layers + 1) // 2 (trainer.py:1501-1505).
+    stage_split: int = 0
+    # Set where gcn.oversize_policy="degrade" shrank the hidden dims: the
+    # dims the level trains with in place of gcn.hidden_layer_dims.
+    layer_dims_override: Optional[Tuple[int, ...]] = None
 
 
 @dataclasses.dataclass
@@ -451,7 +604,6 @@ def _batch_arrays(b: ClusterBatch) -> List[np.ndarray]:
 # the ROADMAP item that ports it.
 _UNPORTED_KNOBS = (
     ("run_sanity_check_ppi", "Queue 1, item 10: the PPI sanity check"),
-    ("checkpoint_every_epochs", "Queue 1, item 4: in-training checkpoint and resume"),
 )
 
 
@@ -526,26 +678,39 @@ class HierarchicalTrainer:
 
     def _residency(self, n_hyper: int, feat_dim: int, num_classes: int,
                    compute_dtype: str = "float32", node_param_dtype: str = "float32",
-                   remat: bool = False, factored: bool = False,
-                   remat_paths: bool = False) -> Tuple[int, int, int]:
+                   remat: bool = False, factored: bool = False, remat_paths: bool = False,
+                   staged: bool = False, out_dims: Optional[Sequence[int]] = None,
+                   shards: int = 1) -> Tuple[int, int, int]:
         """(param_bytes, opt_state_bytes, dynamic_bytes) of one full-batch
         step at ``n_hyper`` nodes, with the levers of the JAX package's
-        estimate (trainer.py:1396-1452): per-node tables (5 gates and the
+        estimate (trainer.py:1393-1447): per-node tables (5 gates and the
         [N, out] constant per layer) in the node type; their optimizer state
         in f32, two Adam moments or, factored, a full moment for the gates
         and row + column moments for the constants; saved activations (the
         input and, without remat, three paths per layer, with remat one
         carry per layer), node gradients and the full-width buffers of the
-        backward pass, all in the compute type.  The level's operators and
-        input are left to the plan's bank floor and slack.
+        backward pass, all in the compute type.  ``staged`` (tier 4) saves
+        only the carries the staged step keeps and holds one layer's node
+        gradients (the JAX package halves both; the port's rule fits the
+        tier-4 peak measured on the card, PERF.md §6).  ``out_dims`` in
+        place of the configured hidden
+        dims (the degrade policy sizes smaller ones); ``shards`` divides
+        everything, a mesh of that many node shards (the JAX package's
+        ``parallel.mesh_nodes``, named by the plan's message; not ported).
+        The level's operators and input are left to the plan's bank floor
+        and slack.
 
         Where it departs from the JAX estimate: no TPU 128-lane padding, so
         a sub-128 carry counts its logical bytes and the packed carry of
         per-path remat saves nothing; the [N, classes] logits with their
         log-softmax and gradient are counted (JAX leaves them out); and the
         backward pass holds the buffer counts measured on the card (15, or
-        8 under per-path remat) where JAX counts 6 under every tier."""
-        out_dims = list(self.gcn.hidden_layer_dims)
+        8 under per-path remat) where JAX counts 6 under every tier.  Its
+        four calibration points, peaks measured on an NVIDIA H100 80GB HBM3
+        at 700 W (PERF.md §6): the 4-gram level at tier 0, the 5-gram level
+        at tiers 2, 3 and 4; each peak is the estimate plus 0.7-0.9 GB (the
+        operators and the input, left to the bank floor)."""
+        out_dims = list(self.gcn.hidden_layer_dims if out_dims is None else out_dims)
         node_itm = 2 if node_param_dtype == "bfloat16" else 4
         act_itm = 2 if compute_dtype == "bfloat16" else 4
         n_gates = 5 * len(out_dims) if self.gcn.use_vector_coeffs else 0
@@ -561,32 +726,46 @@ class HierarchicalTrainer:
         per_layer = 1 if remat else 3
         saves = (feat_dim + per_layer * sum(out_dims)) * n_hyper * act_itm
         grads = sum(out_dims) * n_hyper * act_itm
+        if staged:
+            # The carries the staged step keeps (x, the packable ones, the
+            # decoder's input) and one layer's node gradients at a time.
+            kept = feat_dim + sum(d for d in out_dims[:-1] if _packable(d)) + out_dims[-1]
+            saves = kept * n_hyper * act_itm
+            grads = max(out_dims) * n_hyper * act_itm
         buffers = _WORKSPACE_BUFFERS_PER_PATH if remat_paths else _WORKSPACE_BUFFERS
         workspace = buffers * n_hyper * max(out_dims + [feat_dim]) * act_itm
         logits = 3 * n_hyper * num_classes * act_itm
-        return param_b, opt_b, saves + grads + workspace + logits
+        s = max(1, int(shards))
+        return param_b // s, opt_b // s, (saves + grads + workspace + logits) // s
 
     def _level_plan(self, graph: NgramGraph, feat_dim: int,
                     num_classes: Optional[int] = None) -> LevelPlan:
         """The first memory tier whose residency estimate fits the device
         (trainer.py:1455-1597): tier 0 (f32, Adam), 1 (+ remat), 2 (+ bf16
         compute and node tables), 3 (+ factored node moments and per-path
-        remat).  The knobs ``gcn.compute_dtype``, ``node_param_dtype``,
+        remat), 4 (+ the layer-staged step, where the net has two layers or
+        more).  The knobs ``gcn.compute_dtype``, ``node_param_dtype``,
         ``remat`` and ``node_param_factored``, where not "auto", override
         their field at every tier.  ``num_classes`` sizes the logits
-        (default: one class per node, the next_node task's count).  Raises
-        NotImplementedError when tier 3 does not fit: tier 4 (the
-        layer-staged step) and ``gcn.oversize_policy`` are not ported yet
-        (ROADMAP Queue 1, item 8)."""
+        (default: one class per node, the next_node task's count).
+
+        Where no tier fits, ``gcn.oversize_policy``: "degrade" halves the
+        hidden dims (floor 16) until tier 4 fits, records them in
+        ``layer_dims_override`` and takes the first tier that fits them,
+        with a warning; "error", or no dims that fit, raises ValueError
+        naming the node shards that would fit the configured dims and the
+        degraded dims (trainer.py:1535-1576)."""
         gcn = self.gcn
         _, alpha = vocab_char_codes(graph.vocab)
         n_hyper = int(alpha) ** graph.n if alpha else graph.num_nodes
         n_nodes = max(n_hyper, graph.num_nodes)
         chip = self._device_memory()
         classes = graph.num_nodes if num_classes is None else num_classes
+        n_layers = len(gcn.hidden_layer_dims)
 
         def resolve(tier: int):
             cd, nd, rm, fc, rp = TIER_LEVERS[tier]
+            split = (n_layers + 1) // 2 if tier >= _STAGED_TIER and n_layers >= 2 else 0
             if gcn.compute_dtype != "auto":
                 cd = gcn.compute_dtype
             if gcn.node_param_dtype != "auto":
@@ -595,38 +774,61 @@ class HierarchicalTrainer:
                 rm = bool(gcn.remat)
             if gcn.node_param_factored in ("on", "off"):
                 fc = gcn.node_param_factored == "on"
-            return cd, nd, rm, fc, rp
+            return cd, nd, rm, fc, rp, split
 
         # Per-path remat recomputes one path at a time only on an rg carry
         # (a hypercube level); elsewhere tier 3 keeps a layer's paths live.
         rg = self._takes_hypercube(graph)
 
-        def need(tier: int) -> int:
-            cd, nd, rm, fc, rp = resolve(tier)
-            return sum(self._residency(n_nodes, feat_dim, classes, cd, nd, rm, fc, rp and rg))
+        def need(tier: int, dims=None, shards: int = 1) -> int:
+            cd, nd, rm, fc, rp, split = resolve(tier)
+            return sum(self._residency(n_nodes, feat_dim, classes, cd, nd, rm, fc, rp and rg,
+                                       staged=split > 0, out_dims=dims, shards=shards))
 
-        fitting = [t for t in range(4) if need(t) + self._PLAN_SLACK + self._MIN_BANK <= chip]
-        if not fitting:
-            raise NotImplementedError(
-                f"level n={graph.n}: no memory tier 0-3 fits {chip / 2**30:.1f} GB for "
-                f"{n_nodes} nodes (tier 0 needs {need(0) / 2**30:.1f} GB, tier 3 "
-                f"{need(3) / 2**30:.1f} GB); tier 4 (the layer-staged step) and "
-                f"gcn.oversize_policy={gcn.oversize_policy!r} are not ported yet "
-                "(ROADMAP Queue 1, item 8)"
-            )
-        tier = fitting[0]
-        cd, nd, rm, fc, rp = resolve(tier)
-        residency = need(tier)
+        def fits(tier: int, dims=None, shards: int = 1) -> bool:
+            return need(tier, dims, shards) + self._PLAN_SLACK + self._MIN_BANK <= chip
+
+        tiers = range(len(TIER_LEVERS))
+        tier = next((t for t in tiers if fits(t)), None)
+        dims_override = None
+        if tier is None:
+            shards = 1
+            while shards <= 4096 and not fits(_STAGED_TIER, shards=shards):
+                shards *= 2
+            degraded = list(gcn.hidden_layer_dims)
+            while not fits(_STAGED_TIER, degraded) and max(degraded) > 16:
+                degraded = [max(16, d // 2) for d in degraded]
+            deg_ok = fits(_STAGED_TIER, degraded)
+            if gcn.oversize_policy == "error" or not deg_ok:
+                dim_fix = (f" or gcn.hidden_layer_dims={degraded} (or smaller)" if deg_ok else
+                           " (no hidden-dim reduction fits: the input width or a forced type "
+                           "sets the floor)")
+                raise ValueError(
+                    f"level n={graph.n}: gcn.hidden_layer_dims={list(gcn.hidden_layer_dims)} "
+                    f"does not fit {chip / 2**30:.1f} GB at any memory tier ({n_nodes} nodes, "
+                    f"tier 4 needs {need(_STAGED_TIER) / 2**30:.1f} GB); set "
+                    f"parallel.mesh_nodes>={shards} (multi-device training: not ported yet, "
+                    f"ROADMAP Queue 1, item 13){dim_fix}")
+            dims_override = tuple(degraded)
+            tier = next(t for t in tiers if fits(t, degraded))
+            logger.warning(
+                "level n=%d: gcn.hidden_layer_dims=%s does not fit %.1f GB at any memory tier "
+                "(%d nodes): DEGRADING to %s (gcn.oversize_policy='degrade'); to train the "
+                "configured dims set parallel.mesh_nodes>=%d, or set gcn.hidden_layer_dims",
+                graph.n, list(gcn.hidden_layer_dims), chip / 2**30, n_nodes, degraded, shards)
+        cd, nd, rm, fc, rp, split = resolve(tier)
+        residency = need(tier, dims_override)
         budget = max(self._MIN_BANK, chip - residency - self._PLAN_SLACK)
         if tier > 0:
             logger.info(
                 "level n=%d auto-plan tier %d: compute=%s node_params=%s remat=%s "
-                "remat_paths=%s factored=%s (residency %.1f GB of %.1f GB; banks get %.1f GB)",
-                graph.n, tier, cd, nd, rm, rp, fc, residency / 2**30, chip / 2**30,
-                budget / 2**30)
+                "remat_paths=%s factored=%s stage_split=%d (residency %.1f GB of %.1f GB; "
+                "banks get %.1f GB)", graph.n, tier, cd, nd, rm, rp, fc, split,
+                residency / 2**30, chip / 2**30, budget / 2**30)
         return LevelPlan(tier=tier, compute_dtype=cd, node_param_dtype=nd, remat=rm,
                          remat_paths=rp, factored=fc, bank_budget=int(budget),
-                         residency=int(residency))
+                         residency=int(residency), stage_split=split,
+                         layer_dims_override=dims_override)
 
     def _takes_hypercube(self, graph: NgramGraph) -> bool:
         """Whether ``_to_device_graph`` tries the hypercube format for this
@@ -749,16 +951,30 @@ class HierarchicalTrainer:
     # ------------------------------------------------------------------
 
     def train_level(self, graph: NgramGraph, x_np: np.ndarray, y_np: np.ndarray,
-                    num_classes: int) -> Tuple[dict, np.ndarray, DirectGCNConfig, DeviceGraph]:
+                    num_classes: int, ckpt_dir: Optional[os.PathLike] = None,
+                    metrics: Optional[MetricLogger] = None
+                    ) -> Tuple[dict, np.ndarray, DirectGCNConfig, DeviceGraph]:
         """Train one n-gram level, full batch or on Cluster-GCN batches;
         returns (params, node embeddings of the real nodes, model config,
-        device graph of the full level)."""
+        device graph of the full level).
+
+        Full batch (trainer.py:2050-2084): with ``ckpt_dir`` and
+        ``gcn.checkpoint_every_epochs`` > 0, the latest ``step_{k}`` there is
+        restored before the first epoch (training goes on at epoch k + 1) and
+        the state is saved every ``checkpoint_every_epochs`` epochs; the
+        plateau scheduler and the early stopper start afresh, as in the JAX
+        package, while the learning rate rides in the optimizer's state and
+        the dropout generator's state in ``extra``.  ``metrics`` logs
+        ``{"level", "loss", "lr"}`` each epoch at ``step=epoch``.  The
+        clustered loop neither checkpoints nor logs."""
         gcn = self.gcn
         dev = self.device
         n_val = graph.n
         feat_dim = x_np.shape[1]
-        layer_dims = tuple([feat_dim] + list(gcn.hidden_layer_dims))
         plan = self._level_plan(graph, feat_dim, num_classes)
+        # The degrade policy's dims replace the configured ones (trainer.py:1830-1833).
+        hidden = plan.layer_dims_override or tuple(gcn.hidden_layer_dims)
+        layer_dims = tuple([feat_dim] + list(hidden))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t_ops = time.monotonic()
@@ -809,7 +1025,10 @@ class HierarchicalTrainer:
                         "moments (node_param_factored=%s)", n_val, gcn.node_param_factored)
         opt = make_optimizer(params, gcn.lr, wd,
                              factor_node_params_above=total_nodes if plan.factored else None)
-        step = make_train_step(model_cfg, opt, l2_lambda)
+        # A stage per layer (trainer.py:1952-1958); Cluster-GCN batches are
+        # small and train fused (the JAX staged step takes no subgraph batch).
+        staged = bool(plan.stage_split) and not use_cluster
+        step = (make_train_step_staged if staged else make_train_step)(model_cfg, opt, l2_lambda)
         sched = (PlateauScheduler(gcn.lr, gcn.lr_scheduler_patience, gcn.lr_scheduler_factor)
                  if gcn.use_lr_scheduler else None)
         stopper = (EarlyStopper(gcn.early_stopping_patience, gcn.early_stopping_min_delta)
@@ -827,7 +1046,8 @@ class HierarchicalTrainer:
                 return True
             return False
 
-        stats: Dict[str, Any] = {"route": "cluster" if use_cluster else full_graph.route}
+        stats: Dict[str, Any] = {"route": "cluster" if use_cluster else full_graph.route,
+                                 "staged": staged, "layer_dims": list(layer_dims)}
         losses: List[float] = []
         if use_cluster:
             t_build = time.monotonic()
@@ -865,13 +1085,27 @@ class HierarchicalTrainer:
                 x = x.reshape(full_graph.p_in.feature_shape + (feat_dim,))
             y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
             mask = torch.from_numpy(pad_nodes(np.ones(graph.num_nodes, dtype=np.float32))).to(dev)
+            every = gcn.checkpoint_every_epochs if ckpt_dir is not None else 0
+            start_epoch = 1
+            if every > 0:
+                restored = ckpt.restore_train_state(ckpt_dir, params, opt)
+                if restored is not None:
+                    start_epoch = restored[0] + 1
+                    drop_gen.set_state(restored[1]["dropout_generator"])
+            stats["start_epoch"] = start_epoch
             launches0 = _launch_counts()
             t0 = time.monotonic()
-            for epoch in range(1, gcn.epochs_per_level + 1):
+            for epoch in range(start_epoch, gcn.epochs_per_level + 1):
                 loss, _ = step(params, full_graph, x, y, mask, 1.0, drop_gen)
                 losses.append(float(loss))
+                if metrics is not None:
+                    metrics.log_metrics({"level": n_val, "loss": losses[-1],
+                                         "lr": sched.lr if sched else gcn.lr}, step=epoch)
                 if end_epoch(epoch, losses[-1]):
                     break
+                if every > 0 and epoch % every == 0:
+                    ckpt.save_train_state(ckpt_dir, epoch, params, opt,
+                                          {"dropout_generator": drop_gen.get_state()})
             stats["steps"] = len(losses)
             del x
         seconds = time.monotonic() - t0
@@ -925,7 +1159,9 @@ class HierarchicalTrainer:
             graphs_dir: Optional[os.PathLike] = None,
             output_dir: Optional[os.PathLike] = None) -> Optional[str]:
         """Train every level, cascade features, checkpoint each level's
-        embeddings to ``level_{n}.npz`` (and resume from them), mean-pool the
+        embeddings to ``level_{n}.npz`` (and resume from them; within a level
+        the training state, ``train_state_n{n}``), log each level's
+        parameters and metrics (``run_n{n}``), mean-pool the
         final level's embeddings per protein (kept as ``self.pooled``), and
         write them to ``gcn_n{n}_embeddings`` and, under ``gcn.apply_pca``,
         their PCA to ``gcn_n{n}_embeddings_pca{dim}`` (``.h5``, or ``.npz``
@@ -982,7 +1218,13 @@ class HierarchicalTrainer:
             label_seconds = time.monotonic() - t_labels
             # Keep only the embeddings: the level's operators and parameters
             # leave the device before the next level.
-            embeds = self.train_level(graph, x, y, num_classes)[1]
+            with MetricLogger(os.path.join(str(ckpt_dir), f"run_n{n_val}"),
+                              f"gcn_n{n_val}") as metrics:
+                metrics.log_params({"level": n_val, "task": task, "num_nodes": graph.num_nodes,
+                                    "num_edges": graph.num_edges, "num_classes": num_classes})
+                embeds = self.train_level(
+                    graph, x, y, num_classes, metrics=metrics,
+                    ckpt_dir=os.path.join(str(ckpt_dir), f"train_state_n{n_val}"))[1]
             level_embeds[n_val] = embeds
             np.savez_compressed(ckpt_path, embeddings=embeds)
             st = self.level_stats[n_val]
@@ -1011,7 +1253,7 @@ class HierarchicalTrainer:
             os.path.join(str(output_dir), f"gcn_n{n_max}_embeddings.h5"), pooled)
         logger.info("primary embeddings saved to %s (%d proteins)", final_path, len(pooled))
         if self.gcn.apply_pca and pooled:
-            pca = emb_utils.apply_pca(pooled, self.gcn.pca_target_dim)
+            pca = emb_utils.apply_pca(pooled, self.gcn.pca_target_dim, cfg.random_state)
             if pca:
                 dim = next(iter(pca.values())).shape[0]
                 final_path = write_embeddings(

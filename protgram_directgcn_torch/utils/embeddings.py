@@ -1,7 +1,8 @@
 """Pooling of n-gram embeddings to proteins, and their PCA.
 
 Port of protgram_directgcn_tpu/utils/embeddings.py:23-55, 67
-(reference: models_utils.py:87-136, 209-262).  Pooling: each protein is the
+(reference: models_utils.py:87-136, 209-262), with sklearn's PCA solvers
+(sklearn is absent on the card's machine).  Pooling: each protein is the
 mean of the embeddings of its in-vocabulary n-grams; proteins with none are
 dropped.
 Vectorised over the whole corpus: n-grams are packed into uint64 keys (the
@@ -28,14 +29,88 @@ def _is_constant_feature(var: torch.Tensor, mean: torch.Tensor, n: int) -> torch
     return var <= n * eps * var + (n * mean * eps) ** 2
 
 
+def _pca_solver(n_samples: int, dim: int, k: int) -> str:
+    """sklearn 1.9's ``PCA(svd_solver="auto")`` choice (``PCA._fit``)."""
+    if dim <= 1_000 and n_samples >= 10 * dim:
+        return "covariance_eigh"
+    if max(n_samples, dim) <= 500:
+        return "full"
+    if 1 <= k < 0.8 * min(n_samples, dim):
+        return "randomized"
+    return "full"
+
+
+def _scale_like_sklearn(mat: np.ndarray) -> np.ndarray:
+    """``StandardScaler().fit_transform`` in the input's type: column means
+    and population variances summed in float64 (sklearn's
+    ``_incremental_mean_and_var``), then ``x -= mean``, ``x /= std`` in the
+    input's type, a constant column divided by 1."""
+    n = mat.shape[0]
+    total = mat.sum(axis=0, dtype=np.float64)
+    mean = total / n
+    temp = mat - mean
+    correction = temp.sum(axis=0)
+    temp **= 2
+    var = (temp.sum(axis=0) - correction**2 / n) / n
+    std = np.sqrt(var)
+    std[_is_constant_feature(torch.from_numpy(var), torch.from_numpy(mean), n).numpy()] = 1.0
+    out = mat.copy()
+    out -= mean.astype(mat.dtype)
+    out /= std.astype(mat.dtype)
+    return out
+
+
+def _svd_flip_rows(u: np.ndarray, vt: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """sklearn's ``svd_flip(u, vt, u_based_decision=False)``: each row of vt
+    made positive at its largest magnitude, u's columns to match."""
+    signs = np.sign(vt[np.arange(vt.shape[0]), np.abs(vt).argmax(axis=1)])
+    return u * signs[None, :], vt * signs[:, None]
+
+
+def randomized_svd(m: np.ndarray, k: int, random_state, n_oversamples: int = 10):
+    """sklearn 1.9's ``_randomized_svd`` as ``PCA`` calls it (Halko et al.):
+    a Gaussian sketch of k + ``n_oversamples`` columns from
+    ``RandomState(random_state)`` in m's type, 7 power iterations where
+    k < 0.1 * min(m.shape) else 4, each normalised by ``scipy.linalg.lu``,
+    then QR and the SVD of the projection; the wide case works on mᵀ.
+    Returns (u, s, vt) of the k leading components, unflipped."""
+    import scipy.linalg as sla
+
+    rng = random_state if isinstance(random_state, np.random.RandomState) else (
+        np.random.RandomState(random_state))
+    n_iter = 7 if k < 0.1 * min(m.shape) else 4
+    transpose = m.shape[0] < m.shape[1]
+    a = m.T if transpose else m
+    q = rng.normal(size=(a.shape[1], k + n_oversamples))
+    if a.dtype == np.float32:
+        q = q.astype(np.float32, copy=False)
+    for _ in range(n_iter):
+        q, _ = sla.lu(a @ q, permute_l=True, check_finite=False)
+        q, _ = sla.lu(a.T @ q, permute_l=True, check_finite=False)
+    q, _ = sla.qr(a @ q, mode="economic", check_finite=False)
+    u_hat, s, vt = sla.svd(q.T @ a, full_matrices=False, lapack_driver="gesdd")
+    u = q @ u_hat
+    if transpose:
+        return vt[:k, :].T, s[:k], u[:, :k].T
+    return u[:, :k], s[:k], vt[:k, :]
+
+
 def apply_pca(embeddings: Dict[str, np.ndarray], target_dim: int,
+              random_state: Optional[int] = None,
               output_dtype=np.float16) -> Optional[Dict[str, np.ndarray]]:
     """StandardScaler then PCA to ``min(target_dim, dim, n_samples)``
     components, float16 output (utils/embeddings.py:23-55 of the JAX
-    package, which calls sklearn).  In torch on the host, in float64: the
-    columns centred and divided by their population std (a constant column
-    by 1), then ``torch.linalg.svd``; each component's sign makes its
-    largest-magnitude loading positive (sklearn 1.9's
+    package, which calls sklearn on float32 with ``random_state``).
+
+    The solver is sklearn 1.9's "auto" choice (``_pca_solver``).  Where it
+    is randomized (max(N, D) > 500, N < 10·D, k < 0.8·min(N, D)), sklearn's
+    steps in numpy/scipy on the float32 matrix: the scaling
+    (``_scale_like_sklearn``), centring, :func:`randomized_svd` seeded by
+    ``random_state``, ``svd_flip``, scores u·s.  Elsewhere (covariance_eigh
+    and full, whose exact results agree to rounding) torch on the host in
+    float64: the columns centred and divided by their population std (a
+    constant column by 1), ``torch.linalg.svd``, and each component's sign
+    making its largest-magnitude loading positive (sklearn's
     ``svd_flip(u_based_decision=False)``)."""
     items = [(k, v.astype(np.float32)) for k, v in embeddings.items()
              if v is not None and v.size > 0]
@@ -43,27 +118,38 @@ def apply_pca(embeddings: Dict[str, np.ndarray], target_dim: int,
         logger.error("PCA: no valid embeddings provided")
         return None
     ids = [k for k, _ in items]
-    mat = torch.from_numpy(np.stack([v for _, v in items])).double()
-    n_samples, dim = mat.shape
+    mat32 = np.stack([v for _, v in items])
+    n_samples, dim = mat32.shape
     actual = min(target_dim, dim, n_samples)
     if actual <= 0:
         return {k: v.astype(output_dtype) for k, v in items}
     if actual < target_dim:
         logger.warning("PCA: adjusted target dim %d -> %d", target_dim, actual)
-    mean = mat.mean(0)
-    var = mat.var(0, correction=0)
-    std = torch.where(_is_constant_feature(var, mean, n_samples), 1.0, var.sqrt())
-    scaled = (mat - mean) / std
-    centred = scaled - scaled.mean(0)
-    _, s, vt = torch.linalg.svd(centred, full_matrices=False)
-    rows = torch.arange(vt.shape[0])
-    vt = vt * torch.sign(vt[rows, vt.abs().argmax(1)])[:, None]
-    out = centred @ vt[:actual].T
-    total = float((s ** 2).sum())
-    explained = float((s[:actual] ** 2).sum()) / total if total else 0.0
-    logger.info("PCA %s -> %s (explained variance %.4f)", tuple(mat.shape), tuple(out.shape),
-                explained)
-    out = out.numpy().astype(output_dtype)
+    solver = _pca_solver(n_samples, dim, actual)
+    if solver == "randomized":
+        scaled = _scale_like_sklearn(mat32)
+        centred = scaled - scaled.mean(axis=0)
+        u, s, vt = randomized_svd(centred, actual, random_state)
+        u, _ = _svd_flip_rows(u, vt)
+        out = u * s
+        total = float(np.sum(centred.astype(np.float64) ** 2))
+        explained = float(np.sum(s.astype(np.float64) ** 2)) / total if total else 0.0
+    else:
+        mat = torch.from_numpy(mat32).double()
+        mean = mat.mean(0)
+        var = mat.var(0, correction=0)
+        std = torch.where(_is_constant_feature(var, mean, n_samples), 1.0, var.sqrt())
+        scaled = (mat - mean) / std
+        centred = scaled - scaled.mean(0)
+        _, s, vt = torch.linalg.svd(centred, full_matrices=False)
+        rows = torch.arange(vt.shape[0])
+        vt = vt * torch.sign(vt[rows, vt.abs().argmax(1)])[:, None]
+        out = (centred @ vt[:actual].T).numpy()
+        total = float((s ** 2).sum())
+        explained = float((s[:actual] ** 2).sum()) / total if total else 0.0
+    logger.info("PCA %s -> %s (%s, explained variance %.4f)", tuple(mat32.shape),
+                tuple(out.shape), solver, explained)
+    out = out.astype(output_dtype)
     return {pid: vec for pid, vec in zip(ids, out)}
 
 

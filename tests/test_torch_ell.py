@@ -5,7 +5,7 @@ The same seeded numpy inputs go through the JAX package and the port:
 - builders (``build_ell``, ``build_bucketed_ell``, ``build_coo``) byte for
   byte, on random graphs and on real n = 2 and n = 3 n-gram matrices; the
   ``choose_format`` and ``build_adjacency(mode="auto")`` decisions, the
-  port raising where the JAX package picks the block format;
+  block format's factors field for field where the JAX package picks it;
 - the ELL kernels' plain versions against the Pallas kernels run with
   ``interpret=True`` (as tests/test_pallas.py runs them), rtol 1e-5 and
   atol 1e-6 * max|x| * K: float32 sums of K products taken in another order;
@@ -34,6 +34,7 @@ from protgram_directgcn_torch import convert
 from protgram_directgcn_torch.graph import transforms as t_transforms
 from protgram_directgcn_torch.models import directgcn as t_model
 from protgram_directgcn_torch.ops import _nvcc
+from protgram_directgcn_torch.ops import block as t_block
 from protgram_directgcn_torch.ops import ell_kernels as ek
 from protgram_directgcn_torch.ops import spmm as t_spmm
 from protgram_directgcn_tpu.graph import transforms as j_transforms
@@ -73,6 +74,9 @@ def _same_adj(t, j):
     """Every array of a port adjacency equals the JAX one's, byte for byte."""
     if isinstance(j, j_spmm.EllAdj):
         for k in ("idx", "w", "idx_t", "w_t"):
+            _same(getattr(t, k).numpy(), getattr(j, k))
+    elif isinstance(j, j_block.BlockNgramAdj):
+        for k in ("d", "wf", "wb", "sgrp", "pgrp", "pos_p", "pos_s"):
             _same(getattr(t, k).numpy(), getattr(j, k))
     elif isinstance(j, j_spmm.BucketedEllAdj):
         for k in ("idx", "w", "idx_t", "w_t"):
@@ -143,18 +147,13 @@ def test_choose_format_matches_jax(feat_dim):
 _KIND = {j_spmm.DenseAdj: "dense", j_spmm.EllAdj: "ell", j_spmm.BucketedEllAdj: "bucketed",
          j_spmm.CooAdj: "coo", j_block.BlockNgramAdj: "block"}
 _T_KIND = {t_spmm.DenseAdj: "dense", t_spmm.EllAdj: "ell", t_spmm.BucketedEllAdj: "bucketed",
-           t_spmm.CooAdj: "coo"}
+           t_spmm.CooAdj: "coo", t_block.BlockNgramAdj: "block"}
 
 
 def _auto_kinds(src, tgt, w, n_out, n_in, feat_dim, node_keys=None):
     j = j_spmm.build_adjacency(src, tgt, w, n_out, n_in, mode="auto", feat_dim=feat_dim,
                                node_keys=node_keys)
     kind = _KIND[type(j)]
-    if kind == "block":
-        with pytest.raises(NotImplementedError, match="block"):
-            t_spmm.build_adjacency(src, tgt, w, n_out, n_in, mode="auto", feat_dim=feat_dim,
-                                   node_keys=node_keys, device="cpu")
-        return kind, kind
     t = t_spmm.build_adjacency(src, tgt, w, n_out, n_in, mode="auto", feat_dim=feat_dim,
                                node_keys=node_keys, device="cpu")
     if kind != "dense":
@@ -174,10 +173,10 @@ def test_auto_format_matches_jax_on_random_graphs(case, feat_dim):
 @pytest.mark.parametrize("level", [1, 2, 3])
 def test_auto_format_matches_jax_on_ngram_graphs(ngram_graphs, level, feat_dim):
     """With the n-gram node keys the JAX package may pick the block format,
-    where the port must raise."""
+    and the port builds the same factors."""
     jg, tg = ngram_graphs
     g = tg[level - 1]
-    keys = t_spmm.ngram_node_keys(g.vocab) if level >= 2 else None
+    keys = t_block.ngram_node_keys(g.vocab) if level >= 2 else None
     if keys is not None:
         for a, b in zip(keys, j_block.ngram_node_keys(jg[level - 1].vocab)):
             np.testing.assert_array_equal(a, b)
@@ -191,19 +190,21 @@ def test_auto_format_matches_jax_on_ngram_graphs(ngram_graphs, level, feat_dim):
 
 
 def test_block_selection_rule_matches_jax_when_the_structure_breaks():
-    """An edge outside both n-gram patterns makes the JAX block builder
-    raise, and auto then falls through to ELL: the port must follow."""
+    """An edge outside both n-gram patterns makes both block builders
+    raise, and auto then falls through to ELL in both packages; forcing
+    ``mode="block"`` raises in both."""
     vocab = np.array(["AA", "AB", "BA", "BB"])
-    pk, sk, nk = t_spmm.ngram_node_keys(vocab)
+    pk, sk, nk = t_block.ngram_node_keys(vocab)
     src = np.array([0, 1, 2, 3, 0, 1, 2, 3, 1], np.int32)
     tgt = np.array([1, 2, 3, 0, 0, 1, 2, 3, 0], np.int32)  # 3 -> 0 ("BB" -> "AA") is off-pattern
     w = np.ones(len(src), np.float32)
-    assert not t_spmm._block_structure_fits(src, tgt, pk, sk, nk)
+    with pytest.raises(t_block.BlockStructureError):
+        t_block.build_block_ngram(src, tgt, w, 4, pk, sk, nk, device="cpu")
     with pytest.raises(j_block.BlockStructureError):
         j_block.build_block_ngram(src, tgt, w, 4, pk, sk, nk)
     got, want = _auto_kinds(src, tgt, w, 4, 4, 4096, (pk, sk, nk))
     assert got == want
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(t_block.BlockStructureError):
         t_spmm.build_adjacency(src, tgt, w, 4, mode="block", node_keys=(pk, sk, nk),
                                device="cpu")
 

@@ -1,11 +1,15 @@
 """Port parity: the export after pooling (PCA and the embeddings file).
 
-- ``apply_pca`` (torch, float64, on the host) against sklearn's
-  ``StandardScaler`` + ``PCA`` on the same seeded data in float64, before
-  the float16 cast: rtol 1e-5, atol 1e-6, signs as sklearn's ``svd_flip``
-  sets them; and its float16 output within one float16 ulp of sklearn's
-  and of the JAX package's ``apply_pca`` (sklearn on float32 input; one
-  ulp at the column's largest magnitude).
+- ``apply_pca`` against sklearn's ``StandardScaler`` + ``PCA`` on the same
+  seeded data, before the float16 cast: rtol 1e-5, atol 1e-6, signs as
+  sklearn's ``svd_flip`` sets them.  Where sklearn's "auto" solver is
+  covariance_eigh or full, the port's torch float64 SVD against sklearn in
+  float64; where it is randomized, the port's numpy ``randomized_svd``
+  against sklearn on the float32 input the JAX package passes it, with the
+  same ``random_state`` (the sketch depends on both).  The float16 output
+  within one float16 ulp of sklearn's and of the JAX package's
+  ``apply_pca`` (sklearn on float32 input; one ulp at the column's largest
+  magnitude).
 - ``write_embeddings``: H5 where h5py imports, ``.npz`` where it does not,
   read back key for key.
 - ``run()`` to n = 4 on the toy FASTA (``--device cpu``): the port writes
@@ -44,18 +48,35 @@ CASES = [
     (120, 30, 12),  # full SVD
     (50, 8, 64),  # target > dim
     (5, 12, 64),  # target > n_samples
+    # Randomized: max(N, D) > 500, N < 10·D and k < 0.8·min(N, D).
+    (1000, 128, 64),  # the default target on a 128-wide export (7 power iterations: no)
+    (600, 200, 16),  # k < 0.1·min(N, D): 7 power iterations
+    (300, 800, 40),  # wide: sklearn sketches the transpose
 ]
+SEED = 42  # Config.random_state, which run() passes to apply_pca
+
+
+def _sklearn_pca(mat: np.ndarray, k: int) -> np.ndarray:
+    """sklearn's scores in float64, or, where its solver is randomized, on
+    the float32 input with the run's seed, as the JAX package calls it."""
+    if t_emb._pca_solver(*mat.shape, k) == "randomized":
+        mat = mat.astype(np.float32)
+        pca = PCA(n_components=k, random_state=SEED)
+    else:
+        mat = mat.astype(np.float64)
+        pca = PCA(n_components=k, random_state=0)
+    out = pca.fit_transform(StandardScaler().fit_transform(mat))
+    assert (pca._fit_svd_solver == "randomized") == (mat.dtype == np.float32)
+    return out
 
 
 @pytest.mark.parametrize("n,dim,target", CASES)
 @pytest.mark.parametrize("constant_col", [False, True])
 def test_pca_matches_sklearn_before_the_cast(n, dim, target, constant_col):
     emb = _embeddings(n, dim, seed=n + dim, constant_col=constant_col)
-    got = t_emb.apply_pca(emb, target, output_dtype=np.float64)
-    mat = np.stack(list(emb.values())).astype(np.float64)
+    got = t_emb.apply_pca(emb, target, SEED, output_dtype=np.float64)
     k = min(target, dim, n)
-    want = PCA(n_components=k, random_state=0).fit_transform(
-        StandardScaler().fit_transform(mat))
+    want = _sklearn_pca(np.stack(list(emb.values())), k)
     assert list(got) == list(emb)
     out = np.stack(list(got.values()))
     assert out.shape == (n, k) and out.dtype == np.float64
@@ -75,12 +96,10 @@ def test_pca_float16_matches_jax(n, dim, target):
     there, ~1e-6 of a column's scale, can pass an element's own ulp where
     the element is near zero."""
     emb = _embeddings(n, dim, seed=7 * n + dim)
-    got = t_emb.apply_pca(emb, target)
-    want = j_emb.apply_pca(emb, target, random_seed=42)
+    got = t_emb.apply_pca(emb, target, SEED)
+    want = j_emb.apply_pca(emb, target, random_seed=SEED)
     k = min(target, dim, n)
-    mat = np.stack(list(emb.values())).astype(np.float64)
-    exact = PCA(n_components=k, random_state=0).fit_transform(
-        StandardScaler().fit_transform(mat)).astype(np.float16)
+    exact = _sklearn_pca(np.stack(list(emb.values())), k).astype(np.float16)
     assert list(got) == list(want)
     a = np.stack(list(got.values()))
     b = np.stack(list(want.values()))

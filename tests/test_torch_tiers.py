@@ -1,4 +1,5 @@
-"""Port parity: memory tiers 1-3 of the trainer's plan.
+"""Port parity: memory tiers 1-3 of the trainer's plan (tier 4 and the
+oversize policies: tests/test_torch_staged.py).
 
 Held against the JAX package on the CPU, on inputs made with numpy from a
 seed:
@@ -135,15 +136,15 @@ def _plans(dims, budget, feat_dim, graph, classes=4, **knobs):
     jplan = jt._level_plan(graph, feat_dim=feat_dim)
     try:
         tplan = tt._level_plan(graph, feat_dim, num_classes=classes)
-    except NotImplementedError as exc:
+    except ValueError as exc:
         tplan = exc
     return jplan, tplan
 
 
 def _same_knobs(jplan, tplan):
-    for field in ("compute_dtype", "node_param_dtype", "remat", "remat_paths", "factored"):
+    for field in ("compute_dtype", "node_param_dtype", "remat", "remat_paths", "factored",
+                  "stage_split", "layer_dims_override"):
         assert getattr(tplan, field) == getattr(jplan, field), field
-    assert jplan.stage_split == 0 and jplan.layer_dims_override is None
 
 
 def _jax_tier(jplan) -> int:
@@ -172,12 +173,18 @@ def test_five_gram_plan_against_jax(gib, jax_tier, tier):
 
 
 def test_five_gram_plan_at_15_gib_needs_tier_4():
-    """At 15 GiB (one v5e) the JAX package escalates to the staged step (or
-    degrades the dims); the port refuses, naming the ROADMAP item."""
+    """At 15 GiB (one v5e) no tier fits the five-layer net in either
+    package: both degrade the dims and train them at tier 4, the staged
+    step.  Each halves until its own byte model fits: the JAX package stops
+    at [32, 32, 16, 16, 16]; the port's, which counts the 128-wide input
+    and the carries the staged step keeps at their logical width and the
+    backward buffers measured on the card, one halving later."""
     jplan, tplan = _plans([128, 128, 64, 64, 32], 15 << 30, 128, _stub(5))
-    assert jplan.stage_split > 0 or jplan.layer_dims_override is not None
-    assert isinstance(tplan, NotImplementedError)
-    assert "ROADMAP Queue 1, item 8" in str(tplan) and "tier 0" in str(tplan)
+    assert jplan.stage_split == tplan.stage_split == 3
+    assert jplan.layer_dims_override == (32, 32, 16, 16, 16)
+    assert tplan.tier == 4 and tplan.layer_dims_override == (16, 16, 16, 16, 16)
+    for field in ("compute_dtype", "node_param_dtype", "remat", "remat_paths", "factored"):
+        assert getattr(tplan, field) == getattr(jplan, field), field
 
 
 def test_toy_level_stays_at_tier_0(graphs):
@@ -208,8 +215,9 @@ def test_resolve_and_first_fit_match_jax(monkeypatch, gib, knobs):
     """``resolve`` (explicit knobs override their field at every tier,
     trainer.py:1492-1516) and "first tier that fits wins", with both byte
     models replaced by one cost of the levers, so that the two packages see
-    the same residency at every tier.  Where no tier 0-3 fits, the JAX
-    package goes on (tier 4, degrade or error) and the port raises."""
+    the same residency at every tier.  Where no tier fits (the cost does
+    not see the staged step or the dims, so degrading cannot help), both
+    raise ValueError."""
     jt = j_trainer.HierarchicalTrainer(JConfig())
     tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
     for tr in (jt, tt):
@@ -219,7 +227,7 @@ def test_resolve_and_first_fit_match_jax(monkeypatch, gib, knobs):
     monkeypatch.setattr(jt, "_residency", lambda n, feat, cd, nd, rm, fc, **kw: (
         0, 0, _lever_cost(cd, nd, rm, fc) << 30))
     monkeypatch.setattr(tt, "_residency", lambda n, feat, classes, cd="float32",
-                        nd="float32", rm=False, fc=False, rp=False: (
+                        nd="float32", rm=False, fc=False, rp=False, **kw: (
                             0, 0, _lever_cost(cd, nd, rm, fc) << 30))
     try:
         jplan = jt._level_plan(_stub(5), feat_dim=64)
@@ -227,9 +235,8 @@ def test_resolve_and_first_fit_match_jax(monkeypatch, gib, knobs):
         jplan = None
     try:
         tplan = tt._level_plan(_stub(5), 64, num_classes=4)
-    except NotImplementedError as exc:
-        assert "ROADMAP Queue 1, item 8" in str(exc)
-        assert jplan is None or jplan.stage_split > 0 or jplan.layer_dims_override is not None
+    except ValueError as exc:
+        assert jplan is None and "does not fit" in str(exc)
         return
     _same_knobs(jplan, tplan)
     assert _lever_cost(tplan.compute_dtype, tplan.node_param_dtype, tplan.remat,
@@ -681,8 +688,10 @@ def test_train_level_gives_the_format_the_widest_layer(graphs):
 def test_unported_knobs_warn(tmp_path, caplog, knob, value, item):
     """Satellite repair: a knob the trainer does not act on logs one
     warning naming its ROADMAP item, and nothing when it is off.
-    ``apply_pca`` (ROADMAP Queue 1 item 3) is ported: it writes the PCA
-    file of a real run and logs no such warning."""
+    ``apply_pca`` (ROADMAP Queue 1 item 3) and ``checkpoint_every_epochs``
+    (item 4) are ported: a real run writes the PCA file, or the training
+    state ``step_100`` of each level (100 epochs, early stopping off), and
+    logs no such warning."""
     cfg = TConfig()
     for k in ("apply_pca", "run_sanity_check_ppi", "checkpoint_every_epochs"):
         setattr(cfg.gcn, k, 0 if k == "checkpoint_every_epochs" else False)
@@ -690,12 +699,13 @@ def test_unported_knobs_warn(tmp_path, caplog, knob, value, item):
     cfg.paths.base_output_dir = tmp_path
     cfg.id_mapping_mode = "none"
     cfg.graph_builder.ngram_max_n = 1
-    ported = knob == "apply_pca"
+    ported = knob in ("apply_pca", "checkpoint_every_epochs")
     fasta = tmp_path / "absent.fasta"
     if ported:
         fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=30, lo=10, hi=40)
         cfg.apply_overrides({"gcn.hidden_layer_dims": [8], "gcn.one_gram_init_dim": 8,
-                             "gcn.epochs_per_level": 1})
+                             "gcn.epochs_per_level": value if knob == "checkpoint_every_epochs"
+                             else 1, "gcn.use_early_stopping": False})
         TBuilder(cfg).run(fasta, cfg.paths.graph_objects_dir)
     t_logger.addHandler(caplog.handler)
     try:
@@ -704,10 +714,16 @@ def test_unported_knobs_warn(tmp_path, caplog, knob, value, item):
     finally:
         t_logger.removeHandler(caplog.handler)
     warned = [r.getMessage() for r in caplog.records if "not acted on" in r.getMessage()]
+    out = cfg.paths.gcn_embeddings_dir
+    if knob == "checkpoint_every_epochs":
+        assert warned == []
+        assert sorted(p.name for p in (out / "level_checkpoints" / "train_state_n1").iterdir()
+                      ) == ["step_100"]
+        return
     if ported:
         assert warned == []
-        assert path == str(cfg.paths.gcn_embeddings_dir / "gcn_n1_embeddings_pca8.h5")
-        assert (cfg.paths.gcn_embeddings_dir / "gcn_n1_embeddings.h5").exists()
+        assert path == str(out / "gcn_n1_embeddings_pca8.h5")
+        assert (out / "gcn_n1_embeddings.h5").exists()
         return
     assert path is None
     assert len(warned) == 1 and f"gcn.{knob}" in warned[0] and item in warned[0]

@@ -149,25 +149,32 @@ def test_level_routes_and_plan(graphs):
     ("node_param_factored", "on"), ("remat", True),
 ])
 def test_level_plan_refuses_unported_tiers(graphs, knob, value):
-    """Tiers 1-3 are ported: an explicit knob sets its field of the plan.
-    Where no tier up to 3 fits, the plan refuses: tier 4 (the staged step)
-    is not ported."""
-    _, tg = graphs
+    """An explicit knob sets its field of the plan.  Where no tier fits,
+    not even tier 4 at degraded dims (2 GiB: less than the plan's slack and
+    bank floor), the port raises the JAX package's ValueError (same
+    opening), naming the configured dims."""
+    jg, tg = graphs
     tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
+    jt = j_trainer.HierarchicalTrainer(JConfig())
     setattr(tt.gcn, knob, value)
+    setattr(jt.gcn, knob, value)
     plan = tt._level_plan(tg[2], 16)
     field = "factored" if knob == "node_param_factored" else knob
     assert getattr(plan, field) == (True if value == "on" else value)
-    tt._hbm_override = 2 << 30
-    with pytest.raises(NotImplementedError, match="tier 4"):
+    tt._hbm_override = jt._hbm_override = 2 << 30
+    with pytest.raises(ValueError) as t_exc:
         tt._level_plan(tg[2], 16)
+    with pytest.raises(ValueError) as j_exc:
+        jt._level_plan(jg[2], 16)
+    head = "level n=3: gcn.hidden_layer_dims=[256, 128, 64] does not fit 2.0 GB at any memory tier"
+    assert str(t_exc.value).startswith(head) and str(j_exc.value).startswith(head)
 
 
 def test_level_plan_raises_when_tier0_does_not_fit(graphs):
     _, tg = graphs
     tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
     tt._hbm_override = 1 << 30
-    with pytest.raises(NotImplementedError, match="tier 0"):
+    with pytest.raises(ValueError, match="does not fit 1.0 GB at any memory tier"):
         tt._level_plan(tg[2], 16)
 
 
@@ -251,9 +258,8 @@ def test_run_ell_path_on_cpu(tmp_path):
 @pytest.mark.parametrize("level", [2, 3])
 def test_hypercube_failure_falls_back_like_jax(tmp_path, monkeypatch, level, feat_dim):
     """When the hypercube cannot be built, both trainers fall back to
-    ``graph.to_device(mode="auto", feat_dim=...)`` (trainer.py:1626-1633):
-    the port takes the JAX package's format, or raises where that is the
-    block format, which is not ported."""
+    ``graph.to_device(mode="auto", feat_dim=...)`` (trainer.py:1626-1633)
+    and take the same format, the block format included."""
     from protgram_directgcn_torch.ops import hypercube as t_hyper
     from protgram_directgcn_tpu.ops import block as j_block
     from protgram_directgcn_tpu.ops import hypercube as j_hyper
@@ -273,11 +279,7 @@ def test_hypercube_failure_falls_back_like_jax(tmp_path, monkeypatch, level, fea
     want = type(j_trainer.HierarchicalTrainer(JConfig())._to_device_graph(jgraph, feat_dim).p_in)
     tt = t_trainer.HierarchicalTrainer(TConfig(), device="cpu")
     plan = tt._level_plan(tgraph, feat_dim)
-    if want.__name__ == "BlockNgramAdj":
-        with pytest.raises(NotImplementedError, match="block"):
-            tt._to_device_graph(tgraph, plan, feat_dim)
-    else:
-        assert type(tt._to_device_graph(tgraph, plan, feat_dim).p_in).__name__ == want.__name__
+    assert type(tt._to_device_graph(tgraph, plan, feat_dim).p_in).__name__ == want.__name__
 
 
 def test_cli_graph_and_gcn_on_cpu(tmp_path):
