@@ -22,7 +22,24 @@ Phases, each printing one JSON line as it ends:
 2. main path: ``python -m protgram_directgcn_torch --stages graph,gcn``'s
    entry point on a seeded synthetic FASTA of Swiss-Prot-like size (20,000
    sequences, lengths 50-1,000), dims [256, 128, 64], n = 1..3, five epochs a
-   level, with the K1/K2 launch counts set to 0 before and read after;
+   level, with the K1/K2 launch counts set to 0 before and read after; every
+   other knob at its default, so the PPI sanity check runs on the 64-column
+   PCA file over seeded interaction files (100,000 positive and 200,000
+   negative pairs of the FASTA's accessions): a [128 -> 64 -> 32 -> 1] MLP,
+   10 epochs on 160,000 pairs at batch 1,024 (phase ``sanity_check``);
+2a. word2vec: ``--stages word2vec`` on the same FASTA and ``--out`` at every
+   default (dim 100, window 5, 5 epochs, batch 8,192, sample 1e-3): steps,
+   final loss, host sampling and device seconds, one finite vector per
+   protein, the ``.vectors.bin`` read back equal;
+2b. ppi: ``--stages ppi`` over the four sets the two stages wrote (GCN and
+   Word2Vec, each raw and PCA), 5 folds, 100,000 sampled negatives, batch
+   1,024, ``eval.epochs`` cut from 300 to 10: a finite AUC a set, a
+   Wilcoxon row for each set but the main one, seconds and MLP steps per
+   second a set;
+2c. ppi reference: one fold's MLP at the default widths (dropout 0), 3
+   epochs on the card and on the CPU from the same parameters, the
+   probabilities within rtol 1e-4, atol 1e-6; one skip-gram epoch on a
+   300-sequence FASTA on both, the vectors within rtol 1e-4, atol 1e-7;
 3. reference: the model's forward and gradients on the card against the
    port's CPU path (which the CPU tests hold against the JAX package) on a
    small n = 3 hypercube graph;
@@ -143,6 +160,14 @@ TIER_PIN = 32 << 30  # n = 1..4 fit tier 0 and the 5-gram level tier 3 (PERF.md)
 TIER_CLASSES = 4  # closest_aa with closest_aa_k_hops = 3
 SWISSPROT_HYPER_NODES = 26**5  # 25 letters and the space at n = 5
 CHECKPOINT_EVERY = 2
+N_POSITIVE_PAIRS = 100_000  # seeded interaction pairs over the FASTA's accessions
+N_NEGATIVE_PAIRS = 200_000
+PPI_EPOCHS = 10  # eval.epochs cut from 300: ~2.5 ms host-bound MLP steps (PERF.md)
+PPI_REF_PAIRS = 20_000  # the ppi_reference phase's pairs (one fold of 5 held out)
+PPI_REF_EPOCHS = 3
+PPI_REF_TOL = (1e-4, 1e-6)  # rtol, atol of the card's probabilities against the CPU's
+W2V_REF_TOL = (1e-4, 1e-7)  # rtol, atol of the card's skip-gram vectors against the CPU's
+W2V_REF_SEQS = 300
 BF16_GRAD_NORM_REL = 0.25  # tests/test_torch_tiers.py
 SOURCES = {
     "hyper_k1": "protgram_directgcn_torch/csrc/hyper.cu",
@@ -407,12 +432,31 @@ def _pooled(result, dim: int) -> dict:
             "pool_seconds": result["trainer"].pool_seconds}
 
 
+def write_pairs(path: str, n_pairs: int, n_seqs: int, seed: int) -> None:
+    """Seeded interaction CSV of ``n_pairs`` distinct-protein pairs over the
+    synthetic FASTA's accessions ``A00000``..."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, n_seqs, n_pairs)
+    b = (a + rng.integers(1, n_seqs, n_pairs)) % n_seqs
+    with open(path, "w") as fh:
+        fh.write("".join(f"A{i:05d},A{j:05d}\n" for i, j in zip(a.tolist(), b.tolist())))
+
+
+def _interaction_args(workdir: str):
+    return ["--set", f"paths.interactions_positive={os.path.join(workdir, 'positive.csv')}",
+            "--set", f"paths.interactions_negative={os.path.join(workdir, 'negative.csv')}"]
+
+
 def run_main_path(torch, hk, fasta: str, workdir: str):
+    """``--stages graph,gcn`` at n = 1..3, 5 epochs a level, every other knob
+    at its default: the PPI sanity check runs on the 64-column PCA file."""
     argv = ["--fasta", fasta, "--out", os.path.join(workdir, "out"), "--stages", "graph,gcn",
             "--set", "gcn.hidden_layer_dims=[256,128,64]",
             "--set", "graph_builder.ngram_max_n=3",
             "--set", "gcn.epochs_per_level=5",
-            "--set", "gcn.run_sanity_check_ppi=false",
+            *_interaction_args(workdir),
             "--device", DEVICE]
     hk.reset_launches()
     result, seconds = _drive(torch, argv)
@@ -438,7 +482,191 @@ def run_main_path(torch, hk, fasta: str, workdir: str):
                     fail(f"level n={n}: {k} {direction} was never launched")
     emit("main_path", seconds=seconds, launches=counts,
          graph_etl_seconds=_native_etl(result, "main path"), **_pooled(result, 64))
-    return counts, result["graphs"]
+    trainer = result["trainer"]
+    metrics, stats = trainer.sanity_metrics, trainer.sanity_stats
+    if metrics is None or not _finite(metrics.values()):
+        fail(f"the PPI sanity check was skipped or not finite: {metrics}")
+    if not result["embeddings_path"].endswith("_pca64.npz"):
+        fail(f"the sanity check read {result['embeddings_path']}, not the 64-column PCA file")
+    emit("sanity_check", embeddings=os.path.basename(result["embeddings_path"]), **metrics,
+         **stats, steps_per_second=stats["steps"] / stats["fit_seconds"])
+    return counts, result["graphs"], result["embeddings_path"]
+
+
+# -----------------------------------------------------------------------------
+# The Word2Vec and PPI stages
+# -----------------------------------------------------------------------------
+
+
+def run_word2vec(torch, fasta: str, workdir: str) -> dict:
+    """``--stages word2vec`` on the main path's FASTA and ``--out``, every
+    knob at its default (dim 100, window 5, 5 epochs, batch 8,192, sample
+    1e-3): one finite pooled vector per protein, and the ``.vectors.bin``
+    read back equal to the model's input table."""
+    import numpy as np
+
+    from protgram_directgcn_torch.pipeline.word2vec import SkipGramModel
+    from protgram_directgcn_torch.utils.io import read_embeddings
+
+    argv = ["--fasta", fasta, "--out", os.path.join(workdir, "out"), "--stages", "word2vec",
+            "--device", DEVICE]
+    result, seconds = _drive(torch, argv)
+    emb = result["embedder"]
+    st = emb.stats
+    pooled = read_embeddings(result["word2vec_path"])
+    vecs = np.stack(list(pooled.values()))
+    if len(pooled) != N_SEQS or vecs.shape[1] != 100 or not np.isfinite(vecs).all():
+        fail(f"word2vec: {len(pooled)} proteins, shape {vecs.shape}")
+    bin_path = next(f for f in st["files"] if f.endswith(".vectors.bin"))
+    back = SkipGramModel.load_word2vec_format(bin_path, device="cpu")
+    if back.vocab != emb.model.vocab or not np.array_equal(back.vectors(), emb.model.vectors()):
+        fail("word2vec: the .vectors.bin does not read back equal")
+    if not (st["steps"] > 0 and _finite([st["final_loss"]])):
+        fail(f"word2vec: {st['steps']} steps, final loss {st['final_loss']}")
+    emit("word2vec", wall_seconds=seconds, proteins=len(pooled),
+         files=[os.path.basename(f) for f in st["files"]],
+         **{k: v for k, v in st.items() if k != "files"})
+    return st
+
+
+def run_ppi(torch, workdir: str) -> dict:
+    """``--stages ppi`` over the main path's and the word2vec phase's files
+    (4 sets), the defaults but ``eval.epochs`` (cut to ``PPI_EPOCHS``): one
+    finite ``test_auc`` a set in ``ppi_results.json``, and a Wilcoxon row
+    in ``evaluation_summary.txt`` for each set but the main one."""
+    out = os.path.join(workdir, "out")
+    argv = ["--out", out, "--stages", "ppi", "--set", f"eval.epochs={PPI_EPOCHS}",
+            *_interaction_args(workdir), "--device", DEVICE]
+    result, seconds = _drive(torch, argv)
+    eval_dir = os.path.join(out, "3_evaluation_results")
+    with open(os.path.join(eval_dir, "ppi_results.json")) as fh:
+        saved = json.load(fh)
+    names = [r["embedding_name"] for r in saved]
+    want = ["ProtGramDirectGCN", "ProtGramDirectGCN_PCA", "Word2Vec", "Word2Vec_PCA"]
+    if names != want or not _finite([r["test_auc"] for r in saved]):
+        fail(f"ppi: sets {names}, AUCs {[r.get('test_auc') for r in saved]}")
+    with open(os.path.join(eval_dir, "evaluation_summary.txt")) as fh:
+        summary = fh.read().splitlines()
+    rows = [ln for ln in summary if "| p=" in ln]
+    if sorted(ln.split("|")[0].strip() for ln in rows) != sorted(want[1:]):
+        fail(f"ppi: Wilcoxon rows {rows}")
+    stats = result["ppi"].stats
+    sets = {name: {"test_auc": r["test_auc"], "test_f1": r["test_f1"],
+                   "seconds": stats[name]["seconds"], "steps": stats[name]["steps"],
+                   "fit_seconds": stats[name]["fit_seconds"],
+                   "steps_per_second": stats[name]["steps"] / stats[name]["fit_seconds"]}
+            for name, r in zip(names, saved)}
+    emit("ppi", seconds=seconds, stage_seconds=result["seconds"], epochs=PPI_EPOCHS,
+         sets=sets, wilcoxon_rows=rows)
+    return sets
+
+
+def _profiler(torch, dev: str):
+    """``torch.profiler`` over the CPU and, on the card, its kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev != "cpu":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
+
+
+def _device_busy(prof, wall_seconds: float) -> dict:
+    """The profiled window's device kernel time (the sum of every event's
+    self device time) beside its wall time; None where the trace holds no
+    device time."""
+    total_us = sum(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages())
+    if not total_us:
+        return {"device_seconds": None, "wall_seconds": wall_seconds, "busy_share": None}
+    return {"device_seconds": total_us / 1e6, "wall_seconds": wall_seconds,
+            "busy_share": total_us / 1e6 / wall_seconds}
+
+
+def check_ppi_reference(torch, workdir: str, pca_path: str) -> None:
+    """One fold's MLP at the default widths (dropout 0), 3 epochs from the
+    same initial parameters on the card and on the CPU, on the main path's
+    PCA vectors: the test fold's probabilities within ``PPI_REF_TOL``.  Then
+    one skip-gram epoch on a small FASTA on both: the vectors within
+    ``W2V_REF_TOL``."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from protgram_directgcn_torch.config import Config
+    from protgram_directgcn_torch.models.mlp import MLPConfig, MLPTrainer
+    from protgram_directgcn_torch.pipeline.splits import stratified_kfold
+    from protgram_directgcn_torch.pipeline.word2vec import Word2VecEmbedder
+    from protgram_directgcn_torch.utils.embeddings import edge_features
+    from protgram_directgcn_torch.utils.io import load_interaction_pairs, read_embeddings
+
+    vectors = read_embeddings(pca_path)
+    half = PPI_REF_PAIRS // 2
+    pairs = (load_interaction_pairs(os.path.join(workdir, "positive.csv"), 1)[:half]
+             + load_interaction_pairs(os.path.join(workdir, "negative.csv"), 0)[:half])
+    ids = sorted(vectors)
+    row = {pid: i for i, pid in enumerate(ids)}
+    table = torch.from_numpy(np.stack([vectors[pid] for pid in ids]).astype(np.float16))
+    ia = torch.tensor([row[a] for a, _, _ in pairs])
+    ib = torch.tensor([row[b] for _, b, _ in pairs])
+    labels = np.array([y for _, _, y in pairs], np.int32)
+    tr, te = stratified_kfold(labels, 5, 42)[0]
+    counts = np.bincount(labels[tr], minlength=2)
+    class_weight = {c: len(tr) / (2.0 * counts[c]) for c in (0, 1)}  # as a PPI fold's
+    cfg = MLPConfig(input_dim=2 * table.shape[1], dropout1_rate=0.0, dropout2_rate=0.0)
+    probs, seconds, busy = {}, {}, {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.monotonic()
+        with _profiler(torch, dev) as prof:
+            trainer = MLPTrainer(cfg, seed=42, device=dev)
+            tab, a, b = table.to(dev), ia.to(dev), ib.to(dev)
+            y = torch.from_numpy(labels.astype(np.float32)).to(dev)
+            rng = np.random.default_rng(42)
+
+            def batches(order):
+                sel_all = torch.from_numpy(order).to(dev)
+                for i in range(0, len(order), 1024):
+                    sel = sel_all[i : i + 1024]
+                    yield edge_features(tab[a[sel]], tab[b[sel]], "concatenate"), y[sel]
+
+            for _ in range(PPI_REF_EPOCHS):
+                trainer.fit_epoch(batches(rng.permutation(tr)), class_weight)
+            probs[dev] = torch.cat([trainer.predict_proba_tensor(x)
+                                    for x, _ in batches(te)]).cpu()
+        seconds[dev] = time.monotonic() - t0
+        if dev == DEVICE:
+            busy["mlp"] = _device_busy(prof, seconds[dev])
+    rtol, atol = PPI_REF_TOL
+    mlp_err = float((probs[DEVICE] - probs["cpu"]).abs().max())
+    if not torch.allclose(probs[DEVICE], probs["cpu"], rtol=rtol, atol=atol):
+        fail(f"ppi_reference: MLP probabilities differ by up to {mlp_err}")
+
+    fasta = os.path.join(workdir, "w2v_small.fasta")
+    write_fasta(fasta, W2V_REF_SEQS, seed=7, lo=50, hi=400)
+    w2v_vecs, w2v_seconds = {}, {}
+    for dev in (DEVICE, "cpu"):
+        cfg = Config()
+        cfg.paths.base_output_dir = Path(workdir) / f"w2v_ref_{dev}"
+        cfg.word2vec.epochs = 1
+        cfg.word2vec.batch_size = 1024  # tens of steps on the small corpus
+        cfg.word2vec.apply_pca = False
+        t0 = time.monotonic()
+        with _profiler(torch, dev) as prof:
+            emb = Word2VecEmbedder(cfg, device=dev)
+            emb.run(fasta)
+            w2v_vecs[dev] = emb.model.vectors()
+        w2v_seconds[dev] = time.monotonic() - t0
+        if dev == DEVICE:
+            busy["skipgram"] = _device_busy(prof, w2v_seconds[dev])
+    if emb.model.steps == 0:
+        fail("ppi_reference: the skip-gram epoch took no step")
+    rtol, atol = W2V_REF_TOL
+    w2v_err = float(np.abs(w2v_vecs[DEVICE] - w2v_vecs["cpu"]).max())
+    if not np.allclose(w2v_vecs[DEVICE], w2v_vecs["cpu"], rtol=rtol, atol=atol):
+        fail(f"ppi_reference: skip-gram vectors differ by up to {w2v_err}")
+    emit("ppi_reference", pairs=len(pairs), train=len(tr), test=len(te), epochs=PPI_REF_EPOCHS,
+         mlp_max_abs_err=mlp_err, mlp_tol=PPI_REF_TOL, mlp_seconds=seconds,
+         w2v_sequences=W2V_REF_SEQS, w2v_steps=emb.model.steps, w2v_max_abs_err=w2v_err,
+         w2v_max_abs=float(np.abs(w2v_vecs["cpu"]).max()), w2v_tol=W2V_REF_TOL,
+         w2v_seconds=w2v_seconds, device_busy_under_profiler=busy)
 
 
 # -----------------------------------------------------------------------------
@@ -1701,8 +1929,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="protgram_smoke_") as workdir:
         fasta = os.path.join(workdir, "synthetic_sprot.fasta")
         residues = write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
-        emit("main_path_input", sequences=N_SEQS, residues=residues)
-        counts, main_graphs = run_main_path(torch, hk, fasta, workdir)
+        write_pairs(os.path.join(workdir, "positive.csv"), N_POSITIVE_PAIRS, N_SEQS, seed=1)
+        write_pairs(os.path.join(workdir, "negative.csv"), N_NEGATIVE_PAIRS, N_SEQS, seed=2)
+        emit("main_path_input", sequences=N_SEQS, residues=residues,
+             positive_pairs=N_POSITIVE_PAIRS, negative_pairs=N_NEGATIVE_PAIRS)
+        counts, main_graphs, pca_path = run_main_path(torch, hk, fasta, workdir)
+        run_word2vec(torch, fasta, workdir)
+        run_ppi(torch, workdir)
+        check_ppi_reference(torch, workdir, pca_path)
+        torch.cuda.empty_cache()
         check_reference(torch, ek, workdir, "hypercube")
         check_tier_reference(torch, rt, workdir)
         torch.cuda.empty_cache()

@@ -1,12 +1,16 @@
 """Pipeline CLI of the port: ``python -m protgram_directgcn_torch``.
 
     python -m protgram_directgcn_torch --fasta seqs.fasta --out results \\
-        --stages graph,gcn [--set gcn.epochs_per_level=5 ...] [--device cpu]
+        --stages graph,gcn,word2vec,ppi [--set gcn.epochs_per_level=5 ...] \\
+        [--device cpu]
 
-Runs the stages this slice has (graph building, hierarchical GCN training and
-protein pooling) on the card, or on the CPU with ``--device cpu``.  The other
-stages of the JAX package's ``main.py`` (word2vec, transformer, benchmark,
-ppi) are not ported yet and raise.
+Runs the ported stages in the JAX package's ``main.py`` order: graph
+building (with ``graph`` or ``gcn``), hierarchical GCN training, protein
+pooling and the PPI sanity check (``gcn``), the Word2Vec baseline
+(``word2vec``), and PPI link-prediction evaluation of the embedding sets
+found under ``--out`` (``ppi``; ``dummy`` evaluates synthetic data
+instead), on the card, or on the CPU with ``--device cpu``.  The
+``transformer`` and ``benchmark`` stages are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ from pathlib import Path
 
 from protgram_directgcn_torch.config import Config
 
-_PORTED = {"graph", "gcn"}
+_PORTED = {"graph", "gcn", "word2vec", "ppi", "dummy"}
+_UNPORTED = {"transformer": "Queue 1 item 14 (the transformer stage)",
+             "benchmark": "Queue 1 item 12 (the GNN zoo benchmark)"}
 
 
 def parse_args(argv=None):
@@ -29,7 +35,8 @@ def parse_args(argv=None):
                    help="dotted config override, e.g. --set gcn.lr=0.001")
     p.add_argument("--fasta", help="input FASTA path")
     p.add_argument("--out", help="base output directory")
-    p.add_argument("--stages", default="graph,gcn", help="comma list of graph,gcn")
+    p.add_argument("--stages", default="graph,gcn",
+                   help="comma list of graph,gcn,word2vec,ppi,dummy")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -57,37 +64,62 @@ def main(argv=None):
     """Run the requested stages; returns ``{"graphs": [...], "graph_etl":
     {n: the builder's stats of level n, with the ETL path it took},
     "trainer": ..., "pooled": {protein_id: vector}, "embeddings_path": the
-    last embeddings file written, "seconds": {"graph": s, "gcn": s}}``
-    (trainer, pooled and the path are None, and "gcn" absent, when only the
-    graph stage ran)."""
+    GCN stage's last embeddings file, "embedder": the Word2VecEmbedder,
+    "word2vec_path": its pooled embeddings file, "ppi": the PPIPipeline,
+    "ppi_results": its results, "seconds": {stage: s}}`` (a stage that did
+    not run leaves its entries None and its seconds absent)."""
     args = parse_args(argv)
     wanted = {s.strip() for s in args.stages.split(",") if s.strip()}
+    unported = sorted(wanted & set(_UNPORTED))
+    if unported:
+        raise NotImplementedError(f"stages {unported} are not ported yet (ROADMAP "
+                                  + "; ".join(_UNPORTED[s] for s in unported) + ")")
     if wanted - _PORTED:
-        raise NotImplementedError(
-            f"stages {sorted(wanted - _PORTED)} are not ported yet (ROADMAP Queue 1)"
-        )
+        raise ValueError(f"unknown stages {sorted(wanted - _PORTED)}")
     cfg = build_config(args)
+    st = cfg.stages
+    st.run_gcn_pipeline = bool(wanted & {"graph", "gcn"})
+    st.run_word2vec_pipeline = "word2vec" in wanted
+    st.run_main_ppi_evaluation = "ppi" in wanted
+    st.run_dummy_test = "dummy" in wanted
     from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
+    from protgram_directgcn_torch.pipeline.ppi import PPIPipeline
     from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
+    from protgram_directgcn_torch.pipeline.word2vec import Word2VecEmbedder
     from protgram_directgcn_torch.utils.io import logger
 
     if cfg.debug_verbose:
         import logging
 
         logger.setLevel(logging.DEBUG)
-    trainer = None
-    if "gcn" in wanted:  # fail before the ETL when the device is absent
-        trainer = HierarchicalTrainer(cfg, device=args.device)
+    # Every device stage resolves its device first: fail before any work
+    # when the card is absent.
+    trainer = HierarchicalTrainer(cfg, device=args.device) if "gcn" in wanted else None
+    embedder = Word2VecEmbedder(cfg, device=args.device) if st.run_word2vec_pipeline else None
+    ppi = (PPIPipeline(cfg, device=args.device)
+           if st.run_main_ppi_evaluation or st.run_dummy_test else None)
     t0 = time.monotonic()
-    builder = NgramGraphBuilder(cfg)
-    result = {"graphs": builder.run(), "graph_etl": builder.stats, "trainer": trainer,
-              "pooled": None, "embeddings_path": None,
-              "seconds": {"graph": time.monotonic() - t0}}
+    result = {"graphs": None, "graph_etl": None, "trainer": trainer, "pooled": None,
+              "embeddings_path": None, "embedder": embedder, "word2vec_path": None,
+              "ppi": ppi, "ppi_results": None, "seconds": {}}
+    if st.run_gcn_pipeline:
+        builder = NgramGraphBuilder(cfg)
+        result["graphs"] = builder.run()
+        result["graph_etl"] = builder.stats
+        result["seconds"]["graph"] = time.monotonic() - t0
     if trainer is not None:
-        t_gcn = time.monotonic()
+        t_stage = time.monotonic()
         result["embeddings_path"] = trainer.run()
         result["pooled"] = trainer.pooled
-        result["seconds"]["gcn"] = time.monotonic() - t_gcn
+        result["seconds"]["gcn"] = time.monotonic() - t_stage
+    if embedder is not None:
+        t_stage = time.monotonic()
+        result["word2vec_path"] = embedder.run()
+        result["seconds"]["word2vec"] = time.monotonic() - t_stage
+    if ppi is not None:
+        t_stage = time.monotonic()
+        result["ppi_results"] = ppi.run(use_dummy_data=st.run_dummy_test)
+        result["seconds"]["ppi"] = time.monotonic() - t_stage
     logger.info("pipeline finished in %.1fs", time.monotonic() - t0)
     return result
 

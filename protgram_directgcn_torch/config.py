@@ -1,11 +1,10 @@
-"""Configuration of the ``--stages graph,gcn`` slice.
+"""Configuration of the ported stages (graph, gcn, word2vec, ppi).
 
-Same field names and defaults as protgram_directgcn_tpu/config.py:89-190 for
-what this slice runs (paths, graph builder, GCN trainer), and the same dotted
-``--set`` overrides.  ``GraphBuilderConfig`` and ``GCNConfig`` keep every
-field of the JAX package, so ``--set`` lines written for it apply here.
-Where ``run_sanity_check_ppi`` is set, the trainer logs that it does not act
-on it (the PPI check is not ported yet).
+Same field names and defaults as protgram_directgcn_tpu/config.py:20-262 for
+what the port runs (paths, stage toggles, graph builder, GCN trainer,
+Word2Vec, PPI evaluation), and the same dotted ``--set`` overrides.  Each of
+these sections keeps every field of the JAX package, so ``--set`` lines
+written for it apply here.
 """
 
 from __future__ import annotations
@@ -25,6 +24,8 @@ class PathsConfig:
     base_data_dir: Optional[Path] = None
     base_output_dir: Optional[Path] = None
     input_fasta: Optional[Path] = None
+    interactions_positive: Optional[Path] = None
+    interactions_negative: Optional[Path] = None
 
     def __post_init__(self):
         if self.base_data_dir is None:
@@ -33,6 +34,10 @@ class PathsConfig:
             self.base_output_dir = self.base_data_dir / "results"
         if self.input_fasta is None:
             self.input_fasta = self.base_data_dir / "sequences/uniprot_sprot.fasta"
+        if self.interactions_positive is None:
+            self.interactions_positive = self.base_data_dir / "ground_truth/positive_interactions.csv"
+        if self.interactions_negative is None:
+            self.interactions_negative = self.base_data_dir / "ground_truth/negative_interactions.csv"
 
     @property
     def graph_objects_dir(self) -> Path:
@@ -43,8 +48,33 @@ class PathsConfig:
         return self.base_output_dir / "2_gcn_embeddings"
 
     @property
+    def word2vec_embeddings_dir(self) -> Path:
+        return self.base_output_dir / "2_word2vec_embeddings"
+
+    @property
+    def transformer_embeddings_dir(self) -> Path:
+        return self.base_output_dir / "2_transformer_embeddings"
+
+    @property
+    def evaluation_results_dir(self) -> Path:
+        return self.base_output_dir / "3_evaluation_results"
+
+    @property
     def id_mapping_output_file(self) -> Path:
         return self.base_output_dir / "mappings/gcn_id_mapping.tsv"
+
+
+@dataclass
+class StagesConfig:
+    """Workflow stage toggles (reference: config.py:20-26)."""
+
+    run_gcn_pipeline: bool = True
+    run_word2vec_pipeline: bool = False
+    run_transformer_pipeline: bool = False
+    run_benchmarking_pipeline: bool = False
+    run_main_ppi_evaluation: bool = False
+    run_dummy_test: bool = False
+    cleanup_dummy_data: bool = False
 
 
 @dataclass
@@ -109,14 +139,65 @@ class GCNConfig:
 
 
 @dataclass
+class Word2VecConfig:
+    """Skip-gram residue embedder knobs (reference: config.py:116-123)."""
+
+    vector_size: int = 100
+    window: int = 5
+    min_count: int = 1
+    epochs: int = 5
+    negative: int = 5
+    pooling_strategy: str = "mean"
+    apply_pca: bool = True
+    batch_size: int = 8192
+    # SGD whose rate decays linearly from lr to min_alpha (gensim's schedule).
+    lr: float = 0.025
+    min_alpha: float = 1e-4
+    # Frequent-word subsampling threshold (gensim ``sample``); 0 disables.
+    sample: float = 1e-3
+
+
+@dataclass
+class EvalConfig:
+    """PPI link-prediction evaluation knobs (reference: config.py:136-172)."""
+
+    early_stopping_patience: int = 10
+    perform_h5_integrity_check: bool = True
+    # Standardize edge features per CV fold on the train fold's statistics.
+    standardize_features: bool = False
+    sample_negative_pairs: Optional[int] = 100_000
+    embedding_files_to_evaluate: List[Dict[str, Any]] = field(default_factory=list)
+    edge_embedding_method: str = "concatenate"
+    n_folds: int = 5
+    mlp_dense1_units: int = 128
+    mlp_dropout1_rate: float = 0.4
+    mlp_dense2_units: int = 64
+    mlp_dropout2_rate: float = 0.4
+    mlp_l2_reg: float = 1e-5
+    batch_size: int = 1024
+    epochs: int = 300
+    learning_rate: float = 1e-3
+    k_values_for_table: List[int] = field(default_factory=lambda: [50, 100])
+    # Above this many bytes of vectors, PPI evaluation streams them from
+    # the store (host LRU cache) and builds edge features per batch.
+    max_in_memory_feature_bytes: int = 2 << 30
+    main_embedding_for_stats: str = "ProtGramDirectGCN"
+    statistical_test_alpha: float = 0.05
+    plot_training_history: bool = True
+
+
+@dataclass
 class Config:
-    """Top-level configuration (the subset this slice reads)."""
+    """Top-level configuration (the sections the port reads)."""
 
     random_state: int = 42
     debug_verbose: bool = False
     paths: PathsConfig = field(default_factory=PathsConfig)
+    stages: StagesConfig = field(default_factory=StagesConfig)
     graph_builder: GraphBuilderConfig = field(default_factory=GraphBuilderConfig)
     gcn: GCNConfig = field(default_factory=GCNConfig)
+    word2vec: Word2VecConfig = field(default_factory=Word2VecConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
     id_mapping_mode: str = "regex"  # 'regex' | 'none'
 
     def apply_overrides(self, overrides: Dict[str, Any]) -> "Config":

@@ -49,6 +49,20 @@ def _params(tree: Any, device: torch.device) -> Any:
     return _tensor(tree, device)
 
 
+def mlp_params_from_jax(params: Any, device: Union[str, torch.device] = "cuda") -> dict:
+    """``models/mlp.py``'s ``init_mlp_params`` dict (``w1, b1, w2, b2, w3,
+    b3``) as float32 tensors for ``MLPTrainer.set_params``."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev).float() for k, v in params.items()}
+
+
+def skipgram_params_from_jax(params: Any, device: Union[str, torch.device] = "cuda") -> dict:
+    """``SkipGramModel.params`` of the JAX package (``"in"``, ``"out"``,
+    each ``[V, D]``) as float32 tensors, the port model's ``params``."""
+    dev = resolve_device(device)
+    return {k: _tensor(params[k], dev).float() for k in ("in", "out")}
+
+
 def params_to_numpy(tree: Any) -> Any:
     """The port's parameters as a tree of float32 numpy arrays (for handing
     them to the JAX package)."""

@@ -36,10 +36,9 @@ full-batch level, its loss and learning rate every epoch
 state every ``gcn.checkpoint_every_epochs`` epochs and resumes from the
 latest (``utils/checkpoint.py``, ``level_checkpoints/train_state_n{n}``),
 and writes the pooled embeddings (H5 where h5py imports, else ``.npz``)
-and, under ``gcn.apply_pca``, their PCA.
-
-Not ported yet (ROADMAP Queue 1): the PPI sanity check after pooling (its
-knob logs a warning).
+and, under ``gcn.apply_pca``, their PCA; under ``gcn.run_sanity_check_ppi``
+it then runs the PPI sanity check on the last file written
+(``pipeline/ppi.py``).
 """
 
 from __future__ import annotations
@@ -71,6 +70,7 @@ from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, retile
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.ops.spmm import DenseAdj, EllAdj, _ell_one_sided
 from protgram_directgcn_torch.pipeline.labels import generate_labels
+from protgram_directgcn_torch.pipeline.ppi import run_sanity_check_ppi
 from protgram_directgcn_torch.utils import checkpoint as ckpt
 from protgram_directgcn_torch.utils import embeddings as emb_utils
 from protgram_directgcn_torch.utils.device import resolve_device
@@ -600,13 +600,6 @@ def _batch_arrays(b: ClusterBatch) -> List[np.ndarray]:
     return leaves + [b.x, b.y, b.mask, b.original_indices]
 
 
-# Knobs that the JAX trainer acts on and this one does not yet, each with
-# the ROADMAP item that ports it.
-_UNPORTED_KNOBS = (
-    ("run_sanity_check_ppi", "Queue 1, item 10: the PPI sanity check"),
-)
-
-
 class HierarchicalTrainer:
     """Drives n = 1..n_max training and protein pooling
     (reference run() contract: protgram_directgcn_trainer.py:271-426)."""
@@ -630,6 +623,10 @@ class HierarchicalTrainer:
         self.pool_seconds = 0.0
         # The final level's pooled {protein_id: vector} of the last run().
         self.pooled: Optional[Dict[str, np.ndarray]] = None
+        # The PPI sanity check's metrics of the last run() (None when it was
+        # off or skipped) and its pair counts, steps and seconds.
+        self.sanity_metrics: Optional[Dict[str, float]] = None
+        self.sanity_stats: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
 
@@ -1145,14 +1142,6 @@ class HierarchicalTrainer:
         }
         return params, embeds, model_cfg, full_graph
 
-    def _warn_unported_knobs(self) -> None:
-        """One warning per knob that asks for work this trainer does not do."""
-        for knob, item in _UNPORTED_KNOBS:
-            value = getattr(self.gcn, knob)
-            if value:
-                logger.warning("gcn.%s=%r is not acted on: not ported yet (ROADMAP %s)",
-                               knob, value, item)
-
     # ------------------------------------------------------------------
 
     def run(self, fasta_path: Optional[os.PathLike] = None,
@@ -1165,11 +1154,13 @@ class HierarchicalTrainer:
         final level's embeddings per protein (kept as ``self.pooled``), and
         write them to ``gcn_n{n}_embeddings`` and, under ``gcn.apply_pca``,
         their PCA to ``gcn_n{n}_embeddings_pca{dim}`` (``.h5``, or ``.npz``
-        where h5py is absent) (trainer.py:2164-2204).  Returns the path of
-        the last file written, or None when the final level is missing."""
+        where h5py is absent), then, under ``gcn.run_sanity_check_ppi``, run
+        the PPI sanity check on that file (``self.sanity_metrics``)
+        (trainer.py:2164-2204).  Returns the path of the last file written,
+        or None when the final level is missing."""
         cfg = self.config
-        self._warn_unported_knobs()
         self.pooled = None
+        self.sanity_metrics, self.sanity_stats = None, {}
         fasta_path = fasta_path or cfg.paths.input_fasta
         graphs_dir = graphs_dir or cfg.paths.graph_objects_dir
         output_dir = ensure_dir(output_dir or cfg.paths.gcn_embeddings_dir)
@@ -1259,4 +1250,7 @@ class HierarchicalTrainer:
                 final_path = write_embeddings(
                     os.path.join(str(output_dir), f"gcn_n{n_max}_embeddings_pca{dim}.h5"), pca)
                 logger.info("PCA embeddings saved to %s", final_path)
+        if self.gcn.run_sanity_check_ppi:
+            self.sanity_metrics = run_sanity_check_ppi(cfg, final_path, device=self.device,
+                                                       stats=self.sanity_stats)
         return final_path

@@ -1,8 +1,12 @@
-"""Pooling of n-gram embeddings to proteins, and their PCA.
+"""Pooling of n-gram and residue embeddings to proteins, their PCA, and the
+edge features of protein pairs.
 
-Port of protgram_directgcn_tpu/utils/embeddings.py:23-55, 67
-(reference: models_utils.py:87-136, 209-262), with sklearn's PCA solvers
-(sklearn is absent on the card's machine).  Pooling: each protein is the
+Port of protgram_directgcn_tpu/utils/embeddings.py (reference:
+models_utils.py:87-136, 138-147, 181-195, 209-262, 275-324), with sklearn's
+PCA solvers (sklearn is absent on the card's machine).  ``make_edge_feature``
+and ``generate_edge_features_batched`` are the host versions;
+``edge_features`` builds a batch's features from device tensors with the
+same numbers.  Pooling: each protein is the
 mean of the embeddings of its in-vocabulary n-grams; proteins with none are
 dropped.
 Vectorised over the whole corpus: n-grams are packed into uint64 keys (the
@@ -13,13 +17,89 @@ added in another order than the JAX package's per-protein loop.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from protgram_directgcn_torch.utils.io import logger
+
+
+def l2_normalize(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
+    """x / (||x|| + eps) row-wise (reference: models_utils.py:138-147)."""
+    if x.ndim == 1:
+        return x / (np.linalg.norm(x) + eps)
+    return x / (np.linalg.norm(x, axis=1, keepdims=True) + eps)
+
+
+def pool_residue_embeddings(res: np.ndarray, strategy: str = "mean",
+                            dim_if_empty: Optional[int] = None) -> np.ndarray:
+    """Mean/sum/max pooling of per-residue vectors (reference: models_utils.py:181-195)."""
+    if res is None or res.shape[0] == 0:
+        return np.zeros(dim_if_empty, dtype=np.float32) if dim_if_empty else np.array([], np.float32)
+    if strategy == "sum":
+        return np.sum(res, axis=0)
+    if strategy == "max":
+        return np.max(res, axis=0)
+    return np.mean(res, axis=0)
+
+
+def make_edge_feature(emb1: np.ndarray, emb2: np.ndarray, method: str) -> np.ndarray:
+    """One edge feature of two protein vectors (reference:
+    models_utils.py:302-313): "average" in float32, cast to float16; the
+    others in the vectors' type; any other method concatenates."""
+    if method == "average":
+        return ((emb1.astype(np.float32) + emb2.astype(np.float32)) / 2.0).astype(np.float16)
+    if method == "hadamard":
+        return emb1 * emb2
+    if method == "l1_distance":
+        return np.abs(emb1 - emb2)
+    if method == "l2_distance":
+        return (emb1 - emb2) ** 2
+    return np.concatenate((emb1, emb2))
+
+
+def edge_features(a: torch.Tensor, b: torch.Tensor, method: str) -> torch.Tensor:
+    """:func:`make_edge_feature` on rows of float16 tensors ``[B, D]``: the
+    same float16 numbers (each float16 operation rounds once, as numpy's)."""
+    if method == "average":
+        return ((a.float() + b.float()) / 2.0).half()
+    if method == "hadamard":
+        return a * b
+    if method == "l1_distance":
+        return (a - b).abs()
+    if method == "l2_distance":
+        return (a - b) ** 2
+    return torch.cat((a, b), dim=1)
+
+
+def generate_edge_features_batched(
+    interaction_pairs: Sequence[Tuple[str, str, int]],
+    protein_embeddings,
+    method: str,
+    batch_size: int,
+    embedding_dim: int,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """(features float16, labels int32) batches of the pairs whose two
+    vectors exist and are ``embedding_dim`` wide (reference:
+    models_utils.py:275-324)."""
+    feats: List[np.ndarray] = []
+    labels: List[int] = []
+    for p1, p2, label in interaction_pairs:
+        e1 = protein_embeddings.get(p1)
+        e2 = protein_embeddings.get(p2)
+        if e1 is None or e2 is None or e1.size == 0 or e2.size == 0:
+            continue
+        if e1.shape[0] != embedding_dim or e2.shape[0] != embedding_dim:
+            continue
+        feats.append(make_edge_feature(e1, e2, method))
+        labels.append(label)
+        if len(feats) == batch_size:
+            yield np.array(feats, np.float16), np.array(labels, np.int32)
+            feats, labels = [], []
+    if feats:
+        yield np.array(feats, np.float16), np.array(labels, np.int32)
 
 
 def _is_constant_feature(var: torch.Tensor, mean: torch.Tensor, n: int) -> torch.Tensor:

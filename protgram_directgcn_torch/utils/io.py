@@ -1,9 +1,11 @@
-"""FASTA parsing, protein-id mapping, the embeddings file and the package
-logger.
+"""FASTA parsing, interaction pairs, protein-id mapping, the embeddings
+file and its store, and the package logger.
 
-JAX-free copy of what the slice needs from protgram_directgcn_tpu/utils/io.py
-(parse_fasta :38, the regex id map :172-287, write_h5_embeddings :295).
-h5py is optional: where it does not import, the embeddings go to ``.npz``.
+JAX-free copy of what the port needs from protgram_directgcn_tpu/utils/io.py
+(parse_fasta :38, the interaction pairs :85-149, the regex id map :172-287,
+write_h5_embeddings :295, EmbeddingStore and check_h5_integrity :305-368).
+h5py is optional: where it does not import, the embeddings go to ``.npz``,
+and the store and the integrity check read either.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import logging
 import os
 import re
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 
@@ -55,6 +57,84 @@ def parse_fasta(path: Union[str, os.PathLike]) -> Iterator[Tuple[str, str]]:
                 parts.append(line.upper())
     if protein_id and parts:
         yield protein_id, "".join(parts)
+
+
+def _parse_pair_line(line: str) -> Optional[Tuple[str, str]]:
+    parts = [p.strip() for p in line.strip().replace('"', "").split(",")]
+    if len(parts) < 2:
+        parts = [p.strip() for p in line.strip().replace('"', "").split("\t")]
+    if len(parts) >= 2 and parts[0] and parts[1]:
+        return parts[0], parts[1]
+    return None
+
+
+def load_interaction_pairs(path: Union[str, os.PathLike], label: int,
+                           sample_n: Optional[int] = None,
+                           random_state: Optional[int] = None) -> List[Tuple[str, str, int]]:
+    """(p1, p2, label) pairs of a CSV/TSV file; with ``sample_n``, that many
+    drawn without replacement by ``default_rng(random_state)`` and kept in
+    file order (reference: data_utils.py:63-96)."""
+    if not os.path.exists(path):
+        logger.warning("Interaction file not found: %s", path)
+        return []
+    pairs: List[Tuple[str, str, int]] = []
+    with open(path, "r", encoding="utf-8", errors="ignore") as f:
+        for line in f:
+            parsed = _parse_pair_line(line)
+            if parsed:
+                pairs.append((parsed[0], parsed[1], label))
+    if sample_n is not None and 0 < sample_n < len(pairs):
+        rng = np.random.default_rng(random_state)
+        idx = rng.choice(len(pairs), size=sample_n, replace=False)
+        pairs = [pairs[i] for i in sorted(idx)]
+    return pairs
+
+
+def stream_interaction_pairs(path: Union[str, os.PathLike], label: int, batch_size: int,
+                             sample_n: Optional[int] = None,
+                             random_state: Optional[int] = None
+                             ) -> Iterator[List[Tuple[str, str, int]]]:
+    """The pairs of a file in lists of ``batch_size``; with ``sample_n``,
+    only the lines of that many line numbers drawn by
+    ``default_rng(random_state)`` (reference: data_utils.py:98-144)."""
+    if not os.path.exists(path):
+        logger.warning("Interaction file not found: %s", path)
+        return
+    keep: Optional[Set[int]] = None
+    if sample_n is not None:
+        with open(path, "r", encoding="utf-8", errors="ignore") as f:
+            total = sum(1 for _ in f)
+        if 0 < sample_n < total:
+            rng = np.random.default_rng(random_state)
+            keep = set(rng.choice(total, sample_n, replace=False).tolist())
+    batch: List[Tuple[str, str, int]] = []
+    with open(path, "r", encoding="utf-8", errors="ignore") as f:
+        for i, line in enumerate(f):
+            if keep is not None and i not in keep:
+                continue
+            parsed = _parse_pair_line(line)
+            if parsed:
+                batch.append((parsed[0], parsed[1], label))
+                if len(batch) == batch_size:
+                    yield batch
+                    batch = []
+    if batch:
+        yield batch
+
+
+def get_required_ids_from_files(paths: Sequence[Union[str, os.PathLike]]) -> Set[str]:
+    """Every protein id of the interaction files (reference: data_utils.py:33-61)."""
+    required: Set[str] = set()
+    for path in paths:
+        if not os.path.exists(path):
+            logger.warning("File not found during ID gathering: %s", path)
+            continue
+        with open(path, "r", encoding="utf-8", errors="ignore") as f:
+            for line in f:
+                parsed = _parse_pair_line(line)
+                if parsed:
+                    required.update(parsed)
+    return required
 
 
 _UNIPROT_RE = re.compile(r"^(?:sp|tr)\|([OPQ]?[A-Z0-9]{5,9}(?:-\d+)?)\|", re.IGNORECASE)
@@ -143,3 +223,90 @@ def read_embeddings(path: Union[str, os.PathLike]) -> Dict[str, np.ndarray]:
         raise RuntimeError(f"reading {path} needs h5py, which is not installed")
     with h5py.File(path, "r") as hf:
         return {k: hf[k][()] for k in hf.keys()}
+
+
+class EmbeddingStore:
+    """Dict-like read access to an embeddings file, as a context manager;
+    values come back as float16 (utils/io.py:305-346 of the JAX package).
+    An H5 file is read a key at a time; a ``.npz`` file is read whole on
+    entry (its members are small, and a zip member read a key at a time
+    costs more than the vector)."""
+
+    def __init__(self, path: Union[str, os.PathLike]):
+        self.path = str(path)
+        self._file = None
+        self._arrays: Optional[Dict[str, np.ndarray]] = None
+        self._keys: Optional[Set[str]] = None
+
+    def __enter__(self) -> "EmbeddingStore":
+        if not os.path.exists(self.path):
+            raise FileNotFoundError(f"Embedding file not found: {self.path}")
+        if self.path.endswith(".npz"):
+            self._arrays = read_embeddings(self.path)
+            self._keys = set(self._arrays)
+        else:
+            if h5py is None:
+                raise RuntimeError(f"reading {self.path} needs h5py, which is not installed")
+            self._file = h5py.File(self.path, "r")
+            self._keys = set(self._file.keys())
+        return self
+
+    def __exit__(self, *exc):
+        if self._file is not None:
+            self._file.close()
+        self._file = self._arrays = self._keys = None
+
+    def _check(self):
+        if self._keys is None:
+            raise RuntimeError("EmbeddingStore used outside of context manager.")
+
+    def __contains__(self, key: str) -> bool:
+        self._check()
+        return key in self._keys
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        self._check()
+        if key not in self._keys:
+            raise KeyError(f"Key '{key}' not found in {self.path}")
+        if self._arrays is not None:
+            return self._arrays[key].astype(np.float16)
+        return self._file[key][:].astype(np.float16)
+
+    def __len__(self) -> int:
+        return len(self._keys) if self._keys is not None else 0
+
+    def get_keys(self) -> Set[str]:
+        self._check()
+        return set(self._keys)
+
+
+def check_h5_integrity(path: Union[str, os.PathLike], num_samples: int = 5,
+                       rng: Optional[np.random.Generator] = None) -> bool:
+    """Spot-check an embeddings file (H5 or ``.npz``) for empty, NaN or Inf
+    vectors, as stored: ``num_samples`` keys drawn by ``rng``
+    (``default_rng(0)``) (reference: data_utils.py:444-491).  True if
+    healthy."""
+    path = str(path)
+    is_npz = path.endswith(".npz")
+    if not os.path.exists(path) or (not is_npz and (h5py is None or not h5py.is_hdf5(path))):
+        logger.error("H5 integrity: %s missing or not HDF5", path)
+        return False
+    rng = rng or np.random.default_rng(0)
+    if is_npz:
+        return _vectors_healthy(path, read_embeddings(path), num_samples, rng)
+    with h5py.File(path, "r") as hf:
+        return _vectors_healthy(path, hf, num_samples, rng)
+
+
+def _vectors_healthy(path: str, vectors, num_samples: int, rng: np.random.Generator) -> bool:
+    keys = list(vectors.keys())
+    if not keys:
+        logger.warning("H5 integrity: %s has no embeddings", path)
+        return False
+    ok = True
+    for i in rng.choice(len(keys), min(num_samples, len(keys)), replace=False):
+        emb = np.asarray(vectors[keys[i]][()])
+        if emb.size == 0 or np.isnan(emb).any() or np.isinf(emb).any():
+            logger.warning("H5 integrity: bad vector for key %s in %s", keys[i], path)
+            ok = False
+    return ok

@@ -16,10 +16,12 @@ from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
 from protgram_directgcn_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "sklearn", "protgram_directgcn_tpu")
-# Absent on the card's machine, so the port may name it only in an import
-# guarded by ``except ImportError`` (the embeddings file falls back to .npz).
-OPTIONAL = ("h5py",)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "matplotlib", "sklearn",
+             "protgram_directgcn_tpu")
+# Absent on the card's machine, so the port may name them only in an import
+# guarded by ``except ImportError`` (the embeddings file falls back to .npz,
+# the evaluation plots are skipped).
+OPTIONAL = ("h5py", "matplotlib")
 PORT_FILES = sorted((ROOT / "protgram_directgcn_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -82,14 +84,19 @@ def test_scan_allows_only_guarded_optional_imports(tmp_path):
     probe.write_text(
         "try:\n    import h5py\nexcept ImportError:\n    h5py = None\n"
         "try:\n    import sklearn\nexcept ImportError:\n    sklearn = None\n"
+        "def plots():\n    try:\n        import matplotlib.pyplot as plt\n"
+        "    except ImportError:\n        return None\n"
     )
-    assert _guarded_optional_imports(probe) == {"h5py"}  # sklearn is never optional
+    # sklearn is never optional
+    assert _guarded_optional_imports(probe) == {"h5py", "matplotlib"}
     probe.write_text(
         "try:\n    import h5py\nexcept ImportError:\n    h5py = None\n"
         "def f():\n    import h5py\n"
     )
     assert _guarded_optional_imports(probe) == set()  # one unguarded import
     probe.write_text("try:\n    import h5py\nexcept ValueError:\n    pass\n")
+    assert _guarded_optional_imports(probe) == set()
+    probe.write_text("import matplotlib\n")
     assert _guarded_optional_imports(probe) == set()
 
 
@@ -163,3 +170,32 @@ def test_build_artifacts_are_ignored_by_git():
     ignored = (ROOT / ".gitignore").read_text().splitlines()
     assert "protgram_directgcn_torch/_build/" in ignored
     assert hk.BUILD_DIR == ROOT / "protgram_directgcn_torch" / "_build"
+
+
+def test_ppi_and_word2vec_entry_points_raise_without_cuda(monkeypatch, toy_fasta, tmp_path):
+    import numpy as np
+
+    from protgram_directgcn_torch import convert
+    from protgram_directgcn_torch.__main__ import main
+    from protgram_directgcn_torch.models.mlp import MLPConfig, MLPTrainer
+    from protgram_directgcn_torch.pipeline.ppi import PPIPipeline, run_sanity_check_ppi
+    from protgram_directgcn_torch.pipeline.word2vec import SkipGramModel, Word2VecEmbedder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = tmp_path / "e.npz"
+    np.savez(path, P1=np.ones(4, np.float16))
+    for make in (lambda: PPIPipeline(Config()), lambda: Word2VecEmbedder(Config()),
+                 lambda: MLPTrainer(MLPConfig(input_dim=4)), lambda: SkipGramModel(["A"], 4),
+                 lambda: run_sanity_check_ppi(Config(), path),
+                 lambda: convert.mlp_params_from_jax({"w1": np.ones((2, 2), np.float32)}),
+                 lambda: convert.skipgram_params_from_jax(
+                     {"in": np.ones((2, 2), np.float32), "out": np.ones((2, 2), np.float32)})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    for stages in ("word2vec", "ppi", "dummy", "graph,gcn,word2vec,ppi"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--fasta", str(toy_fasta), "--out", str(tmp_path / "o"), "--stages", stages])
+    assert not (tmp_path / "o").exists()  # failed before any work
+    for stages in ("transformer", "graph,benchmark"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(["--fasta", str(toy_fasta), "--stages", stages, "--device", "cpu"])

@@ -687,11 +687,13 @@ def test_train_level_gives_the_format_the_widest_layer(graphs):
 ])
 def test_unported_knobs_warn(tmp_path, caplog, knob, value, item):
     """Satellite repair: a knob the trainer does not act on logs one
-    warning naming its ROADMAP item, and nothing when it is off.
-    ``apply_pca`` (ROADMAP Queue 1 item 3) and ``checkpoint_every_epochs``
-    (item 4) are ported: a real run writes the PCA file, or the training
-    state ``step_100`` of each level (100 epochs, early stopping off), and
-    logs no such warning."""
+    warning naming its ROADMAP item, and nothing when it is off.  Every
+    knob of this list is ported now, so each run logs no such warning and
+    does the knob's work: ``apply_pca`` (ROADMAP Queue 1 item 3) writes the
+    PCA file, ``checkpoint_every_epochs`` (item 4) the training state
+    ``step_100`` of each level (100 epochs, early stopping off), and
+    ``run_sanity_check_ppi`` (item 10) runs the PPI sanity check on the
+    exported file, given interaction files."""
     cfg = TConfig()
     for k in ("apply_pca", "run_sanity_check_ppi", "checkpoint_every_epochs"):
         setattr(cfg.gcn, k, 0 if k == "checkpoint_every_epochs" else False)
@@ -699,31 +701,36 @@ def test_unported_knobs_warn(tmp_path, caplog, knob, value, item):
     cfg.paths.base_output_dir = tmp_path
     cfg.id_mapping_mode = "none"
     cfg.graph_builder.ngram_max_n = 1
-    ported = knob in ("apply_pca", "checkpoint_every_epochs")
-    fasta = tmp_path / "absent.fasta"
-    if ported:
-        fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=30, lo=10, hi=40)
-        cfg.apply_overrides({"gcn.hidden_layer_dims": [8], "gcn.one_gram_init_dim": 8,
-                             "gcn.epochs_per_level": value if knob == "checkpoint_every_epochs"
-                             else 1, "gcn.use_early_stopping": False})
-        TBuilder(cfg).run(fasta, cfg.paths.graph_objects_dir)
+    fasta = write_seeded_fasta(tmp_path / "seq.fasta", n_seqs=30, lo=10, hi=40)
+    cfg.apply_overrides({"gcn.hidden_layer_dims": [8], "gcn.one_gram_init_dim": 8,
+                         "gcn.epochs_per_level": value if knob == "checkpoint_every_epochs"
+                         else 1, "gcn.use_early_stopping": False, "gcn.sanity_check_epochs": 2})
+    if knob == "run_sanity_check_ppi":
+        rng = np.random.default_rng(0)
+        for name in ("pos", "neg"):
+            with open(tmp_path / f"{name}.csv", "w") as f:
+                for a, b in rng.integers(0, 30, (40, 2)):
+                    f.write(f"Q{a:05d},Q{b:05d}\n")
+        cfg.paths.interactions_positive = tmp_path / "pos.csv"
+        cfg.paths.interactions_negative = tmp_path / "neg.csv"
+    TBuilder(cfg).run(fasta, cfg.paths.graph_objects_dir)
     t_logger.addHandler(caplog.handler)
     try:
         with caplog.at_level(logging.WARNING):
-            path = t_trainer.HierarchicalTrainer(cfg, device="cpu").run(fasta_path=fasta)
+            trainer = t_trainer.HierarchicalTrainer(cfg, device="cpu")
+            path = trainer.run(fasta_path=fasta)
     finally:
         t_logger.removeHandler(caplog.handler)
     warned = [r.getMessage() for r in caplog.records if "not acted on" in r.getMessage()]
+    assert warned == []
     out = cfg.paths.gcn_embeddings_dir
     if knob == "checkpoint_every_epochs":
-        assert warned == []
         assert sorted(p.name for p in (out / "level_checkpoints" / "train_state_n1").iterdir()
                       ) == ["step_100"]
-        return
-    if ported:
-        assert warned == []
+    elif knob == "apply_pca":
         assert path == str(out / "gcn_n1_embeddings_pca8.h5")
         assert (out / "gcn_n1_embeddings.h5").exists()
-        return
-    assert path is None
-    assert len(warned) == 1 and f"gcn.{knob}" in warned[0] and item in warned[0]
+    else:
+        assert path == str(out / "gcn_n1_embeddings.h5")
+        assert trainer.sanity_metrics is not None and 0.0 <= trainer.sanity_metrics["auc"] <= 1.0
+        assert trainer.sanity_stats["pairs"] == 80 and trainer.sanity_stats["steps"] == 2

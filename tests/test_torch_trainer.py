@@ -297,7 +297,7 @@ def test_cli_graph_and_gcn_on_cpu(tmp_path):
                          "graph"])
     assert only_graph["trainer"] is None and len(only_graph["graphs"]) == 3
     with pytest.raises(NotImplementedError):
-        t_main(["--fasta", str(fasta), "--stages", "graph,gcn,ppi", "--device", "cpu"])
+        t_main(["--fasta", str(fasta), "--stages", "graph,gcn,transformer", "--device", "cpu"])
 
 
 def test_hypercube_over_budget_falls_back_to_dense(tmp_path):
