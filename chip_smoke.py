@@ -33,7 +33,7 @@ Phases, each printing one JSON line as it ends:
    protein, the ``.vectors.bin`` read back equal;
 2b. ppi: ``--stages ppi`` over the four sets the two stages wrote (GCN and
    Word2Vec, each raw and PCA), 5 folds, 100,000 sampled negatives, batch
-   1,024, ``eval.epochs`` cut from 300 to 10: a finite AUC a set, a
+   1,024, ``eval.epochs`` cut from 300 to 5: a finite AUC a set, a
    Wilcoxon row for each set but the main one, seconds and MLP steps per
    second a set;
 2c. ppi reference: one fold's MLP at the default widths (dropout 0), 3
@@ -119,7 +119,23 @@ Phases, each printing one JSON line as it ends:
    reuses phase 13's operators (the same bf16 banks) in place of a second
    host build;
 17. degrade level: the tier path's 4-gram level with the budget pinned below
-   its tier-4 need: the plan halves the dims and the level trains at them.
+   its tier-4 need: the plan halves the dims and the level trains at them;
+18. benchmark: ``--stages benchmark`` at every default (the seven datasets,
+   seeded stand-ins where raw files are absent, both variants, the seven
+   zoo models at their widths and the three DirectGCN rows) but
+   ``benchmark.epochs`` cut from 300 to 20 and ``benchmark.n_seeds`` from 10
+   to 2, each model's training under ``torch.profiler``, with the ELL
+   kernels' launch counts set to 0 before and read after: no ``error`` row,
+   finite accuracies, both ELL kernels launched both ways; per dataset and
+   model the wall seconds, steps a second, device busy share and operator
+   formats; the stand-ins' ``hash(name) % 1000`` seed offsets of this
+   process; then ``ell_resident`` (Cora's ChebNet Laplacian, negative
+   weights) and ``ell_hbm`` (PubMed's GCN operator) at F = 2, 3, 5, 6, 7
+   and 34 (v = 1), both ways, against the plain versions and timed
+   (phase ``bench_ell_kernels``); and one model a format (dense, ELL,
+   bucketed ELL), five epochs of ``train_and_evaluate`` on the card and on
+   the CPU from the same parameters, dropout 0 (phase
+   ``bench_reference``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -129,6 +145,7 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -162,13 +179,21 @@ SWISSPROT_HYPER_NODES = 26**5  # 25 letters and the space at n = 5
 CHECKPOINT_EVERY = 2
 N_POSITIVE_PAIRS = 100_000  # seeded interaction pairs over the FASTA's accessions
 N_NEGATIVE_PAIRS = 200_000
-PPI_EPOCHS = 10  # eval.epochs cut from 300: ~2.5 ms host-bound MLP steps (PERF.md)
+PPI_EPOCHS = 5  # eval.epochs cut from 300: ~2.5 ms host-bound MLP steps (PERF.md)
 PPI_REF_PAIRS = 20_000  # the ppi_reference phase's pairs (one fold of 5 held out)
 PPI_REF_EPOCHS = 3
 PPI_REF_TOL = (1e-4, 1e-6)  # rtol, atol of the card's probabilities against the CPU's
 W2V_REF_TOL = (1e-4, 1e-7)  # rtol, atol of the card's skip-gram vectors against the CPU's
 W2V_REF_SEQS = 300
 BF16_GRAD_NORM_REL = 0.25  # tests/test_torch_tiers.py
+# benchmark.epochs cut from 300 and benchmark.n_seeds from 10 (KarateClub's rows) to
+# keep the phase near 180 s: at 50 and 3 it took 252-268 s (PERF.md), ~93 s of it
+# the embeddings and PCA writes, which the cut does not shorten.
+BENCH_EPOCHS = 20
+BENCH_SEEDS = 2
+BENCH_WIDTHS = (2, 3, 5, 6, 7, 34)  # the class counts and KarateClub's identity features
+BENCH_REF_EPOCHS = 5
+BENCH_REF_TOL = (1e-4, 2e-3, 1e-3)  # loss rtol; an element's allowance in lr a step; share past it
 SOURCES = {
     "hyper_k1": "protgram_directgcn_torch/csrc/hyper.cu",
     "hyper_k2": "protgram_directgcn_torch/csrc/hyper.cu",
@@ -561,26 +586,6 @@ def run_ppi(torch, workdir: str) -> dict:
     return sets
 
 
-def _profiler(torch, dev: str):
-    """``torch.profiler`` over the CPU and, on the card, its kernels."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev != "cpu":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts)
-
-
-def _device_busy(prof, wall_seconds: float) -> dict:
-    """The profiled window's device kernel time (the sum of every event's
-    self device time) beside its wall time; None where the trace holds no
-    device time."""
-    total_us = sum(getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages())
-    if not total_us:
-        return {"device_seconds": None, "wall_seconds": wall_seconds, "busy_share": None}
-    return {"device_seconds": total_us / 1e6, "wall_seconds": wall_seconds,
-            "busy_share": total_us / 1e6 / wall_seconds}
-
-
 def check_ppi_reference(torch, workdir: str, pca_path: str) -> None:
     """One fold's MLP at the default widths (dropout 0), 3 epochs from the
     same initial parameters on the card and on the CPU, on the main path's
@@ -596,6 +601,7 @@ def check_ppi_reference(torch, workdir: str, pca_path: str) -> None:
     from protgram_directgcn_torch.pipeline.splits import stratified_kfold
     from protgram_directgcn_torch.pipeline.word2vec import Word2VecEmbedder
     from protgram_directgcn_torch.utils.embeddings import edge_features
+    from protgram_directgcn_torch.utils import profiling
     from protgram_directgcn_torch.utils.io import load_interaction_pairs, read_embeddings
 
     vectors = read_embeddings(pca_path)
@@ -615,7 +621,7 @@ def check_ppi_reference(torch, workdir: str, pca_path: str) -> None:
     probs, seconds, busy = {}, {}, {}
     for dev in (DEVICE, "cpu"):
         t0 = time.monotonic()
-        with _profiler(torch, dev) as prof:
+        with profiling.profiler(dev) as prof:
             trainer = MLPTrainer(cfg, seed=42, device=dev)
             tab, a, b = table.to(dev), ia.to(dev), ib.to(dev)
             y = torch.from_numpy(labels.astype(np.float32)).to(dev)
@@ -633,7 +639,7 @@ def check_ppi_reference(torch, workdir: str, pca_path: str) -> None:
                                     for x, _ in batches(te)]).cpu()
         seconds[dev] = time.monotonic() - t0
         if dev == DEVICE:
-            busy["mlp"] = _device_busy(prof, seconds[dev])
+            busy["mlp"] = profiling.device_busy(prof, seconds[dev])
     rtol, atol = PPI_REF_TOL
     mlp_err = float((probs[DEVICE] - probs["cpu"]).abs().max())
     if not torch.allclose(probs[DEVICE], probs["cpu"], rtol=rtol, atol=atol):
@@ -649,13 +655,13 @@ def check_ppi_reference(torch, workdir: str, pca_path: str) -> None:
         cfg.word2vec.batch_size = 1024  # tens of steps on the small corpus
         cfg.word2vec.apply_pca = False
         t0 = time.monotonic()
-        with _profiler(torch, dev) as prof:
+        with profiling.profiler(dev) as prof:
             emb = Word2VecEmbedder(cfg, device=dev)
             emb.run(fasta)
             w2v_vecs[dev] = emb.model.vectors()
         w2v_seconds[dev] = time.monotonic() - t0
         if dev == DEVICE:
-            busy["skipgram"] = _device_busy(prof, w2v_seconds[dev])
+            busy["skipgram"] = profiling.device_busy(prof, w2v_seconds[dev])
     if emb.model.steps == 0:
         fail("ppi_reference: the skip-gram epoch took no step")
     rtol, atol = W2V_REF_TOL
@@ -785,9 +791,10 @@ def _ell_operator(torch, graph, matrix: str):
     return spmm.build_ell(src, tgt, val, graph.num_nodes, device=DEVICE), len(src)
 
 
-def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str) -> dict:
+def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str, want_v: int = 4) -> dict:
     """The kernel direct, and ``propagate`` forward and backward through
-    autograd, against the plain versions; three launches of ``name``."""
+    autograd, against the plain versions; three launches of ``name``, each
+    with ``want_v`` features a thread."""
     from protgram_directgcn_torch.ops import spmm
 
     k, k_t = adj.idx.shape[1], adj.idx_t.shape[1]
@@ -797,7 +804,7 @@ def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str) -> dict:
     y = spmm.propagate(adj, xg)
     y.backward(cot)
     torch.cuda.synchronize()
-    rec = {"launches_by_v": _expect_v(torch, ek, name, {4: 3}, what)}
+    rec = {"launches_by_v": _expect_v(torch, ek, name, {want_v: 3}, what)}
     ref = ek.ell_plain(adj.idx, adj.w, x)
     for tag, got, want, inp, kk in (
             ("fwd", out, ref, x, k), ("autograd_fwd", y.detach(), ref, x, k),
@@ -1771,8 +1778,210 @@ class _OperatorCache:
 # -----------------------------------------------------------------------------
 
 
+# -----------------------------------------------------------------------------
+# Phase 18: the GNN zoo benchmark
+# -----------------------------------------------------------------------------
+
+
+def run_benchmark(torch, ek, workdir: str):
+    """``--stages benchmark`` at every default but ``benchmark.epochs`` (300
+    cut to ``BENCH_EPOCHS``) and ``benchmark.n_seeds`` (10 cut to
+    ``BENCH_SEEDS``), each model's training under ``torch.profiler``
+    (``GNNBenchmarker.PROFILE``), with the ELL kernels' launch counts set to
+    0 before and read after.  Fails on an ``error`` row, a non-finite
+    accuracy, or an ELL kernel launched no time in either direction.
+    Returns the counts, by direction and by ``v``."""
+    import numpy as np
+
+    from protgram_directgcn_torch.bench import datasets as bd
+    from protgram_directgcn_torch.bench.gnn_benchmarker import GNNBenchmarker
+
+    argv = ["--out", os.path.join(workdir, "bench"), "--stages", "benchmark", "--device", DEVICE,
+            "--set", f"benchmark.epochs={BENCH_EPOCHS}", "--set", f"benchmark.n_seeds={BENCH_SEEDS}"]
+    GNNBenchmarker.PROFILE = True
+    ek.reset_launches()
+    try:
+        result, seconds = _drive(torch, argv)
+    finally:
+        GNNBenchmarker.PROFILE = False
+    counts, by_v = ek.launch_counts(), ek.launch_counts_by_v()
+    rows = result["benchmark_results"]
+    bench_cfg = result["benchmarker"].bench
+    want_rows = len(bench_cfg.node_classification_datasets) * 2 * 10
+    bad = [r for r in rows if "error" in r
+           or not _finite([r["best_val_accuracy"], r["test_accuracy"]])]
+    if bad or len(rows) != want_rows:
+        fail(f"benchmark: {len(rows)} rows (want {want_rows}); failed or non-finite: {bad}")
+    for name in ("ell_resident", "ell_hbm"):
+        if not (counts[name]["fwd"] and counts[name]["bwd"]):
+            fail(f"benchmark: {name} launched {counts[name]} (forward and backward expected)")
+    models = {}
+    for variant, per_model in result["benchmarker"].stats.items():
+        for model, st in per_model.items():
+            busy = st["busy"]
+            models.setdefault(variant, {})[model] = {
+                "seconds": st["seconds"], "steps": st["steps"],
+                "steps_per_second": st["steps"] / st["seconds"],
+                "save_seconds": st["save_seconds"],
+                "device_seconds": busy["device_seconds"], "busy_share": busy["busy_share"],
+                "formats": st["formats"]}
+    accuracy = {f"{r['dataset']}/{r['model']}": r["test_accuracy"] for r in rows}
+    datasets = {}
+    for name in bench_cfg.node_classification_datasets:
+        ds = bd.load_dataset(name, None, result["benchmarker"].config.random_state)
+        datasets[name] = {"nodes": ds.num_nodes, "edges": int(ds.edge_index.shape[1]),
+                          "features": int(ds.x.shape[1]), "classes": ds.num_classes,
+                          "synthetic": ds.synthetic,
+                          "standin_seed_offset": (hash(name) % 1000 if ds.synthetic else None)}
+    emit("benchmark", wall_seconds=seconds, stage_seconds=result["seconds"],
+         cut=f"benchmark.epochs 300 -> {BENCH_EPOCHS}, benchmark.n_seeds 10 -> {BENCH_SEEDS}",
+         rows=len(rows), datasets=datasets, ell_launches=counts,
+         ell_launches_by_v={k: {str(v): n for v, n in d.items()} for k, d in by_v.items()},
+         profiled="torch.profiler over each model's training (the CUDA activity only)",
+         models=models, test_accuracy=accuracy,
+         mean_test_accuracy=float(np.mean(list(accuracy.values()))))
+    return counts, by_v
+
+
+def _bench_operator(torch, name: str, kind: str):
+    """An operator of the benchmark path as ELL on the card: the GCN
+    operator (``kind="gcn"``, positive weights) or ChebNet's Laplacian
+    (``kind="cheb"``, negative weights) of the stand-in ``name``."""
+    from protgram_directgcn_torch.bench.datasets import load_dataset
+    from protgram_directgcn_torch.models import zoo
+    from protgram_directgcn_torch.ops import spmm
+
+    ds = load_dataset(name, None, 42)
+    builder = zoo._gcn_norm_adj if kind == "gcn" else zoo._cheb_operator
+    with _zoo_format(zoo, "ell"):
+        adj = builder(ds.edge_index, None, ds.num_nodes, 256, DEVICE)
+    if not isinstance(adj, spmm.EllAdj):
+        fail(f"bench operator {name}/{kind}: built {type(adj).__name__}")
+    return adj, ds
+
+
+@contextlib.contextmanager
+def _zoo_format(zoo, mode: str):
+    """Within the block the zoo's operator builders build ``mode``."""
+    import functools
+
+    from protgram_directgcn_torch.ops import spmm
+
+    zoo.build_adjacency = functools.partial(spmm.build_adjacency, mode=mode)
+    try:
+        yield
+    finally:
+        zoo.build_adjacency = spmm.build_adjacency
+
+
+def check_bench_ell(torch, ek) -> list:
+    """The ELL kernels at the benchmark's narrow widths (F = class counts 2-7
+    and KarateClub's 34 identity features; all take v = 1), forward and the
+    autograd backward, against the plain versions, and timed: ``ell_resident``
+    on Cora's ChebNet Laplacian (negative weights, 2,708 nodes), ``ell_hbm``
+    on PubMed's GCN operator (19,717 nodes, past the resident regime)."""
+    records = []
+    for name, dataset, kind in (("ell_resident", "Cora", "cheb"), ("ell_hbm", "PubMed", "gcn")):
+        adj, ds = _bench_operator(torch, dataset, kind)
+        want = ek.resident_supported(ds.num_nodes)
+        if want != (name == "ell_resident"):
+            fail(f"bench ell: {dataset} ({ds.num_nodes} nodes) does not take {name}")
+        n_out, k = adj.idx.shape
+        for f in BENCH_WIDTHS:
+            gen = torch.Generator(device=DEVICE).manual_seed(1000 + f)
+            x = torch.randn(n_out, f, generator=gen, device=DEVICE)
+            cot = torch.randn(n_out, f, generator=gen, device=DEVICE)
+            what = f"{dataset} {kind} F={f}"
+            rec = {"name": name, "dataset": dataset, "operator": kind, "f": f, "n_out": n_out,
+                   "k": k, "k_t": int(adj.idx_t.shape[1]),
+                   "negative_weights": bool((adj.w < 0).any())}
+            rec.update(_check_ell_both_ways(torch, ek, name, adj, x, cot, what, want_v=1))
+            rec.update(_ell_timed(torch, ek, name, adj.idx, adj.w, x, iters=50))
+            rec["wrapper_ms"] = _wrapper_ms(torch, lambda: getattr(ek, name)(adj.idx, adj.w, x),
+                                            200)
+            records.append(rec)
+    emit("bench_ell_kernels", widths=list(BENCH_WIDTHS), records=records)
+    return records
+
+
+def check_bench_reference(torch, ek) -> None:
+    """One model a format on the card and on the CPU from the same
+    parameters, dropout 0, ``BENCH_REF_EPOCHS`` epochs of the benchmarker's
+    ``train_and_evaluate``: GCN on KarateClub (dense), ChebNet on Cora with
+    its Laplacian built as ELL (``ell_resident``), GCN on PubMed (bucketed
+    ELL, ``ell_hbm``).  Losses within ``BENCH_REF_TOL[0]`` relative, the
+    validation accuracies equal.  The best parameters: every element within
+    Adam's bound, 2 * lr a step, and at most ``BENCH_REF_TOL[2]`` of each
+    leaf's elements past 1e-5 * max|leaf| + ``BENCH_REF_TOL[1]`` * lr a
+    step.  Adam normalises each element's step, so an element whose
+    gradient is a cancellation residue, summed in another order, moves by a
+    share of lr: on the CPU alone, ChebNet on ELL with the slots summed in
+    reverse put up to 0.03% of a leaf's elements past that allowance, by up
+    to 2.8% of Adam's bound, over 22 stand-ins."""
+    from protgram_directgcn_torch.bench.datasets import load_dataset
+    from protgram_directgcn_torch.bench.gnn_benchmarker import (
+        GNNBenchmarker,
+        operator_formats,
+        seeded_split,
+    )
+    from protgram_directgcn_torch.models import zoo
+    from protgram_directgcn_torch.models.directgcn import param_leaves
+
+    cases = (("KarateClub", "GCN", "auto", ["dense"]), ("Cora", "ChebNet", "ell", ["ell"]),
+             ("PubMed", "GCN", "auto", ["bucketed"]))
+    lr = 1e-3
+    out = {}
+    for dataset, model_name, mode, want in cases:
+        ds = load_dataset(dataset, None, 42)
+        masks = None
+        runs = []
+        for card, dev in ((True, DEVICE), (False, "cpu")):
+            with _zoo_format(zoo, mode):
+                model = zoo.ZOO_MODELS[model_name](
+                    edge_index=ds.edge_index, num_nodes=ds.num_nodes, in_dim=ds.x.shape[1],
+                    out_dim=ds.num_classes, hidden_dim=256, dropout_rate=0.0, device=dev)
+            if operator_formats(model) != want:
+                fail(f"bench reference {dataset}/{model_name}: formats "
+                     f"{operator_formats(model)}, expected {want}")
+            bench = GNNBenchmarker(device=dev)
+            if masks is None:
+                masks = seeded_split(ds.num_nodes, bench.bench.split_ratios, 42)
+            params = bench._zoo_init(model)(7)
+            ek.reset_launches()
+            t0 = time.monotonic()
+            run = bench.train_and_evaluate(model_name, model.apply, params, ds, masks,
+                                           BENCH_REF_EPOCHS, lr, 5e-4, 7)
+            if card:
+                torch.cuda.synchronize()
+                launches = ek.launch_counts()
+            runs.append(run + (time.monotonic() - t0,))
+        (_, _, ch, cp, c_s), (_, _, hh, hp, h_s) = runs
+        rtol, lr_share, max_share = BENCH_REF_TOL
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(ch, hh))
+        if loss_rel > rtol or [a["val_accuracy"] for a in ch] != [b["val_accuracy"] for b in hh]:
+            fail(f"bench reference {dataset}/{model_name}: losses {ch} against {hh}")
+        worst, share = 0.0, 0.0
+        bound = 2 * lr * BENCH_REF_EPOCHS
+        for a, b in zip(param_leaves(cp), param_leaves(hp)):
+            err = (a.cpu() - b).abs()
+            allowed = 1e-5 * float(b.abs().max()) + lr_share * lr * BENCH_REF_EPOCHS
+            worst = max(worst, float(err.max()) / allowed)
+            share = max(share, float((err > allowed).float().mean()))
+            if float(err.max()) > bound or share > max_share:
+                fail(f"bench reference {dataset}/{model_name}: a parameter {float(err.max())} "
+                     f"off (bound {bound}), {share} of a leaf past {allowed}")
+        out[f"{dataset}/{model_name}"] = {
+            "formats": want, "epochs": BENCH_REF_EPOCHS, "loss_max_rel_err": loss_rel,
+            "param_err_over_allowed": worst, "share_past_allowed": share,
+            "card_seconds": c_s, "cpu_seconds": h_s, "card_ell_launches": launches}
+    emit("bench_reference", tolerance={
+        "loss_rtol": BENCH_REF_TOL[0], "params": "every element within 2 * lr * epochs; at "
+        "most %g of a leaf past 1e-5 * max|leaf| + %g * lr * epochs" % BENCH_REF_TOL[2:0:-1]},
+        cases=out)
+
+
 def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
-                  tier_counts, cluster_counts):
+                  tier_counts, cluster_counts, bench_counts, bench_by_v, bench_ell):
     """One entry per kernel.  K1/K2: their numbers at the main path's widest
     shape, the 5-gram shape's, and the worst error of each type over every
     shape.  ELL: their numbers at F = 256 on their level's 𝒜_in, every F
@@ -1832,6 +2041,8 @@ def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_re
             "launches_fwd": ell_counts[name]["fwd"], "launches_bwd": ell_counts[name]["bwd"],
             "launches_on": "ell path",
             "launches_cluster_path": cluster_counts[name],
+            "launches_benchmark_path": bench_counts[name],
+            "launches_benchmark_by_v": {str(v): n for v, n in bench_by_v[name].items()},
             "shape": {key: top[key] for key in ("level", "matrix", "n_out", "k", "n_in", "k_t",
                                                 "nnz", "f")},
             "dtype": "float32", "max_abs_err": max(top[e] for e in errs),
@@ -1844,6 +2055,9 @@ def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_re
                                 for r in recs if r["matrix"] != "mathcal_a_in"},
             "edge_cases": {r["case"]: {key: r[key] for key in r if key not in (
                 "case", "name", "plan")} for r in ell_edges if r["name"] == name},
+            "narrow_widths": {str(r["f"]): {key: r[key] for key in timed + errs}
+                              | {key: r[key] for key in ("dataset", "operator", "n_out", "k")}
+                              for r in bench_ell if r["name"] == name},
         })
     library_calls = {"retile_unpack": "F.pad(t.view(A, GP*k, f), (0, 128 - f))",
                      "retile_pack": "t[..., :f].reshape(A, GP, 128) (128-padded input)"}
@@ -1964,9 +2178,13 @@ def main() -> int:
         run_degrade_level(torch, tier_config, tier_graphs[3])
         check_native_etl(fasta)
         check_checkpoint(torch, hk, main_graphs[2], workdir)
+        torch.cuda.empty_cache()
+        bench_counts, bench_by_v = run_benchmark(torch, ek, workdir)
+        bench_ell = check_bench_ell(torch, ek)
+        check_bench_reference(torch, ek)
 
     kernels = _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
-                            tier_counts, cluster_counts)
+                            tier_counts, cluster_counts, bench_counts, bench_by_v, bench_ell)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

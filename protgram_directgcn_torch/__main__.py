@@ -1,16 +1,17 @@
 """Pipeline CLI of the port: ``python -m protgram_directgcn_torch``.
 
     python -m protgram_directgcn_torch --fasta seqs.fasta --out results \\
-        --stages graph,gcn,word2vec,ppi [--set gcn.epochs_per_level=5 ...] \\
+        --stages graph,gcn,word2vec,benchmark,ppi [--set gcn.epochs_per_level=5 ...] \\
         [--device cpu]
 
 Runs the ported stages in the JAX package's ``main.py`` order: graph
 building (with ``graph`` or ``gcn``), hierarchical GCN training, protein
 pooling and the PPI sanity check (``gcn``), the Word2Vec baseline
-(``word2vec``), and PPI link-prediction evaluation of the embedding sets
+(``word2vec``), the GNN zoo benchmark on node classification
+(``benchmark``), and PPI link-prediction evaluation of the embedding sets
 found under ``--out`` (``ppi``; ``dummy`` evaluates synthetic data
 instead), on the card, or on the CPU with ``--device cpu``.  The
-``transformer`` and ``benchmark`` stages are not ported yet and raise.
+``transformer`` stage is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -23,9 +24,8 @@ from pathlib import Path
 
 from protgram_directgcn_torch.config import Config
 
-_PORTED = {"graph", "gcn", "word2vec", "ppi", "dummy"}
-_UNPORTED = {"transformer": "Queue 1 item 14 (the transformer stage)",
-             "benchmark": "Queue 1 item 12 (the GNN zoo benchmark)"}
+_PORTED = {"graph", "gcn", "word2vec", "benchmark", "ppi", "dummy"}
+_UNPORTED = {"transformer": "Queue 1 item 14 (the transformer stage)"}
 
 
 def parse_args(argv=None):
@@ -36,7 +36,7 @@ def parse_args(argv=None):
     p.add_argument("--fasta", help="input FASTA path")
     p.add_argument("--out", help="base output directory")
     p.add_argument("--stages", default="graph,gcn",
-                   help="comma list of graph,gcn,word2vec,ppi,dummy")
+                   help="comma list of graph,gcn,word2vec,benchmark,ppi,dummy")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -65,9 +65,11 @@ def main(argv=None):
     {n: the builder's stats of level n, with the ETL path it took},
     "trainer": ..., "pooled": {protein_id: vector}, "embeddings_path": the
     GCN stage's last embeddings file, "embedder": the Word2VecEmbedder,
-    "word2vec_path": its pooled embeddings file, "ppi": the PPIPipeline,
-    "ppi_results": its results, "seconds": {stage: s}}`` (a stage that did
-    not run leaves its entries None and its seconds absent)."""
+    "word2vec_path": its pooled embeddings file, "benchmarker": the
+    GNNBenchmarker, "benchmark_results": its result rows, "ppi": the
+    PPIPipeline, "ppi_results": its results, "seconds": {stage: s}}`` (a
+    stage that did not run leaves its entries None and its seconds
+    absent)."""
     args = parse_args(argv)
     wanted = {s.strip() for s in args.stages.split(",") if s.strip()}
     unported = sorted(wanted & set(_UNPORTED))
@@ -80,8 +82,10 @@ def main(argv=None):
     st = cfg.stages
     st.run_gcn_pipeline = bool(wanted & {"graph", "gcn"})
     st.run_word2vec_pipeline = "word2vec" in wanted
+    st.run_benchmarking_pipeline = "benchmark" in wanted
     st.run_main_ppi_evaluation = "ppi" in wanted
     st.run_dummy_test = "dummy" in wanted
+    from protgram_directgcn_torch.bench.gnn_benchmarker import GNNBenchmarker
     from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
     from protgram_directgcn_torch.pipeline.ppi import PPIPipeline
     from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
@@ -96,11 +100,14 @@ def main(argv=None):
     # when the card is absent.
     trainer = HierarchicalTrainer(cfg, device=args.device) if "gcn" in wanted else None
     embedder = Word2VecEmbedder(cfg, device=args.device) if st.run_word2vec_pipeline else None
+    benchmarker = (GNNBenchmarker(cfg, device=args.device)
+                   if st.run_benchmarking_pipeline else None)
     ppi = (PPIPipeline(cfg, device=args.device)
            if st.run_main_ppi_evaluation or st.run_dummy_test else None)
     t0 = time.monotonic()
     result = {"graphs": None, "graph_etl": None, "trainer": trainer, "pooled": None,
               "embeddings_path": None, "embedder": embedder, "word2vec_path": None,
+              "benchmarker": benchmarker, "benchmark_results": None,
               "ppi": ppi, "ppi_results": None, "seconds": {}}
     if st.run_gcn_pipeline:
         builder = NgramGraphBuilder(cfg)
@@ -116,6 +123,10 @@ def main(argv=None):
         t_stage = time.monotonic()
         result["word2vec_path"] = embedder.run()
         result["seconds"]["word2vec"] = time.monotonic() - t_stage
+    if benchmarker is not None:
+        t_stage = time.monotonic()
+        result["benchmark_results"] = benchmarker.run()
+        result["seconds"]["benchmark"] = time.monotonic() - t_stage
     if ppi is not None:
         t_stage = time.monotonic()
         result["ppi_results"] = ppi.run(use_dummy_data=st.run_dummy_test)

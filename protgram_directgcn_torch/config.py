@@ -1,8 +1,9 @@
-"""Configuration of the ported stages (graph, gcn, word2vec, ppi).
+"""Configuration of the ported stages (graph, gcn, word2vec, ppi, benchmark).
 
-Same field names and defaults as protgram_directgcn_tpu/config.py:20-262 for
+Same field names and defaults as protgram_directgcn_tpu/config.py:20-303 for
 what the port runs (paths, stage toggles, graph builder, GCN trainer,
-Word2Vec, PPI evaluation), and the same dotted ``--set`` overrides.  Each of
+Word2Vec, PPI evaluation, the GNN zoo benchmark), and the same dotted
+``--set`` overrides.  Each of
 these sections keeps every field of the JAX package, so ``--set`` lines
 written for it apply here.
 """
@@ -58,6 +59,10 @@ class PathsConfig:
     @property
     def evaluation_results_dir(self) -> Path:
         return self.base_output_dir / "3_evaluation_results"
+
+    @property
+    def benchmarking_results_dir(self) -> Path:
+        return self.base_output_dir / "4_benchmarking_results"
 
     @property
     def id_mapping_output_file(self) -> Path:
@@ -187,6 +192,39 @@ class EvalConfig:
 
 
 @dataclass
+class BenchmarkConfig:
+    """GNN zoo benchmark suite knobs (reference: config.py:49-57)."""
+
+    node_classification_datasets: List[str] = field(
+        default_factory=lambda: ["KarateClub", "Cora", "CiteSeer", "PubMed", "Cornell", "Texas",
+                                 "Wisconsin"]
+    )
+    save_embeddings: bool = True
+    apply_pca_to_embeddings: bool = True
+    pca_target_dim: int = 64
+    test_on_undirected: bool = True
+    split_ratios: Dict[str, float] = field(
+        default_factory=lambda: {"train": 0.1, "val": 0.1, "test": 0.8})
+    # Every benchmark model (zoo + DirectGCN) trains with Adam(lr 1e-3,
+    # wd 5e-4) for 300 epochs (reference: gnn_benchmarker.py:334-339).
+    epochs: int = 300
+    lr: float = 0.001
+    weight_decay: float = 5e-4
+    # Directory holding real dataset raw files (<Name>/raw/...) in the
+    # Planetoid/WebKB layouts; seeded synthetic stand-ins where absent.
+    dataset_root: Optional[Path] = None
+    # Datasets whose rows are averaged over ``n_seeds`` seeds (init and
+    # split re-drawn).
+    seed_average_datasets: List[str] = field(default_factory=lambda: ["KarateClub"])
+    n_seeds: int = 10
+    # The ProtGramDirectGCN_norm row: the deep DirectGCN on the
+    # sqrt-normalized 𝒜 operators, with a decoder width floor.
+    normalized_row: bool = True
+    norm_row_dropout: float = 0.2
+    norm_row_decoder_floor: int = 8
+
+
+@dataclass
 class Config:
     """Top-level configuration (the sections the port reads)."""
 
@@ -198,6 +236,7 @@ class Config:
     gcn: GCNConfig = field(default_factory=GCNConfig)
     word2vec: Word2VecConfig = field(default_factory=Word2VecConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    benchmark: BenchmarkConfig = field(default_factory=BenchmarkConfig)
     id_mapping_mode: str = "regex"  # 'regex' | 'none'
 
     def apply_overrides(self, overrides: Dict[str, Any]) -> "Config":

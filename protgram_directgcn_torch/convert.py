@@ -63,6 +63,45 @@ def skipgram_params_from_jax(params: Any, device: Union[str, torch.device] = "cu
     return {k: _tensor(params[k], dev).float() for k in ("in", "out")}
 
 
+# Each zoo model's layer keys (models/zoo.py), and TongDiGCN's top level.
+_ZOO_LAYER_KEYS = {
+    "GCN": {"w", "b"},
+    "GAT": {"w", "att_src", "att_dst", "b"},
+    "GraphSAGE": {"w_nbr", "b_nbr", "w_root"},
+    "GIN": {"w1", "b1", "w2", "b2", "eps"},
+    "ChebNet": {"ws", "b"},
+    "RGCN": {"w_rel", "w_root", "b"},
+}
+_TONG_KEYS = {"fwd", "bwd", "w_final", "b_final"}
+
+
+def _check_zoo_tree(name: str, params: Any) -> None:
+    if name == "TongDiGCN":
+        if set(params) != _TONG_KEYS:
+            raise KeyError(f"TongDiGCN parameters have keys {sorted(params)}, "
+                           f"expected {sorted(_TONG_KEYS)}")
+        for half in ("fwd", "bwd"):
+            _check_zoo_tree("GCN", params[half])
+        return
+    want = _ZOO_LAYER_KEYS[name]
+    for i, layer in enumerate(params["layers"]):
+        if set(layer) != want:
+            raise KeyError(f"{name} layer {i} has keys {sorted(layer)}, expected {sorted(want)}")
+
+
+def zoo_params_from_jax(name: str, params: Any,
+                        device: Union[str, torch.device] = "cuda") -> Any:
+    """A zoo model's parameters of the JAX package (``models/zoo.py``
+    ``init_params``; ``name`` a key of ``ZOO_MODELS``) as the port's: the
+    same nested dicts and lists (ChebNet's ``ws``, TongDiGCN's ``fwd`` and
+    ``bwd`` GCN trees), float32 tensors on ``device``.  A tree whose keys
+    are not the model's raises ``KeyError``."""
+    if name not in _ZOO_LAYER_KEYS and name != "TongDiGCN":
+        raise KeyError(f"unknown zoo model {name!r}")
+    _check_zoo_tree(name, params)
+    return _params(params, resolve_device(device))
+
+
 def params_to_numpy(tree: Any) -> Any:
     """The port's parameters as a tree of float32 numpy arrays (for handing
     them to the JAX package)."""

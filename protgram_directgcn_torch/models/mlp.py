@@ -88,18 +88,29 @@ def sigmoid_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> 
     return -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
 
 
+def adam_bias_corrections(count: int) -> Tuple[float, float]:
+    """optax ``scale_by_adam``'s bias corrections ``1 - b1**t`` and
+    ``1 - b2**t`` at step ``t = count``, computed in float32 as optax computes
+    them on float32 leaves (float64's differ by ~1e-5 relative at the first
+    steps: ``1 - 0.999**1`` is 1.3e-5 off).  Every Adam of the port takes
+    them from here."""
+    t = np.float32(count)
+    return (float(np.float32(1) - np.float32(OptaxAdam.B1) ** t),
+            float(np.float32(1) - np.float32(OptaxAdam.B2) ** t))
+
+
 class OptaxAdam(torch.optim.Optimizer):
     """``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8) as optax computes it
-    on float32 leaves: the bias corrections ``1 - b**t`` in float32 (they
-    differ from float64's by ~1e-5 relative at the first steps, which
-    torch.optim.Adam's float64 corrections would carry into every update),
-    then ``mu_hat / (sqrt(nu_hat) + eps)`` scaled by ``-lr`` and added.  One
+    on float32 leaves: the bias corrections of :func:`adam_bias_corrections`,
+    then ``mu_hat / (sqrt(nu_hat) + eps)`` scaled by ``-lr`` and added.
+    ``weight_decay`` > 0 makes it ``optax.chain(add_decayed_weights(wd),
+    adam(lr))``: ``g + wd * p`` takes the gradient's place.  One
     ``torch._foreach_*`` launch per operation for all leaves."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, params, lr: float):
-        super().__init__(params, {"lr": lr, "count": 0})
+    def __init__(self, params, lr: float, weight_decay: float = 0.0):
+        super().__init__(params, {"lr": lr, "weight_decay": weight_decay, "count": 0})
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -111,10 +122,10 @@ class OptaxAdam(torch.optim.Optimizer):
                 if not self.state[p]:
                     self.state[p].update(mu=torch.zeros_like(p), nu=torch.zeros_like(p))
             group["count"] += 1
-            t = np.float32(group["count"])
-            bc1 = float(np.float32(1) - np.float32(self.B1) ** t)
-            bc2 = float(np.float32(1) - np.float32(self.B2) ** t)
+            bc1, bc2 = adam_bias_corrections(group["count"])
             grads = [p.grad for p in ps]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, ps, alpha=group["weight_decay"])
             mus = [self.state[p]["mu"] for p in ps]
             nus = [self.state[p]["nu"] for p in ps]
             torch._foreach_mul_(mus, self.B1)

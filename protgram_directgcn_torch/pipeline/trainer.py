@@ -66,6 +66,7 @@ from protgram_directgcn_torch.models.directgcn import (
     param_leaves,
     unpack_rg_carry,
 )
+from protgram_directgcn_torch.models.mlp import OptaxAdam, adam_bias_corrections
 from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, retile
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.ops.spmm import DenseAdj, EllAdj, _ell_one_sided
@@ -133,7 +134,7 @@ _NODE_PARAM_NAMES = frozenset(
     {"c_in", "c_out", "c_directed", "c_undirected", "c_all", "constant"}
 )
 _FACTOR_MIN_DIM = 32
-_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = OptaxAdam.B1, OptaxAdam.B2, OptaxAdam.EPS
 _ADAFACTOR_DECAY, _ADAFACTOR_EPS = 0.999, 1e-30
 
 
@@ -160,7 +161,8 @@ class TrainOptimizer(torch.optim.Optimizer):
     - Weight decay is added to the gradient before the moments (optax
       ``add_decayed_weights``; torch.optim.Adam's L2), summed in f32 and
       rounded to the parameter's type, the type of its gradient.
-    - Group "adam": Adam (b1 0.9, b2 0.999, eps 1e-8).
+    - Group "adam": Adam (b1 0.9, b2 0.999, eps 1e-8), its bias corrections
+      in float32 as optax computes them (``adam_bias_corrections``).
     - Group "adafactor" (the node tables when factored): optax 0.2.6's
       ``adafactor`` with ``multiply_by_parameter_scale=False``,
       ``clipping_threshold=None``, ``decay_rate=0.999``,
@@ -227,7 +229,7 @@ def _adam_begin(state: dict, p: torch.Tensor) -> int:
 
 def _adam_foreach(states: list, ps: list, step: int, lr: float, wd: float) -> None:
     """``_adam_update`` for float32 leaves at one step count, together."""
-    bc1, bc2 = 1.0 - _ADAM_B1 ** step, 1.0 - _ADAM_B2 ** step
+    bc1, bc2 = adam_bias_corrections(step)
     grads = [p.grad for p in ps]
     if wd:
         grads = torch._foreach_add(grads, ps, alpha=wd)
@@ -245,9 +247,10 @@ def _adam_foreach(states: list, ps: list, step: int, lr: float, wd: float) -> No
 
 
 def _adam_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> None:
-    """optax ``scale_by_adam``: bias-corrected mu / (sqrt(nu) + eps)."""
+    """optax ``scale_by_adam``: bias-corrected mu / (sqrt(nu) + eps), with
+    optax's float32 corrections."""
     step = _adam_begin(state, p)
-    bc1, bc2 = 1.0 - _ADAM_B1 ** step, 1.0 - _ADAM_B2 ** step
+    bc1, bc2 = adam_bias_corrections(step)
     for sl in _slices(p):
         g = _grad_f32(p, sl, wd)
         mu = state["mu"][sl].mul_(_ADAM_B1).add_(g, alpha=1.0 - _ADAM_B1)

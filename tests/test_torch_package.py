@@ -17,7 +17,7 @@ from protgram_directgcn_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "matplotlib", "sklearn",
-             "protgram_directgcn_tpu")
+             "networkx", "pandas", "protgram_directgcn_tpu")
 # Absent on the card's machine, so the port may name them only in an import
 # guarded by ``except ImportError`` (the embeddings file falls back to .npz,
 # the evaluation plots are skipped).
@@ -177,7 +177,9 @@ def test_ppi_and_word2vec_entry_points_raise_without_cuda(monkeypatch, toy_fasta
 
     from protgram_directgcn_torch import convert
     from protgram_directgcn_torch.__main__ import main
+    from protgram_directgcn_torch.bench.gnn_benchmarker import GNNBenchmarker
     from protgram_directgcn_torch.models.mlp import MLPConfig, MLPTrainer
+    from protgram_directgcn_torch.models.zoo import GCN
     from protgram_directgcn_torch.pipeline.ppi import PPIPipeline, run_sanity_check_ppi
     from protgram_directgcn_torch.pipeline.word2vec import SkipGramModel, Word2VecEmbedder
 
@@ -189,13 +191,18 @@ def test_ppi_and_word2vec_entry_points_raise_without_cuda(monkeypatch, toy_fasta
                  lambda: run_sanity_check_ppi(Config(), path),
                  lambda: convert.mlp_params_from_jax({"w1": np.ones((2, 2), np.float32)}),
                  lambda: convert.skipgram_params_from_jax(
-                     {"in": np.ones((2, 2), np.float32), "out": np.ones((2, 2), np.float32)})):
+                     {"in": np.ones((2, 2), np.float32), "out": np.ones((2, 2), np.float32)}),
+                 lambda: GNNBenchmarker(Config()),
+                 lambda: GCN(np.array([[0], [1]]), 2, 3, 4, 2),
+                 lambda: convert.zoo_params_from_jax(
+                     "GCN", {"layers": [{"w": np.ones((2, 2), np.float32),
+                                         "b": np.zeros(2, np.float32)}]})):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
-    for stages in ("word2vec", "ppi", "dummy", "graph,gcn,word2vec,ppi"):
+    for stages in ("word2vec", "benchmark", "ppi", "dummy", "graph,gcn,word2vec,benchmark,ppi"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["--fasta", str(toy_fasta), "--out", str(tmp_path / "o"), "--stages", stages])
     assert not (tmp_path / "o").exists()  # failed before any work
-    for stages in ("transformer", "graph,benchmark"):
+    for stages in ("transformer", "graph,benchmark,transformer"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["--fasta", str(toy_fasta), "--stages", stages, "--device", "cpu"])
