@@ -137,6 +137,26 @@ Phases, each printing one JSON line as it ends:
    the CPU from the same parameters, dropout 0 (phase
    ``bench_reference``).
 
+19. sddmm: ``propagate(adj, x, edge_grads=True)`` on the card against the
+   same call on the CPU: dw and dx of the ELL format at n = 4 (through
+   ``ell_hbm``), bucketed ELL and COO at n = 3 (F = 64), the hypercube's
+   dd, dwf and dwb at n = 3 (F = 256, float32 and bfloat16); the ELL
+   products launch the kernels both ways and never ``ell_plain``; the
+   kernel forward, the SDDMM alone and a forward and backward with and
+   without edge gradients timed (the SDDMM's share of the backward);
+20. distributed: the ell path's graphs n = 1..4 trained over node shards
+   (``HierarchicalTrainer.run`` under ``parallel.mesh_nodes``, dims
+   [256, 128, 64], 5 epochs, dropout 0, closest_aa at n = 4), in hypercube
+   mode (n = 1 in halo mode) and in halo mode: at world size 1 under NCCL
+   in this process, and at world size 2 under gloo in two spawned
+   processes that share the card, after a probe (in two more processes) of
+   whether gloo takes CUDA tensors for ``all_to_all_single``,
+   ``all_reduce`` and ``batch_isend_irecv``; each run's losses and exported
+   embeddings held against the one-device run from the same initial
+   parameters; K1/K2 on every hypercube level and the ELL kernels on every
+   halo level launched both ways; step, exchange and launch counts per
+   level and rank.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 then exits non-zero without that last line.  It exits non-zero at once when
@@ -1752,16 +1772,20 @@ def run_degrade_level(torch, config, graph_path: str):
 
 class _OperatorCache:
     """``HierarchicalTrainer._to_device_graph`` memoised by level and
-    compute type while active: phases 13 and 16 train the same 5-gram level
-    on the same bf16 operators, built once on the host."""
+    compute type while active, for the levels in ``levels``: phases 12, 13
+    and 16 train the same 5-gram level on the same bf16 operators, built
+    once on the host."""
 
-    def __init__(self, trainer_cls):
+    def __init__(self, trainer_cls, levels=(TIER_N,)):
         self.cls, self.real, self.built = trainer_cls, trainer_cls._to_device_graph, {}
+        self.levels = set(levels)
 
     def __enter__(self):
-        real, built = self.real, self.built
+        real, built, levels = self.real, self.built, self.levels
 
         def cached(trainer, graph, plan, feat_dim=128):
+            if graph.n not in levels:
+                return real(trainer, graph, plan, feat_dim)
             key = (graph.n, plan.compute_dtype)
             if key not in built:
                 built[key] = real(trainer, graph, plan, feat_dim)
@@ -1980,6 +2004,588 @@ def check_bench_reference(torch, ek) -> None:
         cases=out)
 
 
+# -----------------------------------------------------------------------------
+# Phase 19: SDDMM edge gradients
+# -----------------------------------------------------------------------------
+
+SDDMM_F = 64  # the edge-list formats' width (their CPU references gather N x K x F)
+SDDMM_HYPER_F = 256
+
+
+def _sddmm_err(got, ref, x, cot, f: int):
+    """Max abs error, and whether every element is within rtol 1e-5 and atol
+    1e-6 * F * max|x| * max|cotangent| (an f32 dot of F products)."""
+    err = (got.float().cpu() - ref.float()).abs()
+    atol = 1e-6 * f * float(x.abs().max()) * float(cot.abs().max())
+    return float(err.max()), bool((err <= atol + 1e-5 * ref.float().abs()).all())
+
+
+def _events_ms(torch, fn, iters: int) -> float:
+    """Mean device time of ``fn`` over a host loop, with CUDA events."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_sddmm(torch, ek, hk, graph_paths):
+    """``propagate(adj, x, edge_grads=True)`` on the card against the same
+    call on the CPU: dw (and dx) of the ELL format at n = 4 (``ell_hbm``),
+    bucketed ELL and COO at n = 3 (F = 64), the hypercube's dd, dwf, dwb at
+    n = 3 (F = 256, float32 and bfloat16); the ELL products must reach the
+    kernels forward and backward and never ``ell_plain``.  Timed: the
+    kernel forward, the SDDMM alone, and a forward and backward with and
+    without edge gradients (the SDDMM's share of the backward)."""
+    from protgram_directgcn_torch.graph import transforms
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.ops import hypercube, spmm
+
+    records = {}
+    counts = {name: {"fwd": 0, "bwd": 0} for name in ek.LAUNCHES}
+    for fmt, level, builder in (("ell", 4, spmm.build_ell),
+                                ("bucketed", 3, spmm.build_bucketed_ell),
+                                ("coo", 3, spmm.build_coo)):
+        graph = load_graph(graph_paths[level - 1])
+        src, tgt, val = transforms.csr_to_coo_arrays(graph.mathcal_a_in())
+        n = graph.num_nodes
+        gen = torch.Generator().manual_seed(level * 7 + len(fmt))
+        x = torch.randn(n, SDDMM_F, generator=gen)
+        cot = torch.randn(n, SDDMM_F, generator=gen)
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            adj = builder(src, tgt, val, n, device=dev)
+            leaves = tuple(adj.w) if fmt == "bucketed" else (adj.w,)
+            leaves = tuple(w.clone().requires_grad_(True) for w in leaves)
+            adj.w = leaves if fmt == "bucketed" else leaves[0]
+            xg = x.to(dev, copy=True).requires_grad_(True)
+            plain_calls = []
+            real_plain = ek.ell_plain
+            ek.ell_plain = lambda *a: plain_calls.append(1) or real_plain(*a)
+            ek.reset_launches()
+            try:
+                y = spmm.propagate(adj, xg, edge_grads=True)
+                y.backward(cot.to(dev))
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+            finally:
+                ek.ell_plain = real_plain
+            outs[dev] = {"dw": [w.grad.cpu() for w in leaves], "dx": xg.grad.cpu(),
+                         "y": y.detach().cpu(), "adj": adj, "plain": len(plain_calls),
+                         "launches": ek.launch_counts()}
+        card = outs[DEVICE]
+        rec = {"level": level, "n": n, "f": SDDMM_F, "launches": card["launches"],
+               "nnz": int(len(src))}
+        if fmt != "coo":
+            name = "ell_hbm" if level == 4 else "ell_resident"
+            for direction in ("fwd", "bwd"):
+                if card["launches"][name][direction] <= 0:
+                    fail(f"sddmm: {fmt} at n={level} never launched {name} ({direction})")
+                counts[name][direction] += card["launches"][name][direction]
+            if card["plain"]:
+                fail(f"sddmm: {fmt} at n={level} ran ell_plain {card['plain']} times on the card")
+        for key, got, ref in ([("dw", g, r) for g, r in zip(card["dw"], outs["cpu"]["dw"])]
+                              + [("dx", card["dx"], outs["cpu"]["dx"]),
+                                 ("y", card["y"], outs["cpu"]["y"])]):
+            err, ok = _sddmm_err(got, ref, x, cot, SDDMM_F)
+            rec[f"{key}_max_abs_err"] = max(err, rec.get(f"{key}_max_abs_err", 0.0))
+            if not ok:
+                fail(f"sddmm: {fmt} at n={level} {key} disagrees with the CPU: max abs err {err}")
+        adj = card["adj"]
+        xc, cc = x.to(DEVICE), cot.to(DEVICE)
+        xw = xc.clone().requires_grad_(True)
+
+        def step(eg):
+            def run():
+                y = spmm.propagate(adj, xw, edge_grads=eg)
+                y.backward(cc)
+            return run
+
+        rec["fwd_bwd_ms"] = _events_ms(torch, step(False), 20)
+        rec["fwd_bwd_edge_grads_ms"] = _events_ms(torch, step(True), 20)
+        rec["sddmm_ms"] = _events_ms(torch, lambda: spmm._sddmm(adj, xc, cc), 20)
+        if fmt == "ell":
+            kernel = ek.ell_hbm if level == 4 else ek.ell_resident
+            rec["kernel_fwd_ms"] = _events_ms(torch, lambda: kernel(adj.idx, adj.w, xc), 20)
+        rec["sddmm_share_of_backward"] = 1.0 - rec["fwd_bwd_ms"] / rec["fwd_bwd_edge_grads_ms"]
+        records[fmt] = rec
+        del outs, card, adj, xc, cc, xw
+        torch.cuda.empty_cache()
+
+    graph = load_graph(graph_paths[2])
+    src, tgt, val = transforms.csr_to_coo_arrays(graph.mathcal_a_in())
+    codes, alpha = hypercube.vocab_char_codes(graph.vocab)
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            adj = hypercube.build_hypercube(src, tgt, val, codes, alpha, weights_dtype=tdt,
+                                            device=dev)
+            gen = torch.Generator().manual_seed(31)
+            x = torch.randn(adj.n_out, SDDMM_HYPER_F, generator=gen).to(tdt)
+            cot = torch.randn(adj.n_out, SDDMM_HYPER_F, generator=gen).to(tdt)
+            adj.d, adj.wf_rs, adj.wb_rs = (t.clone().requires_grad_(True)
+                                           for t in (adj.d, adj.wf_rs, adj.wb_rs))
+            xg = x.to(dev, copy=True).requires_grad_(True)
+            hk.reset_launches()
+            y = hypercube.propagate_hyper_affine(adj, xg, 0.75, 0.125, edge_grads=True)
+            y.backward(cot.to(dev))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            outs[dev] = {k: v.grad.float().cpu() for k, v in (
+                ("dd", adj.d), ("dwf", adj.wf_rs), ("dwb", adj.wb_rs), ("dx", xg))}
+            outs[dev].update(adj=adj, launches=hk.launch_counts())
+        rec = {"level": 3, "shape": list(adj.feature_shape) + [SDDMM_HYPER_F], "dtype": dt,
+               "launches": outs[DEVICE]["launches"]}
+        for k in ("k1", "k2"):
+            if min(outs[DEVICE]["launches"][k].values()) <= 0:
+                fail(f"sddmm: hypercube {dt} did not launch {k} both ways")
+        for key in ("dd", "dwf", "dwb", "dx"):
+            got, ref = outs[DEVICE][key], outs["cpu"][key]
+            if dt == "float32":
+                err, ok = _sddmm_err(got, ref, x, cot, SDDMM_HYPER_F)
+            else:  # bf16 operands, f32 sums: within 2 bf16 ulps of the largest value
+                err = float((got - ref).abs().max())
+                ok = err <= 2 * 2.0**-8 * float(ref.abs().max())
+            rec[f"{key}_max_abs_err"] = err
+            if not ok:
+                fail(f"sddmm: hypercube {dt} {key} disagrees with the CPU: max abs err {err}")
+        adj = outs[DEVICE]["adj"]
+        xc, cc = x.to(DEVICE), cot.to(DEVICE)
+        xw = xc.clone().requires_grad_(True)
+
+        def hstep(eg):
+            def run():
+                y = hypercube.propagate_hyper_affine(adj, xw, 0.75, 0.125, edge_grads=eg)
+                y.backward(cc)
+            return run
+
+        rec["fwd_bwd_ms"] = _events_ms(torch, hstep(False), 20)
+        rec["fwd_bwd_edge_grads_ms"] = _events_ms(torch, hstep(True), 20)
+        rec["sddmm_ms"] = _events_ms(
+            torch, lambda: hypercube._sddmm_hyper(cc.view(adj.feature_shape + (-1,)),
+                                                  xc.view(adj.feature_shape + (-1,)), 0.75),
+            20)
+        rec["sddmm_share_of_backward"] = 1.0 - rec["fwd_bwd_ms"] / rec["fwd_bwd_edge_grads_ms"]
+        records[f"hypercube_{dt}"] = rec
+        del outs, adj, xc, cc, xw
+        torch.cuda.empty_cache()
+    emit("sddmm", **records)
+    return counts
+
+
+# -----------------------------------------------------------------------------
+# Phase 20: levels trained over node shards
+# -----------------------------------------------------------------------------
+
+DIST_DIMS = (256, 128, 64)
+DIST_EPOCHS = 5
+DIST_WORLD = 2
+# A sharded run against the one-device run from the same initial parameters.
+# The first level's first loss (before any update) within DIST_FIRST_RTOL;
+# every other loss and the exported embeddings within the looser bounds:
+# float32 sums in another order (a halo row's local and halo parts) compound
+# over four cascaded levels of five Adam steps, and Adam moves an element
+# whose gradient is a cancellation residue by a share of lr whatever the
+# residue's size.  Measured at most 3.5e-3 and 8.9e-3 (halo mode on two
+# ranks, PERF.md); a shard laid out wrong is off by tens of percent.
+DIST_FIRST_RTOL = 1e-4
+DIST_LOSS_RTOL = 2e-2
+DIST_EMBED_ATOL = 5e-2
+
+
+def _dist_config(mode: str, ws, out: str):
+    """The distributed phase's configuration: ``ws`` node shards in ``mode``,
+    or (``ws`` None) the one-device run on the matching format."""
+    from protgram_directgcn_torch.config import Config
+
+    cfg = Config().apply_overrides({
+        "graph_builder.ngram_max_n": 4, "gcn.hidden_layer_dims": list(DIST_DIMS),
+        "gcn.epochs_per_level": DIST_EPOCHS, "gcn.dropout_rate": 0.0,
+        "gcn.default_task_type": "closest_aa", "gcn.apply_pca": False,
+        "gcn.run_sanity_check_ppi": False, "id_mapping_mode": "none",
+        "gcn.checkpoint_every_epochs": 0, "gcn.use_cluster_training": False})
+    cfg.paths.base_output_dir = type(cfg.paths.base_output_dir)(out)
+    if ws is not None:
+        cfg.parallel.mesh_nodes = ws
+        cfg.parallel.mode = mode
+    else:  # "auto" takes the hypercube where hypercube mode does (alpha^n <= 4N)
+        cfg.gcn.spmm_mode = "auto" if mode == "hypercube" else "ell"
+    return cfg
+
+
+class _LevelCache:
+    """While active, in this process: each graph file loaded once, each
+    level's three normalised matrices computed once and its labels drawn
+    once (all deterministic), however many of the distributed phase's runs
+    read them; the host work each run repeats is its own (operators,
+    features, training, pooling)."""
+
+    def __enter__(self):
+        from protgram_directgcn_torch.graph.structure import NgramGraph
+        from protgram_directgcn_torch.pipeline import trainer as trainer_mod
+
+        self.mod, self.cls = trainer_mod, NgramGraph
+        self.saved = (trainer_mod.load_graph, trainer_mod.generate_labels,
+                      {k: getattr(NgramGraph, k)
+                       for k in ("mathcal_a_in", "mathcal_a_out", "undirected_norm")})
+        real_load, real_labels, methods = self.saved
+        graphs, memo = {}, {}
+
+        def load(path):
+            key = os.path.abspath(str(path))
+            if key not in graphs:
+                graphs[key] = real_load(path)
+            return graphs[key]
+
+        def labels(graph, *args):
+            key = ("labels", id(graph), args)
+            if key not in memo:
+                memo[key] = real_labels(graph, *args)
+            return memo[key]
+
+        def cached(name, real):
+            def method(graph):
+                key = (name, id(graph))
+                if key not in memo:
+                    memo[key] = real(graph)
+                return memo[key]
+            return method
+
+        trainer_mod.load_graph, trainer_mod.generate_labels = load, labels
+        for name, real in methods.items():
+            setattr(NgramGraph, name, cached(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.load_graph, self.mod.generate_labels, methods = self.saved
+        for name, real in methods.items():
+            setattr(self.cls, name, real)
+
+
+def _no_decoder_dropout():
+    """Dropout 0 in the decoder too (the trainer's model config has no knob
+    for it): a sharded run draws its masks per rank."""
+    from protgram_directgcn_torch.models import directgcn
+    from protgram_directgcn_torch.pipeline import trainer
+
+    trainer.DirectGCNConfig = lambda **kw: directgcn.DirectGCNConfig(**kw, decoder_dropout=0.0)
+
+
+def _sharded_run(torch, mode: str, ws: int, graphs_dir: str, out: str, fasta: str,
+                 device: str) -> dict:
+    """One ``HierarchicalTrainer.run`` over the levels on this rank's shard:
+    level stats, launches, exchange counts and the exported file (rank 0)."""
+    from protgram_directgcn_torch.ops import ell_kernels as ek, hyper_kernels as hk
+    from protgram_directgcn_torch.parallel import distributed as comm
+    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
+
+    hk.reset_launches()
+    ek.reset_launches()
+    comm.reset_exchange_stats()
+    trainer = HierarchicalTrainer(_dist_config(mode, ws, out), device=device)
+    t0 = time.monotonic()
+    path = trainer.run(fasta, graphs_dir, os.path.join(out, "gcn"))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    levels = {n: {k: st[k] for k in ("route", "losses", "train_seconds", "epochs", "launches",
+                                      "operator_seconds", "eval_seconds", "rank_nodes",
+                                      "peak_device_bytes") if k in st}
+              for n, st in trainer.level_stats.items()}
+    return {"seconds": time.monotonic() - t0, "levels": levels, "path": path,
+            "launches": {**hk.launch_counts(), **ek.launch_counts()},
+            "exchange": dict(comm.EXCHANGE), "backend": comm.backend(), "world_size": comm.world_size()}
+
+
+def _dist_rank(rank: int, ws: int, store: str, outdir: str, what: str, args: dict) -> None:
+    """A rank process of the distributed phase: joins a gloo group on the
+    card and writes its answers to ``{outdir}/{what}_r{rank}.json`` (the
+    probe after each answer, so that an abort leaves what was learnt)."""
+    import torch
+
+    path = os.path.join(outdir, f"{what}_r{rank}.json")
+
+    def write(obj):
+        with open(path + ".tmp", "w") as fh:
+            json.dump(obj, fh)
+        os.replace(path + ".tmp", path)
+
+    try:
+        from protgram_directgcn_torch.ops import ell_kernels as ek, hyper_kernels as hk
+        from protgram_directgcn_torch.parallel import distributed as comm
+
+        device = args.get("device", "cuda")
+        comm.initialize_distributed(init_method="file://" + store, world_size=ws, rank=rank,
+                                    device=device, backend="gloo")
+        if args.get("setup"):  # "module:function" run first (a CPU rehearsal's stubs)
+            import importlib
+
+            module, fn = args["setup"].split(":")
+            getattr(importlib.import_module(module), fn)()
+        if what == "probe":
+            comm.probe_backend(torch.device(device), report=write)
+            return
+        if device == "cuda":
+            hk.build()
+            ek.build()
+        _no_decoder_dropout()
+        comm.TIME_EXCHANGES = bool(args.get("time_exchanges"))
+        with _LevelCache():
+            runs = {mode: _sharded_run(torch, mode, ws, args["graphs_dir"],
+                                       os.path.join(args["out"], f"{mode}_ws{ws}"),
+                                       args["fasta"], device)
+                    for mode in ("hypercube", "halo")}
+        write({"ok": True, "runs": runs})
+    except Exception as exc:
+        import traceback
+
+        write({"ok": False, "error": f"{exc}\n{traceback.format_exc()}"})
+        raise
+
+
+def _start_ranks(ws: int, what: str, args: dict, timeout: float):
+    """Start ``_dist_rank`` in ``ws`` spawned processes; ``_join_ranks``
+    collects them."""
+    import multiprocessing as mp
+
+    outdir = tempfile.mkdtemp(prefix=f"protgram_{what}_")
+    store = os.path.join(outdir, "store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(r, ws, store, outdir, what, args))
+             for r in range(ws)]
+    for p in procs:
+        p.start()
+    return procs, outdir, what, time.monotonic() + timeout
+
+
+def _spawn_ranks(ws: int, what: str, args: dict, timeout: float) -> dict:
+    return _join_ranks(_start_ranks(ws, what, args, timeout))
+
+
+def _join_ranks(handle) -> dict:
+    """Each rank's answers and exit code.  Every process is joined, or killed
+    at the deadline."""
+    procs, outdir, what, deadline = handle
+    for p in procs:
+        p.join(max(0.1, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    answers = {}
+    for r, p in enumerate(procs):
+        path = os.path.join(outdir, f"{what}_r{r}.json")
+        answers[r] = {"exitcode": p.exitcode,
+                      "answer": json.load(open(path)) if os.path.exists(path) else None}
+    return answers
+
+
+@contextlib.contextmanager
+def _padded_init(mode: str, ws: int):
+    """While active, the trainer's initial parameters of each level are the
+    ``ws``-shard run's: the whole level's draws over the shard-padded node
+    space, cut to the level's own node space (the padding rows of a sharded
+    run touch no real node).  A one-device run, or a one-shard run, then
+    starts where the ``ws``-shard run starts."""
+    import dataclasses
+
+    from protgram_directgcn_torch.ops.hypercube import vocab_char_codes
+    from protgram_directgcn_torch.pipeline import trainer as trainer_mod
+
+    real_init = trainer_mod.init_directgcn_params
+    graph_of = {}
+
+    def padded_init(gen, cfg, device):
+        n = cfg.n_gram_len
+        graph = graph_of[n]
+        _, a = vocab_char_codes(graph.vocab)
+        hyper = (mode == "hypercube" and n >= 2
+                 and a**n <= trainer_mod._HYPERCUBE_MAX_RATIO * graph.num_nodes)
+        if hyper:
+            g = a ** (n - 1)
+            gp = -(-g // ws) * ws
+            total = a * gp
+        else:
+            total = -(-graph.num_nodes // ws) * ws
+        params = real_init(gen, dataclasses.replace(cfg, num_nodes=total), device)
+        for lp in params["layers"]:
+            for k in trainer_mod._NODE_PARAM_NAMES:
+                v = lp.get(k)
+                if v is None or v.dim() < 1 or v.shape[0] != total:
+                    continue
+                if hyper:
+                    v = v.reshape((a, gp) + tuple(v.shape[1:]))[:, :g].reshape(
+                        (a * g,) + tuple(v.shape[1:]))
+                else:
+                    v = v[: cfg.num_nodes]
+                lp[k] = v.contiguous()
+        return params
+
+    real_train = trainer_mod.HierarchicalTrainer.train_level
+
+    def train_level(self, graph, *a, **kw):
+        graph_of[graph.n] = graph
+        return real_train(self, graph, *a, **kw)
+
+    trainer_mod.init_directgcn_params = padded_init
+    trainer_mod.HierarchicalTrainer.train_level = train_level
+    try:
+        yield
+    finally:
+        trainer_mod.init_directgcn_params = real_init
+        trainer_mod.HierarchicalTrainer.train_level = real_train
+
+
+def _reference_run(torch, mode: str, ws: int, graphs_dir: str, out: str, fasta: str) -> dict:
+    """The one-device run of the levels from the ``ws``-shard run's initial
+    parameters (``_padded_init``)."""
+    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
+
+    with _padded_init(mode, ws):
+        trainer = HierarchicalTrainer(_dist_config(mode, None, out), device=DEVICE)
+        path = trainer.run(fasta, graphs_dir, os.path.join(out, "gcn"))
+    return {"path": path, "levels": {n: {"route": st["route"], "losses": st["losses"]}
+                                     for n, st in trainer.level_stats.items()}}
+
+
+def _compare_runs(run: dict, ref: dict, what: str) -> dict:
+    """Losses of every level and the exported embeddings, sharded against
+    one-device."""
+    import numpy as np
+
+    from protgram_directgcn_torch.utils.io import read_embeddings
+
+    worst_loss, first = 0.0, None
+    for n, lv in sorted(ref["levels"].items()):
+        got = np.asarray(run["levels"][str(n)]["losses"] if str(n) in run["levels"]
+                         else run["levels"][n]["losses"])
+        want = np.asarray(lv["losses"])
+        if got.shape != want.shape or not np.all(np.isfinite(got)):
+            fail(f"{what}: level n={n} losses {got.tolist()} against {want.tolist()}")
+        rel = np.abs(got - want) / np.abs(want)
+        first = float(rel[0]) if first is None else first
+        worst_loss = max(worst_loss, float(rel.max()))
+    if first > DIST_FIRST_RTOL:
+        fail(f"{what}: the first level's first loss is off by {first} (relative; tolerance "
+             f"{DIST_FIRST_RTOL})")
+    a, b = read_embeddings(run["path"]), read_embeddings(ref["path"])
+    if sorted(a) != sorted(b) or len(a) != N_SEQS:
+        fail(f"{what}: exported {len(a)} proteins, the one-device run {len(b)}")
+    emb_err = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+    if worst_loss > DIST_LOSS_RTOL or emb_err > DIST_EMBED_ATOL:
+        fail(f"{what}: against the one-device run, loss rel err {worst_loss} (tolerance "
+             f"{DIST_LOSS_RTOL}), embeddings max abs err {emb_err} (tolerance {DIST_EMBED_ATOL})")
+    return {"first_loss_rel_err": first, "first_loss_rtol": DIST_FIRST_RTOL,
+            "loss_max_rel_err": worst_loss, "loss_rtol": DIST_LOSS_RTOL,
+            "embeddings_max_abs_err": emb_err, "embeddings_atol": DIST_EMBED_ATOL}
+
+
+def _path_counts(runs) -> dict:
+    """K1/K2/ELL launches summed over runs (each rank's own counts)."""
+    total = {}
+    for run in runs:
+        for name, per_dir in run["launches"].items():
+            cur = total.setdefault(name, {"fwd": 0, "bwd": 0})
+            for d, v in per_dir.items():
+                cur[d] += v
+    return total
+
+
+DIST_RANK_SETUP = None  # "module:function" each rank process runs first (CPU rehearsals)
+
+
+def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
+    """Levels n = 1..4 trained over node shards (``parallel.mesh_nodes``):
+    hypercube mode (n = 1 in halo mode) and halo mode, at world size 1
+    under NCCL in this process and at world size 2 under gloo in two
+    spawned processes sharing the card; gloo's handling of CUDA tensors
+    probed first.  Each run held against the one-device run from the same
+    initial parameters.  Returns the path's launches by kernel."""
+    from protgram_directgcn_torch.graph.structure import load_graph
+    from protgram_directgcn_torch.ops.hypercube import vocab_char_codes
+    from protgram_directgcn_torch.parallel import distributed as comm
+
+    graphs_dir = os.path.dirname(graph_paths[0])
+    _no_decoder_dropout()
+    probe = _spawn_ranks(DIST_WORLD, "probe", {"device": DEVICE, "setup": DIST_RANK_SETUP},
+                         timeout=120)
+    emit("distributed_probe", backend="gloo", device=DEVICE,
+         ranks={str(r): v for r, v in probe.items()})
+
+    # (b) World size 2 under gloo, two processes on the card, running while
+    # this process does (a) and the references: their step and exchange
+    # times are read beside that work (PERF.md gives them alone).
+    handle = _start_ranks(DIST_WORLD, "train",
+                          {"graphs_dir": graphs_dir, "out": workdir, "fasta": fasta,
+                           "time_exchanges": True, "device": DEVICE,
+                           "setup": DIST_RANK_SETUP}, timeout=600)
+    # (a) World size 1 under NCCL (the card's backend), in this process, and
+    # the one-device references, all from the world-size-2 runs' initial
+    # parameters.
+    store = os.path.join(tempfile.mkdtemp(prefix="protgram_nccl_"), "store")
+    refs = {}
+    with _LevelCache():
+        comm.initialize_distributed(init_method="file://" + store, world_size=1, rank=0,
+                                    device=DEVICE, backend="nccl" if DEVICE == "cuda" else "gloo")
+        try:
+            ws1 = {}
+            for mode in ("hypercube", "halo"):
+                with _padded_init(mode, DIST_WORLD):
+                    ws1[mode] = _sharded_run(torch, mode, 1, graphs_dir,
+                                             os.path.join(workdir, f"dist_{mode}_ws1"), fasta,
+                                             DEVICE)
+        finally:
+            comm.dist.destroy_process_group()
+        for mode in ("hypercube", "halo"):
+            refs[mode] = _reference_run(torch, mode, DIST_WORLD, graphs_dir,
+                                        os.path.join(workdir, f"ref_{mode}"), fasta)
+    ranks = _join_ranks(handle)
+    for r, v in ranks.items():
+        if v["exitcode"] != 0 or not (v["answer"] or {}).get("ok"):
+            fail(f"distributed: rank {r} of {DIST_WORLD} failed (exit {v['exitcode']}): "
+                 f"{(v['answer'] or {}).get('error', 'no answer')}")
+    ws2 = {r: v["answer"]["runs"] for r, v in ranks.items()}
+
+    runs_all = list(ws1.values()) + [run for per in ws2.values() for run in per.values()]
+    takes_hyper = {}  # the trainer's rule: n >= 2 and alpha^n <= 4x the vocabulary
+    for path in graph_paths:
+        graph = load_graph(path)
+        _, a = vocab_char_codes(graph.vocab)
+        takes_hyper[graph.n] = graph.n >= 2 and a**graph.n <= 4 * graph.num_nodes
+    for mode in ("hypercube", "halo"):
+        for ws, run in ((1, ws1[mode]), (DIST_WORLD, ws2[0][mode])):
+            cmp = _compare_runs(run, refs[mode], f"{mode} at world size {ws}")
+            levels = run["levels"]
+            for n, lv in levels.items():
+                want = "hyper_shard" if mode == "hypercube" and takes_hyper[int(n)] else "halo"
+                if lv["route"] != want:
+                    fail(f"distributed: {mode} level n={n} took {lv['route']}, not {want}")
+                # A halo level's local and halo tables each take the kernel of
+                # their rows' regime.
+                groups = ((("k1",), ("k2",)) if want == "hyper_shard"
+                          else (("ell_resident", "ell_hbm"),))
+                for names in groups:
+                    for direction in ("fwd", "bwd"):
+                        if sum(lv["launches"][k][direction] for k in names) <= 0:
+                            fail(f"distributed: {mode} ws={ws} level n={n} never launched "
+                                 f"{'/'.join(names)} ({direction}): {lv['launches']}")
+            ranks_of = [run] if ws == 1 else [ws2[r][mode] for r in sorted(ws2)]
+            emit("distributed", mode=mode, world_size=ws, backend=run["backend"],
+                 concurrent_with=(None if ws == 1 else
+                                  "this process's one-shard runs and one-device references"),
+                 seconds=run["seconds"],
+                 exchange={str(r): rr["exchange"] for r, rr in enumerate(ranks_of)},
+                 step_seconds={n: lv["train_seconds"] / max(1, lv["epochs"])
+                               for n, lv in levels.items()},
+                 levels=levels, launches=_path_counts(ranks_of), **cmp)
+    return _path_counts(runs_all)
+
+
 def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
                   tier_counts, cluster_counts, bench_counts, bench_by_v, bench_ell):
     """One entry per kernel.  K1/K2: their numbers at the main path's widest
@@ -2167,10 +2773,10 @@ def main() -> int:
         check_louvain(cluster_graphs, level4["louvain_seconds"])
         check_cluster_reference(torch, ek, cluster_graphs[3], level4["num_classes"])
         retile_records = check_retile_kernels(torch, rt)
-        tier_counts, tier_config, tier_graphs, tier3_peak = run_tier_path(
-            torch, hk, rt, fasta, workdir)
-        torch.cuda.empty_cache()
         with _OperatorCache(HierarchicalTrainer):
+            tier_counts, tier_config, tier_graphs, tier3_peak = run_tier_path(
+                torch, hk, rt, fasta, workdir)
+            torch.cuda.empty_cache()
             run_free_memory_level(torch, tier_config, tier_graphs[TIER_N - 1], tier3_peak)
             torch.cuda.empty_cache()
             run_tier4_level(torch, hk, rt, tier_config, tier_graphs[TIER_N - 1], tier3_peak)
@@ -2182,9 +2788,18 @@ def main() -> int:
         bench_counts, bench_by_v = run_benchmark(torch, ek, workdir)
         bench_ell = check_bench_ell(torch, ek)
         check_bench_reference(torch, ek)
+        torch.cuda.empty_cache()
+        sddmm_counts = check_sddmm(torch, ek, hk, graph_paths)
+        dist_counts = run_distributed(torch, graph_paths, workdir, fasta)
 
     kernels = _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
                             tier_counts, cluster_counts, bench_counts, bench_by_v, bench_ell)
+    for entry in kernels:  # the two newest paths' launches
+        name = {"hyper_k1": "k1", "hyper_k2": "k2"}.get(entry["name"], entry["name"])
+        if name in dist_counts:
+            entry["launches_distributed_path"] = dist_counts[name]
+        if name in sddmm_counts:
+            entry["launches_sddmm_path"] = sddmm_counts[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

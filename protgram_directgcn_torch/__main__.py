@@ -12,6 +12,16 @@ pooling and the PPI sanity check (``gcn``), the Word2Vec baseline
 found under ``--out`` (``ppi``; ``dummy`` evaluates synthetic data
 instead), on the card, or on the CPU with ``--device cpu``.  The
 ``transformer`` stage is not ported yet and raises.
+
+Node-sharded training, one process a device (main.py:78-80):
+
+    torchrun --nproc-per-node D -m protgram_directgcn_torch --stages graph,gcn \
+        --set parallel.mesh_nodes=D [--set parallel.mode=hypercube]
+
+starts the process group first (``parallel.distributed``); rank 0 builds the
+graphs while the others wait at a barrier, every rank trains every level
+over its node shard, and rank 0 alone writes the embeddings and runs the
+word2vec, benchmark, ppi and dummy stages.
 """
 
 from __future__ import annotations
@@ -79,6 +89,15 @@ def main(argv=None):
     if wanted - _PORTED:
         raise ValueError(f"unknown stages {sorted(wanted - _PORTED)}")
     cfg = build_config(args)
+    from protgram_directgcn_torch.parallel import distributed as comm
+
+    comm.initialize_distributed(device="cpu" if args.device == "cpu" else "cuda")
+    if comm.world_size() > 1 and cfg.parallel.mesh_nodes is None:
+        raise ValueError(f"{comm.world_size()} processes but parallel.mesh_nodes is unset: "
+                         f"pass --set parallel.mesh_nodes={comm.world_size()}")
+    if cfg.parallel.mesh_nodes is not None:
+        cfg.parallel.check()
+    main_rank = comm.is_main()
     st = cfg.stages
     st.run_gcn_pipeline = bool(wanted & {"graph", "gcn"})
     st.run_word2vec_pipeline = "word2vec" in wanted
@@ -99,20 +118,23 @@ def main(argv=None):
     # Every device stage resolves its device first: fail before any work
     # when the card is absent.
     trainer = HierarchicalTrainer(cfg, device=args.device) if "gcn" in wanted else None
-    embedder = Word2VecEmbedder(cfg, device=args.device) if st.run_word2vec_pipeline else None
+    embedder = (Word2VecEmbedder(cfg, device=args.device)
+                if st.run_word2vec_pipeline and main_rank else None)
     benchmarker = (GNNBenchmarker(cfg, device=args.device)
-                   if st.run_benchmarking_pipeline else None)
+                   if st.run_benchmarking_pipeline and main_rank else None)
     ppi = (PPIPipeline(cfg, device=args.device)
-           if st.run_main_ppi_evaluation or st.run_dummy_test else None)
+           if (st.run_main_ppi_evaluation or st.run_dummy_test) and main_rank else None)
     t0 = time.monotonic()
     result = {"graphs": None, "graph_etl": None, "trainer": trainer, "pooled": None,
               "embeddings_path": None, "embedder": embedder, "word2vec_path": None,
               "benchmarker": benchmarker, "benchmark_results": None,
               "ppi": ppi, "ppi_results": None, "seconds": {}}
     if st.run_gcn_pipeline:
-        builder = NgramGraphBuilder(cfg)
-        result["graphs"] = builder.run()
-        result["graph_etl"] = builder.stats
+        if main_rank:
+            builder = NgramGraphBuilder(cfg)
+            result["graphs"] = builder.run()
+            result["graph_etl"] = builder.stats
+        comm.barrier()
         result["seconds"]["graph"] = time.monotonic() - t0
     if trainer is not None:
         t_stage = time.monotonic()
@@ -137,4 +159,9 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    from protgram_directgcn_torch.parallel import distributed as _comm
+
+    if _comm.is_initialized():
+        _comm.barrier()
+        _comm.dist.destroy_process_group()
     sys.exit(0)

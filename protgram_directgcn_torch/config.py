@@ -1,8 +1,9 @@
 """Configuration of the ported stages (graph, gcn, word2vec, ppi, benchmark).
 
-Same field names and defaults as protgram_directgcn_tpu/config.py:20-303 for
+Same field names and defaults as protgram_directgcn_tpu/config.py:20-341 for
 what the port runs (paths, stage toggles, graph builder, GCN trainer,
-Word2Vec, PPI evaluation, the GNN zoo benchmark), and the same dotted
+Word2Vec, PPI evaluation, the GNN zoo benchmark, the node-sharded
+training of ``parallel``), and the same dotted
 ``--set`` overrides.  Each of
 these sections keeps every field of the JAX package, so ``--set`` lines
 written for it apply here.
@@ -225,6 +226,39 @@ class BenchmarkConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """Node-sharded training (config.py:307-341 of the JAX package).  The
+    port runs one process per device under ``torch.distributed``
+    (``parallel/``): ``mesh_nodes`` is the number of node shards, which
+    must equal the world size; None trains on one device."""
+
+    mesh_nodes: Optional[int] = None
+    mesh_feats: int = 1
+    # "hypercube": the hypercube format sharded along its key axis (falls
+    # back to "halo" per level where the format does not apply); "halo":
+    # edge-partitioned propagation with a ring halo exchange; "gspmd": not
+    # ported (ROADMAP Queue 1, item 13b).
+    mode: str = "halo"
+    # Kept for the JAX package's settings; nothing reads it.
+    partition_strategy: str = "block"
+    # One exchange for a layer's three matrices in hypercube mode: "auto"
+    # takes it on the card, "on"/"off" force either way.
+    hyper_tri: str = "auto"
+    # Check a checksum of every exchanged halo chunk on both ends.
+    debug_checksums: bool = False
+
+    def check(self) -> None:
+        """Raise NotImplementedError for the settings the port lacks."""
+        if int(self.mesh_feats) > 1 or self.mode == "gspmd":
+            raise NotImplementedError(
+                f"parallel.mesh_feats={self.mesh_feats} / parallel.mode={self.mode!r}: "
+                "feature-sharded weights and the gspmd mode are not ported yet "
+                "(ROADMAP Queue 1, item 13b)")
+        if self.mode not in ("halo", "hypercube"):
+            raise ValueError(f"unknown parallel.mode: {self.mode!r}")
+
+
+@dataclass
 class Config:
     """Top-level configuration (the sections the port reads)."""
 
@@ -237,6 +271,7 @@ class Config:
     word2vec: Word2VecConfig = field(default_factory=Word2VecConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     benchmark: BenchmarkConfig = field(default_factory=BenchmarkConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     id_mapping_mode: str = "regex"  # 'regex' | 'none'
 
     def apply_overrides(self, overrides: Dict[str, Any]) -> "Config":

@@ -10,7 +10,10 @@
 //   K2 (A^T pattern, diagonal, affine epilogue)
 //                   out[r, g, f] = scale * (z[r, g, f] + d[r, g] * x[r, g, f]
 //                                  + sum_c w2[r, g, c] * x_gc[g, c, f]) + shift
-//                   x_gc is the memory of x indexed as [G, A, F].
+//                   x_gc is a [G, A, F] tensor of its own: on one device the
+//                   memory of x itself (the caller passes x twice), on a key
+//                   shard the gc block that the exchange delivered
+//                   (parallel/hyper_shard.py).
 //
 // Replaces the Pallas kernels of protgram_directgcn_tpu/ops/pallas_hyper.py:
 // K1 is the pallas_call at :217 (_k1_body, _k1_body_rs, _k1_body_pk), K2 the
@@ -150,10 +153,11 @@ struct Chunk<T, 1> {
 
 struct Args {
   const void* w;    // bank [A, G, A]: w1 (K1) or w2 (K2)
-  const void* in;   // product input: x as rg (K1) or as gc (K2)
+  const void* in;   // product input: x as rg (K1) or x_gc [G, A, F] (K2)
   void* out;        // z [G, A, F] (K1) or out [A, G, F] (K2)
   const void* z;    // K2: z as rg [A, G, F]
   const float* d;   // K2: diagonal [A, G]
+  const void* xd;   // K2: x as rg [A, G, F], the diagonal's operand
   int a, g, f;
   int keys;         // consecutive keys a block
   int ct;           // chunks of one key a block (threads per key)
@@ -250,6 +254,7 @@ __global__ void __launch_bounds__(kMaxThreads) hyper_kernel(const Args args) {
   const float* slab = ws + kl * SLAB;
   T* out = static_cast<T*>(args.out);
   const T* z = static_cast<const T*>(args.z);
+  const T* xd = static_cast<const T*>(args.xd);
   constexpr int R = kGroup<kK2>;
   for (int o0 = 0; o0 < a; o0 += R) {
     // K2: z and x at the rg rows o0 .. o0+R-1 of this key, issued before the
@@ -261,7 +266,7 @@ __global__ void __launch_bounds__(kMaxThreads) hyper_kernel(const Args args) {
         if (o0 + p < a) {
           const int64_t idx = ((int64_t)(o0 + p) * gdim + key) * fdim + col;
           ze[p].load(z + idx);
-          xe[p].load(in + idx);
+          xe[p].load(xd + idx);
         }
       }
     }
@@ -338,7 +343,7 @@ int launch(const Args& args, int v, int amax, int threads, int grid_x, int grid_
   const int64_t a = args.a, g = args.g, f = args.f;
   bool ok = a >= 1 && (amax == 21 || amax == kMaxAlphabet) && a <= amax && g >= 1 && f >= 1;
   ok = ok && (v == 1 || (v == kVec && f % v == 0 && aligned16(args.in) && aligned16(args.out) &&
-                         (!kK2 || aligned16(args.z))));
+                         (!kK2 || (aligned16(args.z) && aligned16(args.xd)))));
   ok = ok && args.keys >= 1 && args.keys <= kMaxKeys && args.ct >= 1;
   ok = ok && threads % 32 == 0 && threads <= kMaxThreads && threads >= args.keys * args.ct;
   ok = ok && grid_x == (g + args.keys - 1) / args.keys && grid_y >= 1 && grid_y <= 65535 &&
@@ -358,14 +363,15 @@ int launch(const Args& args, int v, int amax, int threads, int grid_x, int grid_
 template <typename T>
 int launch_k1(const void* w1, const void* x, void* z, int a, int g, int f, HYPER_PLAN,
               void* stream) {
-  const Args args{w1, x, z, nullptr, nullptr, a, g, f, keys, ct, 1.0f, 0.0f};
+  const Args args{w1, x, z, nullptr, nullptr, nullptr, a, g, f, keys, ct, 1.0f, 0.0f};
   return launch<T, false>(args, v, amax, threads, grid_x, grid_y, stream);
 }
 
 template <typename T>
-int launch_k2(const void* d, const void* w2, const void* z, const void* x, void* out, int a,
-              int g, int f, float scale, float shift, HYPER_PLAN, void* stream) {
-  const Args args{w2, x, out, z, (const float*)d, a, g, f, keys, ct, scale, shift};
+int launch_k2(const void* d, const void* w2, const void* z, const void* x_gc, const void* x,
+              void* out, int a, int g, int f, float scale, float shift, HYPER_PLAN,
+              void* stream) {
+  const Args args{w2, x_gc, out, z, (const float*)d, x, a, g, f, keys, ct, scale, shift};
   return launch<T, true>(args, v, amax, threads, grid_x, grid_y, stream);
 }
 
@@ -385,15 +391,18 @@ int hyper_k1_bf16(const void* w1, const void* x, void* z, int a, int g, int f, H
   return launch_k1<__nv_bfloat16>(w1, x, z, a, g, f, HYPER_PLAN_ARGS, stream);
 }
 
-int hyper_k2_f32(const void* d, const void* w2, const void* z, const void* x, void* out, int a,
-                 int g, int f, float scale, float shift, HYPER_PLAN, void* stream) {
-  return launch_k2<float>(d, w2, z, x, out, a, g, f, scale, shift, HYPER_PLAN_ARGS, stream);
+int hyper_k2_f32(const void* d, const void* w2, const void* z, const void* x_gc, const void* x,
+                 void* out, int a, int g, int f, float scale, float shift, HYPER_PLAN,
+                 void* stream) {
+  return launch_k2<float>(d, w2, z, x_gc, x, out, a, g, f, scale, shift, HYPER_PLAN_ARGS,
+                          stream);
 }
 
-int hyper_k2_bf16(const void* d, const void* w2, const void* z, const void* x, void* out, int a,
-                  int g, int f, float scale, float shift, HYPER_PLAN, void* stream) {
-  return launch_k2<__nv_bfloat16>(d, w2, z, x, out, a, g, f, scale, shift, HYPER_PLAN_ARGS,
-                                  stream);
+int hyper_k2_bf16(const void* d, const void* w2, const void* z, const void* x_gc, const void* x,
+                  void* out, int a, int g, int f, float scale, float shift, HYPER_PLAN,
+                  void* stream) {
+  return launch_k2<__nv_bfloat16>(d, w2, z, x_gc, x, out, a, g, f, scale, shift,
+                                  HYPER_PLAN_ARGS, stream);
 }
 
 }  // extern "C"

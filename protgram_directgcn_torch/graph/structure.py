@@ -34,6 +34,9 @@ class DeviceGraph:
     ``num_nodes`` is the node space the operators act on: the padded
     character hypercube [alphabet^n] for ``HypercubeAdj``, whose ``node_map``
     then holds the hypercube id of each real node (None for the others).
+    The node-sharded operators of ``parallel/`` act on this rank's rows, and
+    ``tri`` holds their layer-level operator (one exchange for the three
+    matrices, run by ``spmm.propagate3``).
     """
 
     p_in: Adjacency  # from 𝒜_in  (built from A_in_w = A_out_wᵀ)
@@ -41,11 +44,14 @@ class DeviceGraph:
     p_und: Adjacency  # undirected sym-norm matrix
     num_nodes: int = 0
     node_map: Optional[torch.Tensor] = None
+    tri: Optional[object] = None
 
     @property
     def route(self) -> str:
-        """The format of ``p_in``: dense, hypercube, ell, bucketed, coo or block."""
-        return next(name for cls, name in _ROUTES if isinstance(self.p_in, cls))
+        """The format of ``p_in``: dense, hypercube, ell, bucketed, coo or
+        block; halo or hyper_shard for a node-sharded operator."""
+        own = getattr(type(self.p_in), "route", None)
+        return own or next(name for cls, name in _ROUTES if isinstance(self.p_in, cls))
 
 
 @dataclasses.dataclass

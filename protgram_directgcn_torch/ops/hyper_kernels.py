@@ -8,8 +8,10 @@ computes, for an rg-layout carry ``x [A, G, F]`` and r-major banks
 - K1: ``z[g, c, f] = sum_r w1[r, g, c] * x[r, g, f]``, written ``[G, A, F]``
   and viewed, with no copy, as rg ``[A, G, F]``;
 - K2: ``out[r, g, f] = scale * (z[r, g, f] + d[r, g] * x[r, g, f]
-  + sum_c w2[r, g, c] * x_gc[g, c, f]) + shift``, with ``x_gc`` the memory
-  of ``x`` indexed ``[G, A, F]`` and ``d [A, G]`` f32.
+  + sum_c w2[r, g, c] * x_gc[g, c, f]) + shift``, with ``d [A, G]`` f32 and
+  ``x_gc`` ``[G, A, F]``: by default the memory of ``x`` itself; on a key
+  shard of ``parallel/hyper_shard.py`` the gc block the exchange delivered,
+  passed as its own pointer.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a plain-C shared
 library under ``protgram_directgcn_torch/_build/`` at first use, again only
@@ -88,7 +90,8 @@ def build() -> Dict[str, object]:
             k1.argtypes = [ptr, ptr, ptr, i32, i32, i32, *plan, ptr]
             k1.restype = i32
             k2 = getattr(lib, f"hyper_k2_{dt}")
-            k2.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, *plan, ptr]
+            # d, w2, z, x_gc, x, out
+            k2.argtypes = [ptr] * 6 + [i32, i32, i32, f32, f32, *plan, ptr]
             k2.restype = i32
         BUILD_INFO.clear()
         BUILD_INFO.update(info)
@@ -205,10 +208,12 @@ def k1_plain(w1: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def k2_plain(d: torch.Tensor, w2: torch.Tensor, z_rg: torch.Tensor, x: torch.Tensor,
-             scale: float = 1.0, shift: float = 0.0) -> torch.Tensor:
+             scale: float = 1.0, shift: float = 0.0,
+             x_gc: Optional[torch.Tensor] = None) -> torch.Tensor:
     a, g, f = x.shape
     x32 = x.float()
-    y2 = torch.einsum("rgc,gcf->rgf", w2.float(), x32.reshape(g, a, f))
+    gc = x32.reshape(g, a, f) if x_gc is None else x_gc.float()
+    y2 = torch.einsum("rgc,gcf->rgf", w2.float(), gc)
     acc = z_rg.float() + d.float()[:, :, None] * x32 + y2
     return (acc * scale + shift).to(x.dtype)
 
@@ -235,20 +240,25 @@ def k1(w1: torch.Tensor, x: torch.Tensor, direction: str = "fwd") -> torch.Tenso
 
 
 def k2(d: torch.Tensor, w2: torch.Tensor, z_rg: torch.Tensor, x: torch.Tensor,
-       scale: float = 1.0, shift: float = 0.0, direction: str = "fwd") -> torch.Tensor:
+       scale: float = 1.0, shift: float = 0.0, direction: str = "fwd",
+       x_gc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2 on ``x [A, G, F]``, bank ``w2 [A, G, A]``, ``z_rg [A, G, F]`` and
-    diagonal ``d [A, G]`` f32; returns ``out [A, G, F]``."""
+    diagonal ``d [A, G]`` f32; returns ``out [A, G, F]``.  ``x_gc [G, A, F]``
+    is the product's operand where it is not the memory of ``x``."""
     a, g, f = _check_inputs(x, [("w2", w2)], d)
     _nvcc.check_tensor("z", z_rg, (a, g, f), x.dtype, x.device)
+    if x_gc is not None:
+        _nvcc.check_tensor("x_gc", x_gc, (g, a, f), x.dtype, x.device)
     if x.device.type == "cpu":
-        return k2_plain(d, w2, z_rg, x, scale, shift)
+        return k2_plain(d, w2, z_rg, x, scale, shift, x_gc)
     if x.device.type != "cuda":
         raise ValueError(f"k2: unsupported device {x.device}")
+    gc = x if x_gc is None else x_gc
     out = torch.empty_like(x)
-    plan = _plan_args(a, g, f, x.dtype, _aligned(x, z_rg, out), x.device.index)
+    plan = _plan_args(a, g, f, x.dtype, _aligned(x, gc, z_rg, out), x.device.index)
     fn = getattr(_library(), f"hyper_k2_{_SUFFIX[x.dtype]}")
-    rc = fn(d.data_ptr(), w2.data_ptr(), z_rg.data_ptr(), x.data_ptr(), out.data_ptr(),
-            a, g, f, float(scale), float(shift), *plan, _nvcc.stream_ptr(x))
+    rc = fn(d.data_ptr(), w2.data_ptr(), z_rg.data_ptr(), gc.data_ptr(), x.data_ptr(),
+            out.data_ptr(), a, g, f, float(scale), float(shift), *plan, _nvcc.stream_ptr(x))
     _nvcc.raise_on(rc, "K2")
     _count("k2", direction, plan[0])
     return out

@@ -1,6 +1,6 @@
 """Hypercube-factorised propagation for n-gram matrices (gather-free).
 
-Port of protgram_directgcn_tpu/ops/hypercube.py:60-316, 339-409, 445-535.
+Port of protgram_directgcn_tpu/ops/hypercube.py:60-316, 339-535.
 With the node id of n-gram (c_1 .. c_n) := sum_i code(c_i) * A^(n-i) over the
 sorted alphabet of size A, every propagation matrix of an n-gram level
 (pattern inside union(A, Aᵀ, I), reference: graph_utils.py:198-287) is
@@ -18,8 +18,8 @@ pass) is the same pair with the banks swapped.
 The JAX package's g-major and packed bank layouts, the 128-lane feature
 padding and the Pallas block sizing exist to dodge TPU tile padding
 (pallas_hyper.py:1-24) and have no counterpart here; ``convert.hyper_from_jax``
-reads any of those layouts into this one.  Edge-weight gradients (the SDDMM
-backward) are not ported yet.
+reads any of those layouts into this one.  ``edge_grads=True`` gives the
+diagonal and the two banks the SDDMM gradients (``_sddmm_hyper``).
 """
 
 from __future__ import annotations
@@ -180,38 +180,65 @@ def _hyper_apply(d, w1, w2, x_rg, scale=1.0, shift=0.0, direction="fwd"):
     return hyper_kernels.k2(d, w2, z.view(a, g, f), x_rg, scale, shift, direction)
 
 
+def _sddmm_hyper(grad: torch.Tensor, x_rg: torch.Tensor, scale: float):
+    """Gradients of ``scale * (M x) + shift`` w.r.t. the diagonal and the two
+    banks, the hypercube SDDMM (``_sddmm_hyper``, hypercube.py:412-444), in
+    f32 and the "rs" layout:
+
+        dd[r, g]     = scale * <grad[r, g, :], x[r, g, :]>
+        dwf[r, g, c] = scale * <grad_gc[g, c, :], x[r, g, :]>
+        dwb[r, g, c] = scale * <grad[r, g, :], x_gc[g, c, :]>
+
+    Dense over the banks: structural zeros (absent node pairs) get gradient
+    too, as in the JAX package (the bank is the parameter; mask it with its
+    pattern to forbid new edges)."""
+    a, g, f = x_rg.shape
+    g32 = grad.float()
+    x32 = x_rg.float()
+    dd = (g32 * x32).sum(-1) * scale
+    dwf = torch.einsum("gcf,rgf->rgc", g32.reshape(g, a, f), x32) * scale
+    dwb = torch.einsum("rgf,gcf->rgc", g32, x32.reshape(g, a, f)) * scale
+    return dd, dwf, dwb
+
+
 class _PropagateHyperAffine(torch.autograd.Function):
     """``scale * (M x) + shift`` whose backward is the same K1/K2 pair with
     the banks swapped, ``scale`` in the epilogue and ``shift = 0``
-    (hypercube.py:461-479).  The graph is constant: no bank gradients."""
+    (hypercube.py:461-479).  The graph gets no gradient unless
+    ``edge_grads``: then the diagonal and both banks get the SDDMM's."""
 
     @staticmethod
-    def forward(ctx, x, d, wf, wb, scale, shift):
-        ctx.save_for_backward(d, wf, wb)
+    def forward(ctx, x, d, wf, wb, scale, shift, edge_grads=False):
+        ctx.save_for_backward(d, wf, wb, x if edge_grads else None)
         ctx.scale = scale
+        ctx.edge_grads = edge_grads
         return _hyper_apply(d, wf, wb, x, scale, shift, "fwd")
 
     @staticmethod
     def backward(ctx, grad):
-        d, wf, wb = ctx.saved_tensors
+        d, wf, wb, x = ctx.saved_tensors
         dx = _hyper_apply(d, wb, wf, grad, ctx.scale, 0.0, "bwd")
-        return dx, None, None, None, None, None
+        if not ctx.edge_grads:
+            return dx, None, None, None, None, None, None
+        dd, dwf, dwb = _sddmm_hyper(grad, x, ctx.scale)
+        return dx, dd.to(d.dtype), dwf.to(wf.dtype), dwb.to(wb.dtype), None, None, None
 
 
 def propagate_hyper_affine(adj: HypercubeAdj, x: torch.Tensor, scale: float,
-                           shift: float) -> torch.Tensor:
+                           shift: float, edge_grads: bool = False) -> torch.Tensor:
     """Fused ``scale * (M x) + shift``.  ``x`` is flat ``[A^n, F]`` or rg
     ``[A, G, F]``; the output has the input's layout."""
     a, g = adj.feature_shape
     flat_in = x.dim() == 2
     x_rg = x.reshape(a, g, x.shape[-1]) if flat_in else x
-    out = _PropagateHyperAffine.apply(x_rg, adj.d, adj.wf_rs, adj.wb_rs, float(scale), float(shift))
+    out = _PropagateHyperAffine.apply(x_rg, adj.d, adj.wf_rs, adj.wb_rs, float(scale),
+                                      float(shift), bool(edge_grads))
     return out.reshape(a * g, -1) if flat_in else out
 
 
-def propagate_hyper(adj: HypercubeAdj, x: torch.Tensor) -> torch.Tensor:
+def propagate_hyper(adj: HypercubeAdj, x: torch.Tensor, edge_grads: bool = False) -> torch.Tensor:
     """out[i] = sum over edges (j -> i) of w * x[j], in hypercube ids."""
-    return propagate_hyper_affine(adj, x, 1.0, 0.0)
+    return propagate_hyper_affine(adj, x, 1.0, 0.0, edge_grads)
 
 
 def propagate_hyper_transpose(adj: HypercubeAdj, x: torch.Tensor) -> torch.Tensor:

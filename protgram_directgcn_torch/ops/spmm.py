@@ -1,8 +1,8 @@
 """Propagation operators: adjacency formats, their builders and the dispatch.
 
-Port of protgram_directgcn_tpu/ops/spmm.py:89-721 without the SDDMM
-edge-gradient path.  ``propagate(adj, x)[i] = sum over edges (j -> i) of
-w * x[j]`` (reference: protgram_directgcn.py:100-140, PyG aggr='add').
+Port of protgram_directgcn_tpu/ops/spmm.py:36-721.  ``propagate(adj,
+x)[i] = sum over edges (j -> i) of w * x[j]`` (reference:
+protgram_directgcn.py:100-140, PyG aggr='add').
 
 - ``DenseAdj``: Aᵀ stored dense, one ``torch.matmul``;
 - ``EllAdj``: padded neighbour lists ``[N, K]`` in both orientations;
@@ -18,17 +18,28 @@ kernels' f32 cast of x, pallas_spmm.py:83, :220).  The hypercube returns
 the carry's type.  The builders are the JAX package's numpy code and give
 the same arrays byte for byte.  Every format's backward reads its stored
 transpose orientation (the block format its transposed factors; no
-scatter over the forward's indices); the graph gets no gradient.
+scatter over the forward's indices).  The graph gets no gradient unless
+``propagate(..., edge_grads=True)`` asks for the SDDMM edge-weight
+gradients (below); a dense operator is differentiated by autograd.
 
 The route is the device's: on the card both ELL formats run the CUDA ELL
 kernels (ops/ell_kernels.py), on the CPU their plain version.  The JAX
 package's ``use_pallas`` has no counterpart: off its Pallas path it leaves
-the product to XLA, and the kernels compute the same function.
+the product to XLA, and the kernels compute the same function.  With
+``edge_grads`` the product and ``dx`` still run through the kernels on the
+card, and the SDDMM runs beside them as plain torch, as the JAX package
+computes it outside Pallas (spmm.py:602).
+
+The distributed operators of ``parallel/`` (``HaloAdj``, ``TriHaloAdj``,
+``HyperShardAdj``, ``HyperShardTri``) dispatch from here as in the JAX
+package (spmm.py:621-630, :677-685, :716-720).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import warnings
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -38,6 +49,40 @@ from protgram_directgcn_torch.ops import block, ell_kernels
 from protgram_directgcn_torch.ops.block import BlockNgramAdj
 
 Device = Union[str, torch.device]
+
+# ----------------------------------------------------------------------------
+# SDDMM: optional gradients w.r.t. adjacency weights (spmm.py:36-86)
+# ----------------------------------------------------------------------------
+
+# Off by default: the reference never learns edge weights (its adjacency is a
+# preprocessed constant, graph_utils.py:198-287).  ``propagate(adj, x,
+# edge_grads=True)`` opts in: dw for the edge-list formats is the sampled
+# dense-dense product ``dw[slot] = <g[tgt], x[src]>`` (padding slots, w == 0,
+# get zero), the hypercube's the per-key [A x A] contractions
+# (ops/hypercube.py).  The transpose-orientation weights get zeros: the
+# forward product does not read them.
+_EDGE_GRADS = False
+
+
+@contextlib.contextmanager
+def edge_gradients(enable: bool = True):
+    """DEPRECATED shim (spmm.py:52-82): pass ``edge_grads=True`` to
+    :func:`propagate` / :func:`propagate3` instead.  Sets the default that
+    ``propagate`` takes when its ``edge_grads`` is None; warns on entry."""
+    warnings.warn(
+        "ops.spmm.edge_gradients() is deprecated: pass edge_grads=True to "
+        "propagate()/propagate3()", DeprecationWarning, stacklevel=3)
+    global _EDGE_GRADS
+    prev = _EDGE_GRADS
+    _EDGE_GRADS = bool(enable)
+    try:
+        yield
+    finally:
+        _EDGE_GRADS = prev
+
+
+def edge_gradients_enabled() -> bool:
+    return _EDGE_GRADS
 
 
 # ----------------------------------------------------------------------------
@@ -375,12 +420,124 @@ def _propagate_bucketed_kernel(adj: BucketedEllAdj, x: torch.Tensor) -> torch.Te
         lambda g: _bucketed_apply(adj_t.idx, adj_t.w, adj_t.inv_perm, g, kernel, "bwd"))
 
 
-def propagate(adj, x: torch.Tensor) -> torch.Tensor:
+# Cap on the [N, chunk, F] gather of the SDDMM, and the K at or below which it
+# runs one slot at a time (spmm.py:389-394).
+_ELL_CHUNK_BYTES = 256 * 1024 * 1024
+_ELL_UNROLL_K = 16
+
+
+def _sddmm_ell(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+               g: torch.Tensor) -> torch.Tensor:
+    """``dw[i, k] = <g[i], x[idx[i, k]]>`` in f32, zero where ``w == 0``, in
+    w's type (``_sddmm_ell``, spmm.py:436-468): one slot at a time up to
+    ``_ELL_UNROLL_K`` slots, else ``[N, chunk, F]`` gathers of at most
+    ``_ELL_CHUNK_BYTES``."""
+    n, k = idx.shape
+    f = x.shape[-1]
+    g32 = g.float()
+    x32 = x.float()
+    if k <= _ELL_UNROLL_K:
+        dw = torch.stack([(g32 * x32[idx[:, j].long()]).sum(-1) for j in range(k)], dim=1)
+    else:
+        chunk = max(1, min(k, _ELL_CHUNK_BYTES // max(1, 4 * n * f)))
+        cols = []
+        for start in range(0, k, chunk):
+            ic = idx[:, start:start + chunk].long()
+            gathered = x32[ic.reshape(-1)].reshape(n, ic.shape[1], f)
+            cols.append(torch.einsum("nf,ncf->nc", g32, gathered))
+        dw = torch.cat(cols, dim=1)
+    return torch.where(w != 0, dw, torch.zeros((), device=dw.device)).to(w.dtype)
+
+
+def _sddmm(adj, x: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The forward weights' gradients of an edge-list format: one tensor, or
+    one a bucket (spmm.py:471-577)."""
+    if isinstance(adj, EllAdj):
+        return (_sddmm_ell(adj.idx, adj.w, x, g),)
+    if isinstance(adj, BucketedEllAdj):
+        # out = concat(buckets)[inv_perm]: the concatenation's cotangent is g
+        # put back into bucket order.
+        g_cat = g[torch.argsort(adj.inv_perm.long())]
+        dws, start = [], 0
+        for bi, bw in zip(adj.idx, adj.w):
+            rows = bi.shape[0]
+            dws.append(_sddmm_ell(bi, bw, x, g_cat[start:start + rows]))
+            start += rows
+        return tuple(dws)
+    dw = (g[adj.tgt.long()].float() * x[adj.src.long()].float()).sum(-1)
+    return (dw.to(adj.w.dtype),)
+
+
+def _weights(adj) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """(forward weight leaves, transpose-orientation weight leaves)."""
+    if isinstance(adj, BucketedEllAdj):
+        return tuple(adj.w), tuple(adj.w_t)
+    return (adj.w,), (adj.w_t,)
+
+
+class _EdgeGradOp(torch.autograd.Function):
+    """``y = M x`` whose backward also returns the SDDMM gradients of the
+    forward weight leaves, and zeros for the transpose-orientation leaves
+    (JAX's strict zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, spec, *weights):
+        ctx.spec = spec
+        ctx.save_for_backward(x)
+        return spec[1](x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        adj, _, apply_t = ctx.spec
+        (x,) = ctx.saved_tensors
+        return (apply_t(grad), None, *_sddmm(adj, x, grad),
+                *(torch.zeros_like(t) for t in _weights(adj)[1]))
+
+
+def _edge_products(adj, x: torch.Tensor):
+    """(forward product, transpose product) of an edge-list format: the ELL
+    kernels on the card, the plain version on the CPU."""
+    adj_t = _swap(adj)
+    if _on_card(x) and not isinstance(adj, CooAdj):
+        n_in = adj.idx_t.shape[0] if isinstance(adj, EllAdj) else adj.inv_perm_t.shape[0]
+        kernel = (ell_kernels.ell_resident if ell_kernels.resident_supported(n_in)
+                  else ell_kernels.ell_hbm)
+        if isinstance(adj, EllAdj):
+            return (lambda v: kernel(adj.idx, adj.w, v.float().contiguous(), "fwd"),
+                    lambda g: kernel(adj_t.idx, adj_t.w, g.float().contiguous(), "bwd"))
+        return (lambda v: _bucketed_apply(adj.idx, adj.w, adj.inv_perm, v, kernel, "fwd"),
+                lambda g: _bucketed_apply(adj_t.idx, adj_t.w, adj_t.inv_perm, g, kernel, "bwd"))
+    return lambda v: _edge_apply(adj, v), lambda g: _edge_apply(adj_t, g)
+
+
+def _propagate_edge_grads(adj, x: torch.Tensor) -> torch.Tensor:
+    apply, apply_t = _edge_products(adj, x)
+    fwd_w, t_w = _weights(adj)
+    return _EdgeGradOp.apply(x, (adj, apply, apply_t), *fwd_w, *t_w)
+
+
+def _distributed(adj):
+    """The ``parallel/`` module whose operator ``adj`` is, or None."""
+    from protgram_directgcn_torch.parallel import halo, hyper_shard
+
+    if isinstance(adj, (halo.HaloAdj, halo.TriHaloAdj)):
+        return halo
+    if isinstance(adj, (hyper_shard.HyperShardAdj, hyper_shard.HyperShardTri)):
+        return hyper_shard
+    return None
+
+
+def propagate(adj, x: torch.Tensor, edge_grads: Optional[bool] = None) -> torch.Tensor:
     """Sum-aggregate weighted source features at each target node.  ELL
     operators run the ELL kernels on the card, the plain version on the
-    CPU."""
+    CPU.  ``edge_grads=True`` also gives the adjacency's weight leaves the
+    SDDMM gradients under autograd (None: the deprecated
+    :func:`edge_gradients` default)."""
+    eg = _EDGE_GRADS if edge_grads is None else bool(edge_grads)
     if isinstance(adj, DenseAdj):
         return _dense_apply(adj.at, x)
+    if eg and isinstance(adj, (EllAdj, BucketedEllAdj, CooAdj)):
+        return _propagate_edge_grads(adj, x)
     if isinstance(adj, EllAdj) and _on_card(x):
         return ell_kernels.propagate_ell_kernel(adj, x)
     if isinstance(adj, BucketedEllAdj) and _on_card(x):
@@ -394,7 +551,10 @@ def propagate(adj, x: torch.Tensor) -> torch.Tensor:
     from protgram_directgcn_torch.ops import hypercube
 
     if isinstance(adj, hypercube.HypercubeAdj):
-        return hypercube.propagate_hyper(adj, x)
+        return hypercube.propagate_hyper(adj, x, edge_grads=eg)
+    mod = _distributed(adj)
+    if mod is not None:
+        return mod.propagate(adj, x)
     raise TypeError(f"Unknown adjacency type: {type(adj)}")
 
 
@@ -413,12 +573,18 @@ def propagate_transpose(adj, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"propagate_transpose: unsupported adjacency {type(adj)}")
 
 
-def propagate3(graph, x_in: torch.Tensor, x_out: torch.Tensor, x_und: torch.Tensor):
-    """The three per-path propagations of a DirectGCN layer."""
+def propagate3(graph, x_in: torch.Tensor, x_out: torch.Tensor, x_und: torch.Tensor,
+               edge_grads: Optional[bool] = None):
+    """The three per-path propagations of a DirectGCN layer; a graph that
+    carries a layer-level operator (``graph.tri``: one exchange for the three
+    matrices, parallel/) runs it instead (spmm.py:668-704)."""
+    tri = getattr(graph, "tri", None)
+    if tri is not None:
+        return _distributed(tri).propagate_tri(tri, x_in, x_out, x_und)
     return (
-        propagate(graph.p_in, x_in),
-        propagate(graph.p_out, x_out),
-        propagate(graph.p_und, x_und),
+        propagate(graph.p_in, x_in, edge_grads),
+        propagate(graph.p_out, x_out, edge_grads),
+        propagate(graph.p_und, x_und, edge_grads),
     )
 
 
@@ -429,4 +595,8 @@ def propagate_affine(adj, x: torch.Tensor, scale: float, shift: float) -> torch.
 
     if isinstance(adj, hypercube.HypercubeAdj):
         return hypercube.propagate_hyper_affine(adj, x, scale, shift)
+    from protgram_directgcn_torch.parallel import hyper_shard
+
+    if isinstance(adj, hyper_shard.HyperShardAdj):
+        return hyper_shard.propagate(adj, x, scale, shift)
     return propagate(adj, x) * scale + shift

@@ -43,6 +43,7 @@ it then runs the PPI sanity check on the last file written
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -70,6 +71,8 @@ from protgram_directgcn_torch.models.mlp import OptaxAdam, adam_bias_corrections
 from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, retile
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.ops.spmm import DenseAdj, EllAdj, _ell_one_sided
+from protgram_directgcn_torch.parallel import distributed as comm
+from protgram_directgcn_torch.parallel import mesh
 from protgram_directgcn_torch.pipeline.labels import generate_labels
 from protgram_directgcn_torch.pipeline.ppi import run_sanity_check_ppi
 from protgram_directgcn_torch.utils import checkpoint as ckpt
@@ -179,7 +182,10 @@ class TrainOptimizer(torch.optim.Optimizer):
     float32 Adam leaves of at most ``_UPDATE_CHUNK`` elements update
     together, one ``torch._foreach_*`` launch per operation for all of them
     (torch.optim.Adam's multi-tensor path); every other leaf updates on its
-    own, slice by slice.
+    own, slice by slice.  On a node shard (``parallel/``) the Adafactor
+    group's leaves hold this rank's rows of ``n_global`` nodes: their
+    factoring follows the global shape and their means over the node axis
+    are summed over the ranks.
     """
 
     @torch.no_grad()
@@ -189,7 +195,7 @@ class TrainOptimizer(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if group["kind"] == "adafactor":
                 for p in params:
-                    _adafactor_update(self.state[p], p, lr, wd)
+                    _adafactor_update(self.state[p], p, lr, wd, group.get("n_global"))
                 continue
             together: Dict[int, list] = {}
             for p in params:
@@ -258,12 +264,17 @@ def _adam_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> None:
         _apply(p, sl, lr, (mu / bc1) / (torch.sqrt(nu / bc2) + _ADAM_EPS))
 
 
-def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> None:
+def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float,
+                      n_global: Optional[int] = None) -> None:
     """optax ``scale_by_factored_rms`` (factorized.py:143-182).  A factored
     moment takes two passes over the slices: the squared gradient's sums
-    (accumulated over the slices where dim 0 is reduced), then the update."""
+    (accumulated over the slices where dim 0 is reduced), then the update.
+    ``n_global``: ``p`` holds this rank's rows of that many nodes (dim 0);
+    the factoring is the global shape's and a sum over dim 0 runs over
+    every rank."""
     shape = tuple(p.shape)
-    dims = _factored_dims(shape)
+    shape_g = shape if n_global is None else (int(n_global),) + shape[1:]
+    dims = _factored_dims(shape_g)
 
     def drop(d):
         return shape[:d] + shape[d + 1:]
@@ -295,10 +306,16 @@ def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> Non
                 total += sq.sum(0)
             else:
                 total[sl] = sq.sum(d)
-    v_row = state["v_row"].mul_(beta).add_(sums[d0] / shape[d0], alpha=1.0 - beta)
-    v_col = state["v_col"].mul_(beta).add_(sums[d1] / shape[d1], alpha=1.0 - beta)
+    if n_global is not None and 0 in sums:
+        comm.all_reduce_sum(sums[0])
+    v_row = state["v_row"].mul_(beta).add_(sums[d0] / shape_g[d0], alpha=1.0 - beta)
+    v_col = state["v_col"].mul_(beta).add_(sums[d1] / shape_g[d1], alpha=1.0 - beta)
     reduced_d1 = d1 - 1 if d1 > d0 else d1
-    row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).pow(-0.5).unsqueeze(d0)
+    if n_global is not None and d0 != 0 and reduced_d1 == 0:  # a mean over the nodes
+        row_mean = comm.all_reduce_sum(v_row.sum(0, keepdim=True)) / shape_g[0]
+    else:
+        row_mean = v_row.mean(reduced_d1, keepdim=True)
+    row_factor = (v_row / row_mean).pow(-0.5).unsqueeze(d0)
     col_factor = v_col.pow(-0.5).unsqueeze(d1)
     for sl in _slices(p):
         g = _grad_f32(p, sl, wd)
@@ -307,11 +324,13 @@ def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> Non
 
 
 def make_optimizer(params, lr: float, weight_decay: float,
-                   factor_node_params_above: Optional[int] = None) -> TrainOptimizer:
+                   factor_node_params_above: Optional[int] = None,
+                   n_global: Optional[int] = None) -> TrainOptimizer:
     """Adam over every parameter (reference: protgram_directgcn_trainer.py:354);
     with ``factor_node_params_above=N``, the per-node tables (by name, with
     shape[0] == N, or an rg constant [A, G, out] with A*G == N) train with
-    factored Adafactor instead (trainer.py:134-197)."""
+    factored Adafactor instead (trainer.py:134-197).  On a node shard, N is
+    the rank's rows and ``n_global`` the level's nodes."""
     n = factor_node_params_above
 
     def is_node(name: str, p: torch.Tensor) -> bool:
@@ -320,7 +339,8 @@ def make_optimizer(params, lr: float, weight_decay: float,
 
     leaves = named_leaves(params)
     groups = [{"params": [p for name, p in leaves if not is_node(name, p)], "kind": "adam"},
-              {"params": [p for name, p in leaves if is_node(name, p)], "kind": "adafactor"}]
+              {"params": [p for name, p in leaves if is_node(name, p)], "kind": "adafactor",
+               "n_global": n_global}]
     return TrainOptimizer([grp for grp in groups if grp["params"]],
                           {"lr": lr, "weight_decay": weight_decay})
 
@@ -365,6 +385,90 @@ def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_l
         loss.backward()
         opt.step()
         return loss.detach(), primary.detach()
+
+    return step
+
+
+@dataclasses.dataclass
+class NodeShard:
+    """This rank's node rows on a node-sharded level (``parallel/``): the
+    rank's operator ``adj`` (``HaloAdj`` or ``HyperShardAdj``) names them
+    (``adj.node_rows()``), ``n_global`` is the padded node space."""
+
+    adj: Any
+    n_global: int
+
+    @property
+    def n_local(self) -> int:
+        return int(self.adj.n_out)
+
+    @property
+    def is_main(self) -> bool:
+        return comm.is_main()
+
+    def is_node(self, name: str, p: torch.Tensor) -> bool:
+        return mesh.node_sharded(name, p, self.n_local)
+
+    def state_is_node(self, key: str, p: torch.Tensor) -> bool:
+        """Whether optimizer state ``key`` of node leaf ``p`` holds node rows:
+        Adam's moments and an unfactored Adafactor moment do; of a factored
+        one, the factor that kept dim 0."""
+        if key in ("mu", "nu", "v"):
+            return True
+        dims = _factored_dims((self.n_global,) + tuple(p.shape[1:]))
+        if dims is None or key not in ("v_row", "v_col"):
+            return False
+        d1, d0 = dims
+        return (d0 if key == "v_row" else d1) != 0
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t`` at their global ids."""
+        return mesh.gather_rows(t, self.adj, self.n_global)
+
+    def slab(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global ``t``."""
+        return t[self.adj.node_rows().to(t.device)].contiguous()
+
+
+def make_train_step_sharded(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer,
+                            l2_lambda: float, shard: NodeShard, mask_total: float):
+    """One full-batch step on a node shard, the JAX package's GSPMD step
+    written out by hand.  Each rank's loss is its nodes' share of the global
+    masked mean (``mask_total``: the mask summed over the ranks) plus
+    ``l2_lambda`` times its node rows' squares and 1 / world of the
+    replicated leaves' squares, so that the ranks' losses sum to the global
+    loss; the replicated leaves' gradients are summed over the ranks before
+    the update (node rows get theirs whole through the exchanges' backward).
+    Returns (loss, primary) summed over the ranks, as computed before the
+    update."""
+    world = comm.world_size()
+
+    def step(params, graph, x, y, mask, weight_factor, gen, original_indices=None):
+        if original_indices is not None:
+            raise ValueError("a node-sharded step trains the full level")
+        opt.zero_grad(set_to_none=True)
+        log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
+                                    flatten_rg=False)
+        if log_sm.dim() == 3:
+            y = y.reshape(log_sm.shape[:2])
+            mask = mask.reshape(log_sm.shape[:2])
+        per_node = -torch.gather(log_sm, -1, y[..., None])[..., 0]
+        primary = torch.sum(per_node * mask) / max(mask_total, 1.0)
+        leaves = named_leaves(params)
+        l2 = sum(torch.sum(torch.square(p.float())) * (1.0 if shard.is_node(n, p) else 1.0 / world)
+                 for n, p in leaves)
+        loss = primary * weight_factor + l2_lambda * l2
+        loss.backward()
+        # The leaves without a gradient are the same on every rank.
+        replicated = [p for n, p in leaves if not shard.is_node(n, p) and p.grad is not None]
+        flat = comm.all_reduce_sum(torch.cat([p.grad.reshape(-1).float() for p in replicated]))
+        offset = 0
+        for p in replicated:
+            p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
+            offset += p.numel()
+        opt.step()
+        both = comm.all_reduce_sum(torch.stack([loss.detach().float(), primary.detach().float()]))
+        return both[0], both[1]
 
     return step
 
@@ -695,8 +799,8 @@ class HierarchicalTrainer:
         tier-4 peak measured on the card, PERF.md §6).  ``out_dims`` in
         place of the configured hidden
         dims (the degrade policy sizes smaller ones); ``shards`` divides
-        everything, a mesh of that many node shards (the JAX package's
-        ``parallel.mesh_nodes``, named by the plan's message; not ported).
+        everything: a level trained over that many node shards
+        (``parallel.mesh_nodes``).
         The level's operators and input are left to the plan's bank floor
         and slack.
 
@@ -754,7 +858,11 @@ class HierarchicalTrainer:
         ``layer_dims_override`` and takes the first tier that fits them,
         with a warning; "error", or no dims that fit, raises ValueError
         naming the node shards that would fit the configured dims and the
-        degraded dims (trainer.py:1535-1576)."""
+        degraded dims (trainer.py:1535-1576).
+
+        Under ``parallel.mesh_nodes`` every tier is sized per shard, without
+        the levers a node-sharded step does not take (per-path remat, the
+        staged step; trainer.py:1478-1490)."""
         gcn = self.gcn
         _, alpha = vocab_char_codes(graph.vocab)
         n_hyper = int(alpha) ** graph.n if alpha else graph.num_nodes
@@ -762,10 +870,14 @@ class HierarchicalTrainer:
         chip = self._device_memory()
         classes = graph.num_nodes if num_classes is None else num_classes
         n_layers = len(gcn.hidden_layer_dims)
+        mesh_nodes = self.config.parallel.mesh_nodes
+        level_shards = 1 if mesh_nodes is None else max(1, int(mesh_nodes))
 
         def resolve(tier: int):
             cd, nd, rm, fc, rp = TIER_LEVERS[tier]
-            split = (n_layers + 1) // 2 if tier >= _STAGED_TIER and n_layers >= 2 else 0
+            rp = rp and level_shards == 1
+            split = ((n_layers + 1) // 2
+                     if tier >= _STAGED_TIER and n_layers >= 2 and level_shards == 1 else 0)
             if gcn.compute_dtype != "auto":
                 cd = gcn.compute_dtype
             if gcn.node_param_dtype != "auto":
@@ -780,19 +892,19 @@ class HierarchicalTrainer:
         # (a hypercube level); elsewhere tier 3 keeps a layer's paths live.
         rg = self._takes_hypercube(graph)
 
-        def need(tier: int, dims=None, shards: int = 1) -> int:
+        def need(tier: int, dims=None, shards: int = level_shards) -> int:
             cd, nd, rm, fc, rp, split = resolve(tier)
             return sum(self._residency(n_nodes, feat_dim, classes, cd, nd, rm, fc, rp and rg,
                                        staged=split > 0, out_dims=dims, shards=shards))
 
-        def fits(tier: int, dims=None, shards: int = 1) -> bool:
+        def fits(tier: int, dims=None, shards: int = level_shards) -> bool:
             return need(tier, dims, shards) + self._PLAN_SLACK + self._MIN_BANK <= chip
 
         tiers = range(len(TIER_LEVERS))
         tier = next((t for t in tiers if fits(t)), None)
         dims_override = None
         if tier is None:
-            shards = 1
+            shards = level_shards
             while shards <= 4096 and not fits(_STAGED_TIER, shards=shards):
                 shards *= 2
             degraded = list(gcn.hidden_layer_dims)
@@ -807,8 +919,8 @@ class HierarchicalTrainer:
                     f"level n={graph.n}: gcn.hidden_layer_dims={list(gcn.hidden_layer_dims)} "
                     f"does not fit {chip / 2**30:.1f} GB at any memory tier ({n_nodes} nodes, "
                     f"tier 4 needs {need(_STAGED_TIER) / 2**30:.1f} GB); set "
-                    f"parallel.mesh_nodes>={shards} (multi-device training: not ported yet, "
-                    f"ROADMAP Queue 1, item 13){dim_fix}")
+                    f"parallel.mesh_nodes>={shards} (node shards, one process a device: "
+                    f"torchrun --nproc-per-node {shards}){dim_fix}")
             dims_override = tuple(degraded)
             tier = next(t for t in tiers if fits(t, degraded))
             logger.warning(
@@ -863,6 +975,70 @@ class HierarchicalTrainer:
                 logger.info("hypercube format unavailable (%s); falling back", exc)
         return graph.to_device(mode="auto" if mode == "hypercube" else mode, feat_dim=feat_dim,
                                dtype=dtype, device=self.device)
+
+    def _rank_layout(self) -> Optional[mesh.RankLayout]:
+        """This process's node shard when the level trains sharded: under
+        ``parallel.mesh_nodes`` > 1, or = 1 inside a process group (one
+        shard through the sharded operators); else None."""
+        par = self.config.parallel
+        if par.mesh_nodes is None:
+            return None
+        par.check()
+        if int(par.mesh_nodes) == 1 and not comm.is_initialized():
+            return None
+        return mesh.make_mesh(int(par.mesh_nodes), int(par.mesh_feats))
+
+    def _to_hyper_shard_graph(self, graph: NgramGraph, layout: mesh.RankLayout,
+                              compute_dtype: str = "float32") -> Optional[DeviceGraph]:
+        """This rank's operators in the key-sharded hypercube format
+        (trainer.py:1635-1690); None where the level's hypercube is sparser
+        than ``_HYPERCUBE_MAX_RATIO`` or an edge fits neither key pattern.
+        ``parallel.hyper_tri`` "auto" takes the layer-level operator (one
+        exchange a relayout for the three matrices) on the card."""
+        from protgram_directgcn_torch.graph.transforms import csr_to_coo_arrays
+        from protgram_directgcn_torch.parallel import hyper_shard as hs
+
+        codes, alpha = vocab_char_codes(graph.vocab)
+        if not 0 < alpha**graph.n <= _HYPERCUBE_MAX_RATIO * max(graph.num_nodes, 1):
+            return None
+        dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+        shards, rank = layout.node_shards, layout.rank
+        try:
+            tables = hs.build_hyper_shard_tables(alpha, alpha ** (graph.n - 1), shards)
+            ops = [hs.build_hyper_shard(*csr_to_coo_arrays(m), codes, alpha, shards, rank,
+                                        self.device, dtype, tables)
+                   for m in (graph.mathcal_a_in(), graph.mathcal_a_out(), graph.undirected_norm())]
+        except BlockStructureError as exc:
+            logger.info("hypercube sharding refused: %s", exc)
+            return None
+        knob = self.config.parallel.hyper_tri
+        use_tri = knob == "on" or (knob == "auto" and self.device.type == "cuda")
+        return DeviceGraph(*ops, num_nodes=ops[0].n_out,
+                           node_map=torch.from_numpy(ops[0].node_map),
+                           tri=hs.HyperShardTri(adjs=tuple(ops)) if use_tri else None)
+
+    def _to_distributed_graph(self, graph: NgramGraph, plan: LevelPlan,
+                              layout: mesh.RankLayout) -> DeviceGraph:
+        """This rank's operators of a node-sharded level (trainer.py:1840-1897):
+        the key-sharded hypercube under ``parallel.mode="hypercube"`` where the
+        level takes it, else the halo operators."""
+        par = self.config.parallel
+        mode = par.mode
+        if mode == "hypercube" and graph.n < 2:
+            logger.info("1-gram level has no key structure; using halo mode")
+            mode = "halo"
+        dg = None
+        if mode == "hypercube":
+            dg = self._to_hyper_shard_graph(graph, layout, plan.compute_dtype)
+            if dg is None:
+                logger.info("hypercube sharding unavailable; using halo mode")
+        if dg is None:
+            dg = mesh.build_distributed_device_graph(graph, layout, par.debug_checksums,
+                                                     self.device)
+        logger.info("distributed level n=%d: %d node shards, %s operators (%d nodes padded "
+                    "to %d)", graph.n, layout.node_shards, dg.route, graph.num_nodes,
+                    dg.p_in.global_nodes)
+        return dg
 
     def _make_cluster_batches(self, graph: NgramGraph, x: np.ndarray, y: np.ndarray,
                               seed: int, node_map: Optional[np.ndarray] = None
@@ -966,36 +1142,63 @@ class HierarchicalTrainer:
         package, while the learning rate rides in the optimizer's state and
         the dropout generator's state in ``extra``.  ``metrics`` logs
         ``{"level", "loss", "lr"}`` each epoch at ``step=epoch``.  The
-        clustered loop neither checkpoints nor logs."""
+        clustered loop neither checkpoints nor logs.
+
+        Under ``parallel.mesh_nodes`` (one process a node shard,
+        ``parallel/``) the level trains full batch over the shards
+        (trainer.py:1835-1934, 2031-2049): ``parallel.mode`` "hypercube"
+        takes the key-sharded hypercube where the level has one (n >= 2),
+        else and under "halo" the halo operators; per-path remat, the staged
+        step and cluster training are off; each rank keeps its node rows of
+        the parameters and inputs, initialised from the whole level's draws;
+        the checkpoint holds the whole level's state (rank 0 writes it, each
+        rank restores its rows); the embeddings are gathered on every rank.
+        The dropout masks come from a generator of each rank's own."""
         gcn = self.gcn
         dev = self.device
         n_val = graph.n
         feat_dim = x_np.shape[1]
+        layout = self._rank_layout()
         plan = self._level_plan(graph, feat_dim, num_classes)
+        if layout is not None and (plan.remat_paths or plan.stage_split):
+            plan = dataclasses.replace(plan, remat_paths=False, stage_split=0)
         # The degrade policy's dims replace the configured ones (trainer.py:1830-1833).
         hidden = plan.layer_dims_override or tuple(gcn.hidden_layer_dims)
         layer_dims = tuple([feat_dim] + list(hidden))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t_ops = time.monotonic()
-        # The format's byte model sees the widest layer (trainer.py:1899).
-        full_graph = self._to_device_graph(graph, plan, max(layer_dims))
+        shard: Optional[NodeShard] = None
+        if layout is not None:
+            full_graph = self._to_distributed_graph(graph, plan, layout)
+            shard = NodeShard(full_graph.p_in, int(full_graph.p_in.global_nodes))
+            total_nodes = shard.n_global
+        else:
+            # The format's byte model sees the widest layer (trainer.py:1899).
+            full_graph = self._to_device_graph(graph, plan, max(layer_dims))
+            total_nodes = full_graph.num_nodes
         operator_seconds = time.monotonic() - t_ops
         node_map = None if full_graph.node_map is None else full_graph.node_map.cpu().numpy()
-        total_nodes = full_graph.num_nodes
 
         use_cluster = (gcn.use_cluster_training
                        and graph.num_nodes > gcn.cluster_training_threshold_nodes)
+        if use_cluster and shard is not None:
+            logger.info("cluster training off under node sharding (full batch over the shards)")
+            use_cluster = False
         if use_cluster and gcn.cluster_auto_fullbatch and full_graph.route == "hypercube":
             logger.info("auto-routing n=%d to full-batch (hypercube operators built)", n_val)
             use_cluster = False
 
         def pad_nodes(arr: np.ndarray) -> np.ndarray:
-            """Scatter real-node rows into the device graph's node space."""
-            if node_map is None:
+            """Scatter real-node rows into the device graph's node space (the
+            shard padding: zero rows at the end)."""
+            if node_map is None and arr.shape[0] >= total_nodes:
                 return arr
             out = np.zeros((total_nodes,) + arr.shape[1:], dtype=arr.dtype)
-            out[node_map] = arr
+            if node_map is None:
+                out[: arr.shape[0]] = arr
+            else:
+                out[node_map] = arr
             return out
 
         model_cfg = DirectGCNConfig(
@@ -1013,8 +1216,11 @@ class HierarchicalTrainer:
             node_param_dtype=plan.node_param_dtype,
         )
         init_gen = torch.Generator(device=dev).manual_seed(self.config.random_state + n_val)
-        params = _node_params_to_rg(init_directgcn_params(init_gen, model_cfg, device=dev),
-                                    full_graph)
+        params = init_directgcn_params(init_gen, model_cfg, device=dev)
+        if shard is not None:  # trainer.py:1931-1934
+            params = mesh.shard_model_params(params, shard.adj.node_rows(), shard.n_global)
+        else:
+            params = _node_params_to_rg(params, full_graph)
         for p in param_leaves(params):
             p.requires_grad_(True)
 
@@ -1023,19 +1229,27 @@ class HierarchicalTrainer:
         if plan.factored:
             logger.info("level n=%d: per-node tables train with factored (Adafactor) second "
                         "moments (node_param_factored=%s)", n_val, gcn.node_param_factored)
+        local_nodes = total_nodes if shard is None else shard.n_local
         opt = make_optimizer(params, gcn.lr, wd,
-                             factor_node_params_above=total_nodes if plan.factored else None)
+                             factor_node_params_above=local_nodes if plan.factored else None,
+                             n_global=None if shard is None else shard.n_global)
         # A stage per layer (trainer.py:1952-1958); Cluster-GCN batches are
         # small and train fused (the JAX staged step takes no subgraph batch).
         staged = bool(plan.stage_split) and not use_cluster
-        step = (make_train_step_staged if staged else make_train_step)(model_cfg, opt, l2_lambda)
+        if shard is not None:
+            mask_total = float(graph.num_nodes)
+            step = make_train_step_sharded(model_cfg, opt, l2_lambda, shard, mask_total)
+        else:
+            step = (make_train_step_staged if staged else make_train_step)(model_cfg, opt,
+                                                                            l2_lambda)
         sched = (PlateauScheduler(gcn.lr, gcn.lr_scheduler_patience, gcn.lr_scheduler_factor)
                  if gcn.use_lr_scheduler else None)
         stopper = (EarlyStopper(gcn.early_stopping_patience, gcn.early_stopping_min_delta)
                    if gcn.use_early_stopping else None)
-        # On the host: a step draws its masks' seeds without a device sync.
+        # On the host: a step draws its masks' seeds without a device sync;
+        # one generator a rank.
         drop_gen = torch.Generator().manual_seed(
-            self.config.random_state * 7919 + n_val)
+            self.config.random_state * 7919 + n_val + 104729 * comm.rank())
 
         def end_epoch(epoch: int, loss: float) -> bool:
             """Step the plateau scheduler; True where early stopping ends the level."""
@@ -1048,6 +1262,9 @@ class HierarchicalTrainer:
 
         stats: Dict[str, Any] = {"route": "cluster" if use_cluster else full_graph.route,
                                  "staged": staged, "layer_dims": list(layer_dims)}
+        if shard is not None:
+            stats.update(world_size=layout.node_shards, rank=layout.rank,
+                         rank_nodes=shard.n_local)
         losses: List[float] = []
         if use_cluster:
             t_build = time.monotonic()
@@ -1078,17 +1295,24 @@ class HierarchicalTrainer:
             stats["steps"] = len(losses) * len(batches)
             del batches
         else:
-            # The input in the compute type (trainer.py:2031-2032), rg on the hypercube.
-            x = torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev).to(
-                torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32)
-            if full_graph.route == "hypercube":
-                x = x.reshape(full_graph.p_in.feature_shape + (feat_dim,))
-            y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
-            mask = torch.from_numpy(pad_nodes(np.ones(graph.num_nodes, dtype=np.float32))).to(dev)
+            # The input in the compute type (trainer.py:2031-2032), rg on the
+            # hypercube; a shard's rows of it (trainer.py:2040-2049).
+            x_dtype = torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32
+            ones = np.ones(graph.num_nodes, dtype=np.float32)
+            if shard is not None:
+                x, y, mask = mesh.shard_training_inputs(
+                    pad_nodes(x_np.astype(np.float32)), pad_nodes(y_np.astype(np.int64)),
+                    pad_nodes(ones), shard.adj, dev, x_dtype)
+            else:
+                x = torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev).to(x_dtype)
+                if full_graph.route == "hypercube":
+                    x = x.reshape(full_graph.p_in.feature_shape + (feat_dim,))
+                y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
+                mask = torch.from_numpy(pad_nodes(ones)).to(dev)
             every = gcn.checkpoint_every_epochs if ckpt_dir is not None else 0
             start_epoch = 1
             if every > 0:
-                restored = ckpt.restore_train_state(ckpt_dir, params, opt)
+                restored = ckpt.restore_train_state(ckpt_dir, params, opt, shard=shard)
                 if restored is not None:
                     start_epoch = restored[0] + 1
                     drop_gen.set_state(restored[1]["dropout_generator"])
@@ -1105,7 +1329,8 @@ class HierarchicalTrainer:
                     break
                 if every > 0 and epoch % every == 0:
                     ckpt.save_train_state(ckpt_dir, epoch, params, opt,
-                                          {"dropout_generator": drop_gen.get_state()})
+                                          {"dropout_generator": drop_gen.get_state()},
+                                          shard=shard)
             stats["steps"] = len(losses)
             del x
         seconds = time.monotonic() - t0
@@ -1117,13 +1342,22 @@ class HierarchicalTrainer:
 
         # Eval-mode embeddings on the full graph (reference: models_utils.py:264-273).
         t_eval = time.monotonic()
+        x_eval = pad_nodes(x_np.astype(np.float32))
         with torch.no_grad():
-            _, embeds = directgcn_apply(params, full_graph,
-                                        torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev),
-                                        model_cfg, train=False)
+            if shard is not None:
+                x_eval = mesh.shard_training_inputs(x_eval, np.zeros(total_nodes, np.int64),
+                                                    np.zeros(total_nodes, np.float32),
+                                                    shard.adj, dev)[0]
+                _, embeds = directgcn_apply(params, full_graph, x_eval, model_cfg, train=False)
+                embeds = shard.gather(embeds)
+            else:
+                _, embeds = directgcn_apply(params, full_graph, torch.from_numpy(x_eval).to(dev),
+                                            model_cfg, train=False)
         embeds = embeds.cpu().numpy()
         if node_map is not None:
             embeds = embeds[node_map]
+        elif embeds.shape[0] > graph.num_nodes:  # the shard padding's rows
+            embeds = embeds[: graph.num_nodes]
         eval_seconds = time.monotonic() - t_eval
         launches2 = _launch_counts()
         self.level_stats[n_val] = {
@@ -1160,7 +1394,9 @@ class HierarchicalTrainer:
         where h5py is absent), then, under ``gcn.run_sanity_check_ppi``, run
         the PPI sanity check on that file (``self.sanity_metrics``)
         (trainer.py:2164-2204).  Returns the path of the last file written,
-        or None when the final level is missing."""
+        or None when the final level is missing.  Node-sharded, every rank
+        trains every level and rank 0 alone writes files, pools and runs the
+        sanity check (the other ranks return None)."""
         cfg = self.config
         self.pooled = None
         self.sanity_metrics, self.sanity_stats = None, {}
@@ -1169,11 +1405,12 @@ class HierarchicalTrainer:
         output_dir = ensure_dir(output_dir or cfg.paths.gcn_embeddings_dir)
         ckpt_dir = ensure_dir(os.path.join(str(output_dir), "level_checkpoints"))
 
-        if cfg.id_mapping_mode == "regex":
+        main = comm.is_main()
+        if cfg.id_mapping_mode not in ("regex", "none"):
+            raise NotImplementedError(f"id_mapping_mode={cfg.id_mapping_mode!r} is not ported")
+        if cfg.id_mapping_mode == "regex" and main:
             self.id_map = generate_regex_id_map(fasta_path, cfg.paths.id_mapping_output_file)
             logger.info("loaded %d ID mappings", len(self.id_map))
-        elif cfg.id_mapping_mode != "none":
-            raise NotImplementedError(f"id_mapping_mode={cfg.id_mapping_mode!r} is not ported")
 
         level_embeds: Dict[int, np.ndarray] = {}
         level_vocab: Dict[int, np.ndarray] = {}
@@ -1212,15 +1449,19 @@ class HierarchicalTrainer:
             label_seconds = time.monotonic() - t_labels
             # Keep only the embeddings: the level's operators and parameters
             # leave the device before the next level.
-            with MetricLogger(os.path.join(str(ckpt_dir), f"run_n{n_val}"),
-                              f"gcn_n{n_val}") as metrics:
-                metrics.log_params({"level": n_val, "task": task, "num_nodes": graph.num_nodes,
-                                    "num_edges": graph.num_edges, "num_classes": num_classes})
+            with (MetricLogger(os.path.join(str(ckpt_dir), f"run_n{n_val}"), f"gcn_n{n_val}")
+                  if main else contextlib.nullcontext()) as metrics:
+                if metrics is not None:
+                    metrics.log_params({"level": n_val, "task": task,
+                                        "num_nodes": graph.num_nodes,
+                                        "num_edges": graph.num_edges,
+                                        "num_classes": num_classes})
                 embeds = self.train_level(
                     graph, x, y, num_classes, metrics=metrics,
                     ckpt_dir=os.path.join(str(ckpt_dir), f"train_state_n{n_val}"))[1]
             level_embeds[n_val] = embeds
-            np.savez_compressed(ckpt_path, embeddings=embeds)
+            if main:
+                np.savez_compressed(ckpt_path, embeddings=embeds)
             st = self.level_stats[n_val]
             st.update(task=task, num_classes=num_classes)
             if task == "community":
@@ -1230,6 +1471,8 @@ class HierarchicalTrainer:
 
         if n_max not in level_embeds or level_embeds[n_max].size == 0:
             logger.error("final level n=%d embeddings missing; cannot pool", n_max)
+            return None
+        if not main:
             return None
 
         # Pool n-gram embeddings to proteins and rename ids

@@ -14,6 +14,11 @@ The parameters and each leaf's state are stored in the order of
 parameter tree of the same shapes and types.  The state tensors keep their
 own type (float32 moments over bfloat16 parameters), which
 ``torch.optim.Optimizer.load_state_dict`` would cast to the parameter's.
+
+On a node-sharded level (``shard``: the trainer's ``NodeShard``) the file
+holds the whole level's state: every rank's node rows of the node leaves and
+of their state are gathered, rank 0 writes them, and each rank restores its
+own rows.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from protgram_directgcn_torch.models.directgcn import param_leaves
+from protgram_directgcn_torch.models.directgcn import named_leaves
 from protgram_directgcn_torch.utils.io import logger
 
 
@@ -32,21 +37,33 @@ def _cpu(v):
 
 
 def save_train_state(ckpt_dir: os.PathLike, step: int, params: Any,
-                     opt: torch.optim.Optimizer, extra: Optional[Dict[str, Any]] = None) -> str:
+                     opt: torch.optim.Optimizer, extra: Optional[Dict[str, Any]] = None,
+                     shard: Any = None) -> str:
     """Save (params, optimizer state, ``extra``) at ``step``; returns the
     checkpoint's path.  Written to a temporary name and renamed, so a cut
-    run leaves no partial ``step_{k}``."""
-    os.makedirs(str(ckpt_dir), exist_ok=True)
+    run leaves no partial ``step_{k}``.  With ``shard``, every rank must
+    call it (the gathers are collective) and rank 0 writes."""
     path = os.path.join(os.path.abspath(str(ckpt_dir)), f"step_{step}")
-    leaves = param_leaves(params)
+
+    def whole(name, p, key=None, v=None):
+        t = p if key is None else v
+        if (shard is not None and isinstance(t, torch.Tensor) and shard.is_node(name, p)
+                and (key is None or shard.state_is_node(key, p))):
+            t = shard.gather(t)
+        return _cpu(t)
+
+    leaves = named_leaves(params)
     state = {
         "step": int(step),
-        "params": [_cpu(p) for p in leaves],
-        "opt_state": [{k: _cpu(v) for k, v in opt.state[p].items()} if p in opt.state else {}
-                      for p in leaves],
+        "params": [whole(n, p) for n, p in leaves],
+        "opt_state": [{k: whole(n, p, k, v) for k, v in opt.state[p].items()}
+                      if p in opt.state else {} for n, p in leaves],
         "lr": [group["lr"] for group in opt.param_groups],
         "extra": {k: _cpu(v) for k, v in (extra or {}).items()},
     }
+    if shard is not None and not shard.is_main:
+        return path
+    os.makedirs(str(ckpt_dir), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
@@ -67,19 +84,30 @@ def latest_step(ckpt_dir: os.PathLike) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_train_state(ckpt_dir: os.PathLike, params: Any, opt: torch.optim.Optimizer
-                        ) -> Optional[Tuple[int, Dict[str, Any]]]:
+def restore_train_state(ckpt_dir: os.PathLike, params: Any, opt: torch.optim.Optimizer,
+                        shard: Any = None) -> Optional[Tuple[int, Dict[str, Any]]]:
     """Restore the latest checkpoint into ``params`` (in place) and ``opt``;
     returns (step, extra), or None where there is none or it does not fit
-    these parameters (then nothing is changed and a warning is logged)."""
+    these parameters (then nothing is changed and a warning is logged).
+    With ``shard``, each rank takes its rows of the node leaves."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None
     path = os.path.join(os.path.abspath(str(ckpt_dir)), f"step_{step}")
-    leaves = param_leaves(params)
+    named = named_leaves(params)
+    leaves = [p for _, p in named]
+
+    def own(name, p, t, key=None):
+        if (shard is not None and isinstance(t, torch.Tensor) and shard.is_node(name, p)
+                and (key is None or shard.state_is_node(key, p))):
+            return shard.slab(t)
+        return t
+
     try:
         state = torch.load(path, map_location="cpu", weights_only=True)
-        saved = state["params"]
+        saved = [own(n, p, t) for (n, p), t in zip(named, state["params"])]
+        state["opt_state"] = [{k: own(n, p, v, k) for k, v in st.items()}
+                              for (n, p), st in zip(named, state["opt_state"])]
         if len(saved) != len(leaves) or len(state["lr"]) != len(opt.param_groups) or any(
                 s.shape != p.shape or s.dtype != p.dtype for s, p in zip(saved, leaves)):
             raise ValueError("parameter shapes or types differ from the checkpoint's")
