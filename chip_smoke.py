@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --plant-faults   # the distributed phase's bounds
 
 Phases, each printing one JSON line as it ends:
 
@@ -18,7 +19,11 @@ Phases, each printing one JSON line as it ends:
    timed on the device (launches captured in a CUDA graph, replays timed
    with CUDA events) beside the one-call ``torch.einsum`` of the same
    contraction and its plain version (at the 5-gram shape only at F=128),
-   and through its Python wrapper in a host loop (``wrapper_ms``);
+   and through its Python wrapper in a host loop (``wrapper_ms``); and K2
+   with a gc operand of its own (``x_gc``, as a key shard's K2 reads the
+   block its exchange delivered) at the n = 4 level's shard at world size 2
+   (A=21, Gd=4,631, F=256/128/64, both types) against ``k2_plain`` with the
+   same operand (phase ``kernels_k2_gc``);
 2. main path: ``python -m protgram_directgcn_torch --stages graph,gcn``'s
    entry point on a seeded synthetic FASTA of Swiss-Prot-like size (20,000
    sequences, lengths 50-1,000), dims [256, 128, 64], n = 1..3, five epochs a
@@ -156,6 +161,14 @@ Phases, each printing one JSON line as it ends:
    parameters; K1/K2 on every hypercube level and the ELL kernels on every
    halo level launched both ways; step, exchange and launch counts per
    level and rank.
+
+``--plant-faults`` runs the distributed phase's world-size-2 levels, each
+with one planted fault (the halo receive buffer zeroed; a key shard's gc
+block shifted by one key; each rank's node-parameter slab shifted by one
+row), a control (the one-device run with each ELL row's slots in reverse
+order: the same products summed in another order) and the sound runs, all
+held against the one-device references, and prints their readings beside
+the phase's bounds (phase ``distributed_bounds``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -413,6 +426,36 @@ def check_kernels(torch, hk, hyper):
         del base, x, wf, wb, d, cot, z, out, leaf, y, dx, z_ref, out_ref, y_ref, dx_ref, adj, fns
         torch.cuda.empty_cache()
     return records
+
+
+# A key shard's K2 (parallel/hyper_shard.py) reads its gc term from the block
+# the exchange delivered: the n = 4 level's shard at world size 2 (G = 21^3
+# keys over two ranks) at the distributed phase's widths.
+K2_GC_SHAPES = [(21, -(-21**3 // 2), f) for f in (256, 128, 64)]
+
+
+def check_k2_gc(torch, hk) -> dict:
+    """K2 with ``x_gc`` distinct from x against ``k2_plain`` with the same
+    operand, float32 and bfloat16: max abs error by type and width."""
+    errs = {}
+    for a, g, f in K2_GC_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            gen = torch.Generator(device=DEVICE).manual_seed(a * 7 + g + f)
+            x, z = (torch.randn(a, g, f, device=DEVICE, generator=gen).to(tdt) for _ in "xz")
+            gc = torch.randn(g, a, f, device=DEVICE, generator=gen).to(tdt)
+            w2 = torch.randn(a, g, a, device=DEVICE, generator=gen).to(tdt)
+            d = torch.randn(a, g, device=DEVICE, generator=gen)
+            got = hk.k2(d, w2, z, x, 0.75, 0.125, x_gc=gc)
+            err, ok = _err(torch, got, hk.k2_plain(d, w2, z, x, 0.75, 0.125, x_gc=gc), dt)
+            if not ok or not bool(torch.isfinite(got.float()).all()):
+                fail(f"k2 with x_gc disagrees with its plain version at A={a} G={g} F={f} {dt}: "
+                     f"max abs err {err}")
+            errs.setdefault(dt, {})[str(f)] = err
+            del x, z, gc, w2, d, got
+    emit("kernels_k2_gc", shape=list(K2_GC_SHAPES[0][:2]), max_abs_err=errs)
+    torch.cuda.empty_cache()
+    return {"shape": list(K2_GC_SHAPES[0][:2]), "max_abs_err_by_dtype_and_f": errs}
 
 
 # -----------------------------------------------------------------------------
@@ -2041,7 +2084,8 @@ def check_sddmm(torch, ek, hk, graph_paths):
     n = 3 (F = 256, float32 and bfloat16); the ELL products must reach the
     kernels forward and backward and never ``ell_plain``.  Timed: the
     kernel forward, the SDDMM alone, and a forward and backward with and
-    without edge gradients (the SDDMM's share of the backward)."""
+    without edge gradients (the SDDMM's share of the backward).  Returns
+    the card's launches of the ELL kernels and K1/K2 by direction."""
     from protgram_directgcn_torch.graph import transforms
     from protgram_directgcn_torch.graph.structure import load_graph
     from protgram_directgcn_torch.ops import hypercube, spmm
@@ -2145,6 +2189,8 @@ def check_sddmm(torch, ek, hk, graph_paths):
         for k in ("k1", "k2"):
             if min(outs[DEVICE]["launches"][k].values()) <= 0:
                 fail(f"sddmm: hypercube {dt} did not launch {k} both ways")
+            for direction, n in outs[DEVICE]["launches"][k].items():
+                counts.setdefault(k, {"fwd": 0, "bwd": 0})[direction] += n
         for key in ("dd", "dwf", "dwb", "dx"):
             got, ref = outs[DEVICE][key], outs["cpu"][key]
             if dt == "float32":
@@ -2268,13 +2314,102 @@ class _LevelCache:
             setattr(self.cls, name, real)
 
 
+@contextlib.contextmanager
 def _no_decoder_dropout():
-    """Dropout 0 in the decoder too (the trainer's model config has no knob
-    for it): a sharded run draws its masks per rank."""
+    """While active, dropout 0 in the decoder too (the trainer's model config
+    has no knob for it): a sharded run draws its masks per rank."""
     from protgram_directgcn_torch.models import directgcn
     from protgram_directgcn_torch.pipeline import trainer
 
     trainer.DirectGCNConfig = lambda **kw: directgcn.DirectGCNConfig(**kw, decoder_dropout=0.0)
+    try:
+        yield
+    finally:
+        trainer.DirectGCNConfig = directgcn.DirectGCNConfig
+
+
+def _probe_backend(torch, device, report) -> None:
+    """Whether the group's backend takes tensors on ``device`` for
+    ``all_to_all_single``, ``all_reduce`` and ``batch_isend_irecv`` (a ring
+    step), called natively: "ok" or the error's first line, passed to
+    ``report(answers)`` after each answer, so that what was learnt outlives
+    an abort.  ``batch_isend_irecv`` last: a backend that mishandles it may
+    abort the process instead of raising (gloo does, on CUDA tensors)."""
+    import torch.distributed as dist
+
+    out = {}
+    ws, rk = dist.get_world_size(), dist.get_rank()
+
+    def attempt(name, fn):
+        try:
+            fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            out[name] = "ok"
+        except Exception as exc:  # the probe's answer, not a failure
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0] if str(exc) else ''}"
+        report(dict(out))
+
+    def a2a():
+        send = torch.arange(ws * 4, dtype=torch.float32, device=device) + 100 * rk
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send)
+        want = torch.cat([torch.arange(rk * 4, rk * 4 + 4, dtype=torch.float32) + 100 * q
+                          for q in range(ws)])
+        if not torch.equal(recv.cpu(), want):
+            raise RuntimeError("all_to_all_single delivered wrong data")
+
+    def reduce():
+        t = torch.full((8,), float(rk + 1), device=device)
+        dist.all_reduce(t)
+        if not torch.equal(t.cpu(), torch.full((8,), ws * (ws + 1) / 2)):
+            raise RuntimeError("all_reduce delivered wrong data")
+
+    def ring():
+        send = torch.full((4,), float(rk), device=device)
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, (rk + 1) % ws),
+               dist.P2POp(dist.irecv, recv, (rk - 1) % ws)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        if not torch.equal(recv.cpu(), torch.full((4,), float((rk - 1) % ws))):
+            raise RuntimeError("batch_isend_irecv delivered wrong data")
+
+    attempt("all_to_all_single", a2a)
+    attempt("all_reduce", reduce)
+    attempt("batch_isend_irecv", ring)
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """While active, in this process, the named fault of ``--plant-faults``
+    (None: none): ``halo_zero_recv`` zeroes what a halo exchange delivers;
+    ``hyper_gc_shift`` shifts the gc block a key shard's K2 reads by one key;
+    ``slab_shift`` gives each rank's node rows the parameters of the row
+    before (its slab shifted by one)."""
+    from protgram_directgcn_torch.ops import hyper_kernels as hk
+    from protgram_directgcn_torch.parallel import halo, mesh
+
+    if fault is None:
+        yield
+        return
+    real_ring, real_k2, real_shard = halo._ring_exchange, hk.k2, mesh.shard_model_params
+
+    def k2(*a, x_gc=None, **kw):
+        return real_k2(*a, x_gc=None if x_gc is None else x_gc.roll(1, 0), **kw)
+
+    mod, name, fn = {
+        "halo_zero_recv": (halo, "_ring_exchange", lambda x, part: real_ring(x, part).zero_()),
+        "hyper_gc_shift": (hk, "k2", k2),
+        "slab_shift": (mesh, "shard_model_params",
+                       lambda params, rows, n: real_shard(params, rows.roll(1), n)),
+    }[fault]
+    real = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
 
 
 def _sharded_run(torch, mode: str, ws: int, graphs_dir: str, out: str, fasta: str,
@@ -2305,7 +2440,9 @@ def _sharded_run(torch, mode: str, ws: int, graphs_dir: str, out: str, fasta: st
 def _dist_rank(rank: int, ws: int, store: str, outdir: str, what: str, args: dict) -> None:
     """A rank process of the distributed phase: joins a gloo group on the
     card and writes its answers to ``{outdir}/{what}_r{rank}.json`` (the
-    probe after each answer, so that an abort leaves what was learnt)."""
+    probe after each answer, so that an abort leaves what was learnt).
+    ``args``: ``modes`` to train (both by default), a ``fault`` to plant
+    (``_planted``; none by default) and ``decoupled`` (``_decoupled_levels``)."""
     import torch
 
     path = os.path.join(outdir, f"{what}_r{rank}.json")
@@ -2322,24 +2459,20 @@ def _dist_rank(rank: int, ws: int, store: str, outdir: str, what: str, args: dic
         device = args.get("device", "cuda")
         comm.initialize_distributed(init_method="file://" + store, world_size=ws, rank=rank,
                                     device=device, backend="gloo")
-        if args.get("setup"):  # "module:function" run first (a CPU rehearsal's stubs)
-            import importlib
-
-            module, fn = args["setup"].split(":")
-            getattr(importlib.import_module(module), fn)()
         if what == "probe":
-            comm.probe_backend(torch.device(device), report=write)
+            _probe_backend(torch, torch.device(device), report=write)
             return
         if device == "cuda":
             hk.build()
             ek.build()
-        _no_decoder_dropout()
         comm.TIME_EXCHANGES = bool(args.get("time_exchanges"))
-        with _LevelCache():
+        fault = args.get("fault")
+        with (_no_decoder_dropout(), _LevelCache(), _planted(fault),
+              _decoupled_levels(bool(args.get("decoupled")))):
             runs = {mode: _sharded_run(torch, mode, ws, args["graphs_dir"],
-                                       os.path.join(args["out"], f"{mode}_ws{ws}"),
+                                       os.path.join(args["out"], f"{mode}_ws{ws}_{what}"),
                                        args["fasta"], device)
-                    for mode in ("hypercube", "halo")}
+                    for mode in args.get("modes", ("hypercube", "halo"))}
         write({"ok": True, "runs": runs})
     except Exception as exc:
         import traceback
@@ -2453,36 +2586,51 @@ def _reference_run(torch, mode: str, ws: int, graphs_dir: str, out: str, fasta: 
                                      for n, st in trainer.level_stats.items()}}
 
 
-def _compare_runs(run: dict, ref: dict, what: str) -> dict:
-    """Losses of every level and the exported embeddings, sharded against
-    one-device."""
+def _gaps(run: dict, ref: dict, what: str) -> dict:
+    """Losses of every level and the exported embeddings of a run against
+    the one-device run: the first level's first loss, each level's first
+    loss and the worst loss (relative), and the embeddings (max abs).  Fails
+    only where the two cannot be compared."""
     import numpy as np
 
     from protgram_directgcn_torch.utils.io import read_embeddings
 
-    worst_loss, first = 0.0, None
+    worst_loss, by_level = 0.0, {}
     for n, lv in sorted(ref["levels"].items()):
         got = np.asarray(run["levels"][str(n)]["losses"] if str(n) in run["levels"]
                          else run["levels"][n]["losses"])
         want = np.asarray(lv["losses"])
-        if got.shape != want.shape or not np.all(np.isfinite(got)):
+        if got.shape != want.shape:
             fail(f"{what}: level n={n} losses {got.tolist()} against {want.tolist()}")
         rel = np.abs(got - want) / np.abs(want)
-        first = float(rel[0]) if first is None else first
+        rel = np.where(np.isfinite(rel), rel, np.inf)
+        by_level[str(n)] = float(rel[0])
         worst_loss = max(worst_loss, float(rel.max()))
-    if first > DIST_FIRST_RTOL:
-        fail(f"{what}: the first level's first loss is off by {first} (relative; tolerance "
-             f"{DIST_FIRST_RTOL})")
     a, b = read_embeddings(run["path"]), read_embeddings(ref["path"])
     if sorted(a) != sorted(b) or len(a) != N_SEQS:
         fail(f"{what}: exported {len(a)} proteins, the one-device run {len(b)}")
-    emb_err = max(float(np.abs(a[k] - b[k]).max()) for k in b)
-    if worst_loss > DIST_LOSS_RTOL or emb_err > DIST_EMBED_ATOL:
-        fail(f"{what}: against the one-device run, loss rel err {worst_loss} (tolerance "
-             f"{DIST_LOSS_RTOL}), embeddings max abs err {emb_err} (tolerance {DIST_EMBED_ATOL})")
-    return {"first_loss_rel_err": first, "first_loss_rtol": DIST_FIRST_RTOL,
-            "loss_max_rel_err": worst_loss, "loss_rtol": DIST_LOSS_RTOL,
-            "embeddings_max_abs_err": emb_err, "embeddings_atol": DIST_EMBED_ATOL}
+    emb_err = max(float(np.nan_to_num(np.abs(a[k] - b[k]), nan=np.inf).max()) for k in b)
+    return {"first_loss_rel_err": by_level[min(by_level, key=int)],
+            "first_loss_rel_err_by_level": by_level, "loss_max_rel_err": worst_loss,
+            "embeddings_max_abs_err": emb_err}
+
+
+def _within_bounds(gaps: dict) -> bool:
+    return (gaps["first_loss_rel_err"] <= DIST_FIRST_RTOL
+            and gaps["loss_max_rel_err"] <= DIST_LOSS_RTOL
+            and gaps["embeddings_max_abs_err"] <= DIST_EMBED_ATOL)
+
+
+def _compare_runs(run: dict, ref: dict, what: str) -> dict:
+    """``_gaps``, failing past the phase's bounds."""
+    gaps = _gaps(run, ref, what)
+    if not _within_bounds(gaps):
+        fail(f"{what}: against the one-device run, first loss rel err "
+             f"{gaps['first_loss_rel_err']} (tolerance {DIST_FIRST_RTOL}), loss rel err "
+             f"{gaps['loss_max_rel_err']} (tolerance {DIST_LOSS_RTOL}), embeddings max abs "
+             f"err {gaps['embeddings_max_abs_err']} (tolerance {DIST_EMBED_ATOL})")
+    return {**gaps, "first_loss_rtol": DIST_FIRST_RTOL, "loss_rtol": DIST_LOSS_RTOL,
+            "embeddings_atol": DIST_EMBED_ATOL}
 
 
 def _path_counts(runs) -> dict:
@@ -2494,9 +2642,6 @@ def _path_counts(runs) -> dict:
             for d, v in per_dir.items():
                 cur[d] += v
     return total
-
-
-DIST_RANK_SETUP = None  # "module:function" each rank process runs first (CPU rehearsals)
 
 
 def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
@@ -2511,9 +2656,7 @@ def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
     from protgram_directgcn_torch.parallel import distributed as comm
 
     graphs_dir = os.path.dirname(graph_paths[0])
-    _no_decoder_dropout()
-    probe = _spawn_ranks(DIST_WORLD, "probe", {"device": DEVICE, "setup": DIST_RANK_SETUP},
-                         timeout=120)
+    probe = _spawn_ranks(DIST_WORLD, "probe", {"device": DEVICE}, timeout=120)
     emit("distributed_probe", backend="gloo", device=DEVICE,
          ranks={str(r): v for r, v in probe.items()})
 
@@ -2522,14 +2665,13 @@ def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
     # times are read beside that work (PERF.md gives them alone).
     handle = _start_ranks(DIST_WORLD, "train",
                           {"graphs_dir": graphs_dir, "out": workdir, "fasta": fasta,
-                           "time_exchanges": True, "device": DEVICE,
-                           "setup": DIST_RANK_SETUP}, timeout=600)
+                           "time_exchanges": True, "device": DEVICE}, timeout=600)
     # (a) World size 1 under NCCL (the card's backend), in this process, and
     # the one-device references, all from the world-size-2 runs' initial
     # parameters.
     store = os.path.join(tempfile.mkdtemp(prefix="protgram_nccl_"), "store")
     refs = {}
-    with _LevelCache():
+    with _no_decoder_dropout(), _LevelCache():
         comm.initialize_distributed(init_method="file://" + store, world_size=1, rank=0,
                                     device=DEVICE, backend="nccl" if DEVICE == "cuda" else "gloo")
         try:
@@ -2584,6 +2726,102 @@ def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
                                for n, lv in levels.items()},
                  levels=levels, launches=_path_counts(ranks_of), **cmp)
     return _path_counts(runs_all)
+
+
+@contextlib.contextmanager
+def _reversed_slots():
+    """While active, every ELL operator ``spmm.build_ell`` builds lists each
+    row's slots (both orientations) in reverse order: the same products,
+    summed in another order."""
+    from protgram_directgcn_torch.ops import spmm
+
+    real = spmm.build_ell
+
+    def build_ell(*args, **kw):
+        adj = real(*args, **kw)
+        return spmm.EllAdj(*(t.flip(1).contiguous() for t in (adj.idx, adj.w, adj.idx_t, adj.w_t)))
+
+    spmm.build_ell = build_ell
+    try:
+        yield
+    finally:
+        spmm.build_ell = real
+
+
+@contextlib.contextmanager
+def _decoupled_levels(on: bool = True):
+    """While active (``on``), each level n >= 2 starts from seeded unit rows
+    in place of level n - 1's embeddings, so that a level's gap to the
+    one-device run is its own, not what the levels below carried up."""
+    import numpy as np
+
+    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
+
+    real = HierarchicalTrainer._initial_features
+
+    def initial_features(self, graph, prev_vocab, prev_embeds, seed):
+        if on and prev_embeds is not None and prev_embeds.size:
+            rows = np.random.default_rng(graph.n).standard_normal(prev_embeds.shape)
+            prev_embeds = (rows / np.linalg.norm(rows, axis=1, keepdims=True)).astype(np.float32)
+        return real(self, graph, prev_vocab, prev_embeds, seed)
+
+    HierarchicalTrainer._initial_features = initial_features
+    try:
+        yield
+    finally:
+        HierarchicalTrainer._initial_features = real
+
+
+# (fault, mode) of --plant-faults: each a world-size-2 run of one mode.
+DIST_FAULTS = (("halo_zero_recv", "halo"), ("hyper_gc_shift", "hypercube"),
+               ("slab_shift", "halo"))
+
+
+def plant_faults(torch, graph_paths, workdir: str, fasta: str) -> bool:
+    """The distributed phase's world-size-2 levels, sound, with the levels
+    decoupled (``_decoupled_levels``) and with each planted fault of
+    ``DIST_FAULTS``, in spawned processes at once; the one-device
+    references (decoupled too) and, for halo mode, the control with the ELL
+    slots reversed, in this process.  Emits each run's ``_gaps`` beside the
+    bounds; True where every sound run and the control are within them and
+    every fault is past them."""
+    graphs_dir = os.path.dirname(graph_paths[0])
+    base = {"graphs_dir": graphs_dir, "out": workdir, "fasta": fasta, "device": DEVICE}
+    handles = {"sound": _start_ranks(DIST_WORLD, "sound", base, timeout=900),
+               "decoupled": _start_ranks(DIST_WORLD, "decoupled", {**base, "decoupled": True},
+                                         timeout=900)}
+    for fault, mode in DIST_FAULTS:
+        handles[fault] = _start_ranks(DIST_WORLD, fault, {**base, "fault": fault,
+                                                          "modes": (mode,)}, timeout=900)
+    refs = {}
+    with _no_decoder_dropout(), _LevelCache():
+        for decoupled in (False, True):
+            with _decoupled_levels(decoupled):
+                for mode in ("hypercube", "halo"):
+                    refs[decoupled, mode] = _reference_run(
+                        torch, mode, DIST_WORLD, graphs_dir,
+                        os.path.join(workdir, f"ref_{mode}_{decoupled}"), fasta)
+        with _reversed_slots():
+            control = _reference_run(torch, "halo", DIST_WORLD, graphs_dir,
+                                     os.path.join(workdir, "control_halo"), fasta)
+    readings = {"control_halo": _gaps(control, refs[False, "halo"], "control")}
+    for name, handle in handles.items():
+        ranks = _join_ranks(handle)
+        for r, v in ranks.items():
+            if v["exitcode"] != 0 or not (v["answer"] or {}).get("ok"):
+                fail(f"plant-faults: {name} rank {r} failed (exit {v['exitcode']}): "
+                     f"{(v['answer'] or {}).get('error', 'no answer')}")
+        for mode, run in ranks[0]["answer"]["runs"].items():
+            readings[f"{name}_{mode}"] = _gaps(run, refs[name == "decoupled", mode],
+                                               f"{name} {mode}")
+    for key, gaps in readings.items():
+        gaps["within_bounds"] = _within_bounds(gaps)
+    ok = all(g["within_bounds"] == (not any(key.startswith(f) for f, _ in DIST_FAULTS))
+             for key, g in readings.items())
+    emit("distributed_bounds", world_size=DIST_WORLD, bounds={
+        "first_loss_rtol": DIST_FIRST_RTOL, "loss_rtol": DIST_LOSS_RTOL,
+        "embeddings_atol": DIST_EMBED_ATOL}, readings=readings, bounds_separate=ok)
+    return ok
 
 
 def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
@@ -2745,7 +2983,19 @@ def main() -> int:
          built={name: info["built"] for name, info in infos.items()}, ptxas=ptxas,
          ell_occupancy=_ell_occupancy(ek))
 
+    if sys.argv[1:] == ["--plant-faults"]:
+        from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
+
+        with tempfile.TemporaryDirectory(prefix="protgram_faults_") as workdir:
+            fasta = os.path.join(workdir, "synthetic_sprot.fasta")
+            write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
+            graph_paths = NgramGraphBuilder(n_max=4).run(fasta, os.path.join(workdir, "graphs"))
+            return 0 if plant_faults(torch, graph_paths, workdir, fasta) else 1
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     records = check_kernels(torch, hk, hyper)
+    k2_gc = check_k2_gc(torch, hk)
     with tempfile.TemporaryDirectory(prefix="protgram_smoke_") as workdir:
         fasta = os.path.join(workdir, "synthetic_sprot.fasta")
         residues = write_fasta(fasta, N_SEQS, seed=2024, lo=50, hi=1000)
@@ -2796,6 +3046,8 @@ def main() -> int:
                             tier_counts, cluster_counts, bench_counts, bench_by_v, bench_ell)
     for entry in kernels:  # the two newest paths' launches
         name = {"hyper_k1": "k1", "hyper_k2": "k2"}.get(entry["name"], entry["name"])
+        if name == "k2":
+            entry["x_gc"] = k2_gc
         if name in dist_counts:
             entry["launches_distributed_path"] = dist_counts[name]
         if name in sddmm_counts:

@@ -16,8 +16,8 @@ train the whole level and race the others for the output files.
 The exchange layer calls ``all_to_all_single``, ``all_reduce`` and
 ``all_gather`` only: gloo takes CUDA tensors for those (it copies them
 through host memory itself), and aborts the process on a
-``batch_isend_irecv`` of CUDA tensors (``probe_backend`` on an NVIDIA H100,
-PERF.md), so a ring of point-to-point steps is one ``all_to_all_single``.
+``batch_isend_irecv`` of CUDA tensors (``chip_smoke.py``'s probe on an
+NVIDIA H100, PERF.md), so a ring of point-to-point steps is one ``all_to_all_single``.
 ``EXCHANGE`` counts the exchanges and their bytes, and under
 ``TIME_EXCHANGES`` their seconds on the host clock with the device
 synchronised around each one.
@@ -28,7 +28,7 @@ from __future__ import annotations
 import datetime
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -167,56 +167,3 @@ def all_gather(t: torch.Tensor) -> List[torch.Tensor]:
     outs = [torch.empty_like(t) for _ in range(world_size())]
     dist.all_gather([_wire(o) for o in outs], _wire(t))
     return outs
-
-
-def probe_backend(device: torch.device, report=None) -> Dict[str, str]:
-    """Whether the group's backend takes tensors on ``device`` for
-    ``all_to_all_single``, ``all_reduce`` and ``batch_isend_irecv`` (a ring
-    step), called natively: "ok" or the error's first line.  Every rank
-    must call it; ``batch_isend_irecv`` last, since a backend that
-    mishandles it may abort the process instead of raising (gloo does, on
-    CUDA tensors): run it in a process of its own.  ``report(answers)`` is
-    called after each answer, so that what was learnt outlives an abort."""
-    out: Dict[str, str] = {}
-    ws, rk = world_size(), rank()
-
-    def attempt(name, fn):
-        try:
-            fn()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            out[name] = "ok"
-        except Exception as exc:  # the probe's answer, not a failure
-            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0] if str(exc) else ''}"
-        if report is not None:
-            report(dict(out))
-
-    def a2a():
-        send = torch.arange(ws * 4, dtype=torch.float32, device=device) + 100 * rk
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send)
-        want = torch.cat([torch.arange(rk * 4, rk * 4 + 4, dtype=torch.float32) + 100 * q
-                          for q in range(ws)])
-        if not torch.equal(recv.cpu(), want):
-            raise RuntimeError("all_to_all_single delivered wrong data")
-
-    def reduce():
-        t = torch.full((8,), float(rk + 1), device=device)
-        dist.all_reduce(t)
-        if not torch.equal(t.cpu(), torch.full((8,), ws * (ws + 1) / 2)):
-            raise RuntimeError("all_reduce delivered wrong data")
-
-    def ring():
-        send = torch.full((4,), float(rk), device=device)
-        recv = torch.empty_like(send)
-        ops = [dist.P2POp(dist.isend, send, (rk + 1) % ws),
-               dist.P2POp(dist.irecv, recv, (rk - 1) % ws)]
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-        if not torch.equal(recv.cpu(), torch.full((4,), float((rk - 1) % ws))):
-            raise RuntimeError("batch_isend_irecv delivered wrong data")
-
-    attempt("all_to_all_single", a2a)
-    attempt("all_reduce", reduce)
-    attempt("batch_isend_irecv", ring)
-    return out

@@ -22,6 +22,8 @@ relayout.
 ``PROTGRAM_HS_WIRE=bf16`` puts f32 rows on a bf16 wire; ``PROTGRAM_HS_NOCOMM=1``
 replaces each exchange by the identity (wrong data, the same local work), so
 that a scaling harness can time the compute alone (hyper_shard.py:263-298).
+Both are read once, when ``build_hyper_shard`` builds a rank's operator, and
+kept on it; the second is logged as a warning there.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 from protgram_directgcn_torch.ops import hyper_kernels
 from protgram_directgcn_torch.ops.block import BlockStructureError
 from protgram_directgcn_torch.parallel import distributed as comm
+from protgram_directgcn_torch.utils.io import logger
 
 
 # ----------------------------------------------------------------------------
@@ -152,6 +155,8 @@ class HyperShardAdj:
     node_map: np.ndarray  # [N_real] padded flat id of each real node
     num_shards: int = 1
     rank: int = 0
+    wire_bf16: bool = False  # PROTGRAM_HS_WIRE=bf16: f32 rows cross as bf16
+    nocomm: bool = False  # PROTGRAM_HS_NOCOMM=1: every exchange is the identity
     route = "hyper_shard"
 
     @property
@@ -197,10 +202,16 @@ def build_hyper_shard(src, tgt, val, codes, alphabet_size: int, num_shards: int,
     def dev(arr, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
 
+    nocomm = os.environ.get("PROTGRAM_HS_NOCOMM") == "1"
+    if nocomm:
+        logger.warning("PROTGRAM_HS_NOCOMM=1: every hypercube shard exchange is the identity "
+                       "(timing only; the products are wrong)")
     return HyperShardAdj(d=dev(slabs["d"][rank]), wf=dev(slabs["wf"][rank], weights_dtype),
                          wb=dev(slabs["wb"][rank], weights_dtype),
                          tables=HyperShardTables.for_rank(tables, rank, device),
-                         node_map=slabs["node_map"], num_shards=int(num_shards), rank=int(rank))
+                         node_map=slabs["node_map"], num_shards=int(num_shards), rank=int(rank),
+                         wire_bf16=os.environ.get("PROTGRAM_HS_WIRE", "auto") == "bf16",
+                         nocomm=nocomm)
 
 
 # ----------------------------------------------------------------------------
@@ -208,28 +219,20 @@ def build_hyper_shard(src, tgt, val, codes, alphabet_size: int, num_shards: int,
 # ----------------------------------------------------------------------------
 
 
-def _wire_dtype(dtype: torch.dtype) -> Optional[torch.dtype]:
-    if os.environ.get("PROTGRAM_HS_WIRE", "auto") == "bf16" and dtype == torch.float32:
-        return torch.bfloat16
-    return None
-
-
-def _a2a(send: torch.Tensor) -> torch.Tensor:
-    if os.environ.get("PROTGRAM_HS_NOCOMM") == "1":
-        return send
-    return comm.all_to_all(send)
-
-
 def _exchange(send_idx: torch.Tensor, asm_idx: torch.Tensor,
-              rows: Sequence[torch.Tensor], num_shards: int) -> Tuple[torch.Tensor, ...]:
+              rows: Sequence[torch.Tensor], adj: HyperShardAdj) -> Tuple[torch.Tensor, ...]:
     """Gather each feature set's rows for every peer, send them in one
     all_to_all, and assemble each set's destination rows (missing rows read
-    the zero row past the buffer's end)."""
+    the zero row past the buffer's end).  ``adj`` carries the shard count and
+    the wire options."""
+    num_shards = adj.num_shards
     s = send_idx.shape[0] // num_shards
     f = rows[0].shape[1]
-    wire = _wire_dtype(rows[0].dtype) or rows[0].dtype
+    wire = torch.bfloat16 if adj.wire_bf16 and rows[0].dtype == torch.float32 else rows[0].dtype
     send = torch.cat([r[send_idx].to(wire).view(num_shards, s, f) for r in rows], dim=1)
-    recv = _a2a(send.view(-1, f)).view(num_shards, len(rows) * s, f)
+    flat_send = send.view(-1, f)
+    recv = (flat_send if adj.nocomm else comm.all_to_all(flat_send)).view(
+        num_shards, len(rows) * s, f)
     outs = []
     for i, r in enumerate(rows):
         flat = torch.cat([recv[:, i * s:(i + 1) * s].reshape(num_shards * s, f),
@@ -244,13 +247,12 @@ def _shard_apply(adjs: Sequence[HyperShardAdj], xs: Sequence[torch.Tensor], tran
     pair, their rows sharing one exchange a relayout."""
     direction = "bwd" if transpose else "fwd"
     t = adjs[0].tables
-    d_count = adjs[0].num_shards
     xs = [x.contiguous() for x in xs]
     a, gd, f = xs[0].shape
-    x_gc = _exchange(t.send_gc, t.asm_gc, [x.view(a * gd, f) for x in xs], d_count)
+    x_gc = _exchange(t.send_gc, t.asm_gc, [x.view(a * gd, f) for x in xs], adjs[0])
     zs = [hyper_kernels.k1(adj.wb if transpose else adj.wf, x, direction)
           for adj, x in zip(adjs, xs)]
-    z_rg = _exchange(t.send_rg, t.asm_rg, [z.view(gd * a, f) for z in zs], d_count)
+    z_rg = _exchange(t.send_rg, t.asm_rg, [z.view(gd * a, f) for z in zs], adjs[0])
     return tuple(
         hyper_kernels.k2(adj.d, adj.wf if transpose else adj.wb, z.view(a, gd, f), x, scale,
                          shift, direction, x_gc=gc.view(gd, a, f))

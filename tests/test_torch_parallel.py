@@ -11,7 +11,9 @@ bfloat16 hypercube shard against the port's one-device bfloat16 product at
 JAX package's keeps z in float32).  World size 3 gives an uneven key split
 (G = 25 over 9 keys a rank) and two ring steps.  The exchange tables and
 slabs equal the JAX package's array for array, and a corrupted exchange
-trips ``debug_checksums`` on every rank.
+trips ``debug_checksums`` on every rank.  ``PROTGRAM_HS_NOCOMM`` and
+``PROTGRAM_HS_WIRE`` are read when a shard's operator is built, on one
+shard in this process.
 """
 
 import numpy as np
@@ -22,7 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from protgram_directgcn_torch.config import ParallelConfig
-from protgram_directgcn_torch.ops import hypercube as t_hyper, spmm as t_spmm
+from protgram_directgcn_torch.ops import hyper_kernels as t_hk, hypercube as t_hyper, spmm as t_spmm
 from protgram_directgcn_torch.parallel import halo as t_halo, hyper_shard as t_hs, mesh as t_mesh
 from protgram_directgcn_tpu.parallel import halo as j_halo, hyper_shard as j_hs
 from protgram_directgcn_tpu.parallel.mesh import make_mesh as j_make_mesh
@@ -240,3 +242,52 @@ def test_shard_model_params_keeps_the_rows_of_node_leaves():
     torch.testing.assert_close(out["layers"][0]["constant"], tree["layers"][0]["constant"][rows])
     assert out["layers"][0]["w_main_in"] is tree["layers"][0]["w_main_in"]
     assert out["decoder"] is tree["decoder"]
+
+
+def _one_shard(monkeypatch, env):
+    """The n-gram matrix as one key shard (D = 1, outside a process group),
+    built under ``env``, which is unset again before it propagates."""
+    src, tgt, w, codes, a, num = W.ngram_coo()
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    adj = t_hs.build_hyper_shard(src, tgt, w, codes, a, 1, 0, "cpu")
+    for key in env:
+        monkeypatch.delenv(key)
+    one = t_hyper.build_hypercube(src, tgt, w, codes, a, device="cpu")
+    x = torch.from_numpy(W.features(num, W.HYPER_F, 4))
+    return adj, one, x
+
+
+def test_hs_nocomm_is_read_at_build_and_skips_every_exchange(monkeypatch):
+    adj, one, x = _one_shard(monkeypatch, {"PROTGRAM_HS_NOCOMM": "1"})
+    assert adj.nocomm and not adj.wire_bf16
+
+    def no_exchange(*_a, **_k):
+        raise AssertionError("an exchange ran under PROTGRAM_HS_NOCOMM=1")
+
+    monkeypatch.setattr(t_hs.comm, "all_to_all", no_exchange)
+    got = t_hs.propagate(adj, x, W.SCALE, W.SHIFT)
+    # One shard's exchanges are relayouts only, so the identity is exact here.
+    ref = t_hyper.propagate_hyper_affine(one, x, W.SCALE, W.SHIFT)
+    _close(got, ref, "one shard without exchanges")
+    adj.nocomm = False
+    with pytest.raises(AssertionError, match="an exchange ran"):
+        t_hs.propagate(adj, x)
+
+
+def test_hs_wire_bf16_is_read_at_build_and_rounds_what_crosses(monkeypatch):
+    adj, one, x = _one_shard(monkeypatch, {"PROTGRAM_HS_WIRE": "bf16"})
+    assert adj.wire_bf16 and not adj.nocomm
+    got = t_hs.propagate(adj, x, W.SCALE, W.SHIFT)
+    a, g = adj.feature_shape
+    x_rg = x.view(a, g, -1)
+    rnd = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    # The gc operand and z cross the wire; the diagonal term reads x itself.
+    z = t_hk.k1_plain(adj.wf, x_rg)
+    want = t_hk.k2_plain(adj.d, adj.wb, rnd(z).view(a, g, -1), x_rg, W.SCALE, W.SHIFT,
+                         x_gc=rnd(x).view(g, a, -1))
+    _close(got, want.view(a * g, -1), "bf16 wire")
+    exact = t_hyper.propagate_hyper_affine(one, x, W.SCALE, W.SHIFT)
+    assert not torch.equal(got, exact)
+    adj.wire_bf16 = False
+    _close(t_hs.propagate(adj, x, W.SCALE, W.SHIFT), exact, "f32 wire")
