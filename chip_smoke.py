@@ -9,10 +9,13 @@ Phases, each printing one JSON line as it ends:
 0. device: the card's name and power limit (as nvidia-smi prints them), and
    the nvcc builds of csrc/hyper.cu (K1/K2), csrc/ell.cu (the ELL kernels)
    and csrc/retile.cu (pack/unpack), started together, with their times,
-   ptxas's registers and spills, and the ELL plans' occupancy;
+   ptxas's registers and spills, and the ELL plans' occupancy; then
+   ``python -m protgram_directgcn_torch.doctor`` in a process of its own,
+   started here and read after phase 2, every check ``[ok]`` (phase
+   ``doctor``);
 1. kernels: K1 and K2, forward and the bank-swapped backward, held against
    their plain PyTorch versions at the main path's shapes (A=21, G=441 and
-   21, F=256/128/64, float32 and bfloat16), at the 5-gram hypercube
+   21, F=256/128/64/32, float32 and bfloat16), at the 5-gram hypercube
    (A=21, G=194,481, F=64/128/256, bfloat16), at A=26 with widths that take
    no 16-byte access (F=100 bfloat16, F=37 float32), and with x a view one
    element past an aligned start (A=21, G=441, F=256, both types); each
@@ -33,12 +36,17 @@ Phases, each printing one JSON line as it ends:
    negative pairs of the FASTA's accessions): a [128 -> 64 -> 32 -> 1] MLP,
    10 epochs on 160,000 pairs at batch 1,024 (phase ``sanity_check``);
 2a. word2vec: ``--stages word2vec`` on the same FASTA and ``--out`` at every
-   default (dim 100, window 5, 5 epochs, batch 8,192, sample 1e-3): steps,
+   default (dim 100, window 5, batch 8,192, sample 1e-3) but 2 epochs: steps,
    final loss, host sampling and device seconds, one finite vector per
    protein, the ``.vectors.bin`` read back equal;
-2b. ppi: ``--stages ppi`` over the four sets the two stages wrote (GCN and
-   Word2Vec, each raw and PCA), 5 folds, 100,000 sampled negatives, batch
-   1,024, ``eval.epochs`` cut from 300 to 5: a finite AUC a set, a
+2a'. transformer: ``--stages transformer`` on the same FASTA and ``--out``
+   (``main.py``'s order: before ``ppi``); no checkpoint loads on the card's
+   machine, so the stage writes the seeded residue-projection fallback: one
+   finite 64-wide vector a protein, equal to the CPU's;
+2b. ppi: ``--stages ppi`` over the five sets the three stages wrote (GCN
+   and Word2Vec, each raw and PCA, and the transformer's), 100,000 sampled
+   negatives, batch 1,024, ``eval.n_folds`` cut from 5 to 3 and
+   ``eval.epochs`` from 300 to 2: a finite AUC a set, a
    Wilcoxon row for each set but the main one, seconds and MLP steps per
    second a set;
 2c. ppi reference: one fold's MLP at the default widths (dropout 0), 3
@@ -49,7 +57,7 @@ Phases, each printing one JSON line as it ends:
    port's CPU path (which the CPU tests hold against the JAX package) on a
    small n = 3 hypercube graph;
 4. ell path: the same entry point on the same FASTA with
-   ``gcn.spmm_mode=pallas`` (ELL operators at every level), n = 1..4, 30
+   ``gcn.spmm_mode=pallas`` (ELL operators at every level), n = 1..4, 10
    epochs a level (so that the n = 4 level's step time, ``level4_step_seconds``,
    is not mostly the first step's warm-up)
    (``gcn.use_cluster_training=false``: the n = 4 level trains full batch,
@@ -75,7 +83,7 @@ Phases, each printing one JSON line as it ends:
    and never the plain version;
 6. ell reference: phase 3 on ELL operators through the ELL kernels;
 7. cluster path: the same entry point on the same FASTA with
-   ``gcn.spmm_mode=pallas`` at n = 1..4, 5 epochs a level, and every other
+   ``gcn.spmm_mode=pallas`` at n = 1..4, 2 epochs a level, and every other
    knob at its default: n <= 3 full batch through ``ell_resident``; the
    n = 4 level (167,325 nodes, above ``cluster_training_threshold_nodes``)
    on its default task, Louvain communities (the C++ sweep), and on
@@ -128,7 +136,7 @@ Phases, each printing one JSON line as it ends:
 18. benchmark: ``--stages benchmark`` at every default (the seven datasets,
    seeded stand-ins where raw files are absent, both variants, the seven
    zoo models at their widths and the three DirectGCN rows) but
-   ``benchmark.epochs`` cut from 300 to 20 and ``benchmark.n_seeds`` from 10
+   ``benchmark.epochs`` cut from 300 to 5 and ``benchmark.n_seeds`` from 10
    to 2, each model's training under ``torch.profiler``, with the ELL
    kernels' launch counts set to 0 before and read after: no ``error`` row,
    finite accuracies, both ELL kernels launched both ways; per dataset and
@@ -160,12 +168,32 @@ Phases, each printing one JSON line as it ends:
    embeddings held against the one-device run from the same initial
    parameters; K1/K2 on every hypercube level and the ELL kernels on every
    halo level launched both ways; step, exchange and launch counts per
-   level and rank.
+   level and rank;
+20a. gspmd: the same levels in ``parallel.mode=gspmd`` (the ELL tables'
+   row blocks over gathered features) at world size 1 under NCCL and 2
+   under gloo, against the one-device ELL run: ``ell_resident`` at
+   n <= 3 and ``ell_hbm`` at n = 4 both ways on every rank, the plain
+   version never, and the all-gathers' calls, bytes and seconds;
+20b. feat: n = 1..3 over 1 node shard x 2 feature shards
+   (``parallel.mesh_feats=2``) at world size 2 under gloo, hypercube and
+   gspmd modes, full width (each rank propagates F = 128/64/32), against
+   the one-device run; K1/K2 (their widths recorded) and the ELL kernels
+   launched both ways on every rank.  The world-size-2 runs of 20-20b run
+   in one spawn, kind after kind;
+21. scaling: ``bench/scaling.py``'s ``weak_scaling_report`` (ngram, 4,096
+   nodes a shard) and ``hyper_shard_scaling_report`` (512 keys a shard) at
+   D = 1 and 2 under gloo on the card (a path check: the two ranks share
+   one card and gloo's exchanges pass through host memory) and at D = 1
+   under NCCL, and ``fivegram_scaling_report``'s five curves at D = 1 on the
+   ell path's n = 4 level (167,325 nodes; on the tier path's 5-gram level
+   the five curves took 74 s, over the phase's 60 s): each curve's ms a
+   step and edges a second.
 
-``--plant-faults`` runs the distributed phase's world-size-2 levels, each
+``--plant-faults`` runs the distributed phase's world-size-2 runs, each
 with one planted fault (the halo receive buffer zeroed; a key shard's gc
 block shifted by one key; each rank's node-parameter slab shifted by one
-row), a control (the one-device run with each ELL row's slots in reverse
+row; the gspmd ELL tables' row blocks shifted by one row; feature rank 1
+given rank 0's columns of ``w_main_in``), a control (the one-device run with each ELL row's slots in reverse
 order: the same products summed in another order) and the sound runs, all
 held against the one-device references, and prints their readings beside
 the phase's bounds (phase ``distributed_bounds``).
@@ -193,16 +221,20 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # non-tensor f32; dense bf16
 F32_TOL = (1e-5, 1e-5)  # rtol, atol
 BF16_REL_TO_MAX = 0.05  # max |err| <= 0.05 * max |ref| (tests/test_hypercube.py:160)
-MAIN_SHAPES = [(21, g, f) for g in (441, 21) for f in (256, 128, 64)]
+# F = 32: the feature shards' last layer (dims [256, 128, 64] over 2 shards).
+MAIN_SHAPES = [(21, g, f) for g in (441, 21) for f in (256, 128, 64, 32)]
 LARGE_SHAPE = (21, 194_481, 128)
 LARGE_WIDTHS = (64, 128, 256)  # the widths the 5-gram level's propagations take
 # Swiss-Prot's alphabet (25 letters and the space) at its n = 3 key count, at
 # widths that 16-byte accesses cannot take: the kernels' one-element path.
 RAGGED_SHAPES = [((26, 676, 100), "bfloat16"), ((26, 676, 37), "float32")]
 MISALIGNED_SHAPE = (21, 441, 256)  # x a contiguous view one element past an aligned start
-ELL_WIDTHS = (64, 128, 256)
-ELL_PATH_EPOCHS = 30  # epochs a level on the ell path
-CLUSTER_PATH_EPOCHS = 5
+ELL_WIDTHS = (32, 64, 128, 256)  # 32: the feature shards' last layer
+# Depths cut to hold the smoke's time as phases were added (PERF.md §4
+# gives the depths they replaced):
+ELL_PATH_EPOCHS = 10  # epochs a level on the ell path
+CLUSTER_PATH_EPOCHS = 2
+W2V_EPOCHS = 2  # word2vec.epochs cut from 5
 RETILE_CARRY = (21, 194_481, 64)  # A, G, f: the 5-gram level's last layer at [256, 128, 64]
 TIER_N = 5
 TIER_DIMS = (256, 128, 64)
@@ -212,7 +244,8 @@ SWISSPROT_HYPER_NODES = 26**5  # 25 letters and the space at n = 5
 CHECKPOINT_EVERY = 2
 N_POSITIVE_PAIRS = 100_000  # seeded interaction pairs over the FASTA's accessions
 N_NEGATIVE_PAIRS = 200_000
-PPI_EPOCHS = 5  # eval.epochs cut from 300: ~2.5 ms host-bound MLP steps (PERF.md)
+PPI_EPOCHS = 2  # eval.epochs cut from 300: ~2.5 ms host-bound MLP steps
+PPI_FOLDS = 3  # eval.n_folds cut from 5
 PPI_REF_PAIRS = 20_000  # the ppi_reference phase's pairs (one fold of 5 held out)
 PPI_REF_EPOCHS = 3
 PPI_REF_TOL = (1e-4, 1e-6)  # rtol, atol of the card's probabilities against the CPU's
@@ -222,7 +255,7 @@ BF16_GRAD_NORM_REL = 0.25  # tests/test_torch_tiers.py
 # benchmark.epochs cut from 300 and benchmark.n_seeds from 10 (KarateClub's rows) to
 # keep the phase near 180 s: at 50 and 3 it took 252-268 s (PERF.md), ~93 s of it
 # the embeddings and PCA writes, which the cut does not shorten.
-BENCH_EPOCHS = 20
+BENCH_EPOCHS = 5
 BENCH_SEEDS = 2
 BENCH_WIDTHS = (2, 3, 5, 6, 7, 34)  # the class counts and KarateClub's identity features
 BENCH_REF_EPOCHS = 5
@@ -588,16 +621,17 @@ def run_main_path(torch, hk, fasta: str, workdir: str):
 
 def run_word2vec(torch, fasta: str, workdir: str) -> dict:
     """``--stages word2vec`` on the main path's FASTA and ``--out``, every
-    knob at its default (dim 100, window 5, 5 epochs, batch 8,192, sample
-    1e-3): one finite pooled vector per protein, and the ``.vectors.bin``
-    read back equal to the model's input table."""
+    knob at its default (dim 100, window 5, batch 8,192, sample 1e-3) but
+    ``word2vec.epochs`` (cut to ``W2V_EPOCHS``): one finite pooled vector
+    per protein, and the ``.vectors.bin`` read back equal to the model's
+    input table."""
     import numpy as np
 
     from protgram_directgcn_torch.pipeline.word2vec import SkipGramModel
     from protgram_directgcn_torch.utils.io import read_embeddings
 
     argv = ["--fasta", fasta, "--out", os.path.join(workdir, "out"), "--stages", "word2vec",
-            "--device", DEVICE]
+            "--set", f"word2vec.epochs={W2V_EPOCHS}", "--device", DEVICE]
     result, seconds = _drive(torch, argv)
     emb = result["embedder"]
     st = emb.stats
@@ -618,19 +652,23 @@ def run_word2vec(torch, fasta: str, workdir: str) -> dict:
 
 
 def run_ppi(torch, workdir: str) -> dict:
-    """``--stages ppi`` over the main path's and the word2vec phase's files
-    (4 sets), the defaults but ``eval.epochs`` (cut to ``PPI_EPOCHS``): one
-    finite ``test_auc`` a set in ``ppi_results.json``, and a Wilcoxon row
-    in ``evaluation_summary.txt`` for each set but the main one."""
+    """``--stages ppi`` over the main path's, the word2vec phase's and the
+    transformer phase's files (5 sets), the defaults but ``eval.epochs``
+    and ``eval.n_folds`` (cut to ``PPI_EPOCHS``, ``PPI_FOLDS``): one finite
+    ``test_auc`` a set in
+    ``ppi_results.json``, and a Wilcoxon row in ``evaluation_summary.txt``
+    for each set but the main one."""
     out = os.path.join(workdir, "out")
     argv = ["--out", out, "--stages", "ppi", "--set", f"eval.epochs={PPI_EPOCHS}",
-            *_interaction_args(workdir), "--device", DEVICE]
+            "--set", f"eval.n_folds={PPI_FOLDS}", *_interaction_args(workdir),
+            "--device", DEVICE]
     result, seconds = _drive(torch, argv)
     eval_dir = os.path.join(out, "3_evaluation_results")
     with open(os.path.join(eval_dir, "ppi_results.json")) as fh:
         saved = json.load(fh)
     names = [r["embedding_name"] for r in saved]
-    want = ["ProtGramDirectGCN", "ProtGramDirectGCN_PCA", "Word2Vec", "Word2Vec_PCA"]
+    want = ["ProtGramDirectGCN", "ProtGramDirectGCN_PCA", "Word2Vec", "Word2Vec_PCA",
+            "Transformer"]
     if names != want or not _finite([r["test_auc"] for r in saved]):
         fail(f"ppi: sets {names}, AUCs {[r.get('test_auc') for r in saved]}")
     with open(os.path.join(eval_dir, "evaluation_summary.txt")) as fh:
@@ -645,7 +683,8 @@ def run_ppi(torch, workdir: str) -> dict:
                    "steps_per_second": stats[name]["steps"] / stats[name]["fit_seconds"]}
             for name, r in zip(names, saved)}
     emit("ppi", seconds=seconds, stage_seconds=result["seconds"], epochs=PPI_EPOCHS,
-         sets=sets, wilcoxon_rows=rows)
+         sets=sets, wilcoxon_rows=rows,
+         transformer_set_seconds=sets["Transformer"]["seconds"])
     return sets
 
 
@@ -881,7 +920,7 @@ def _check_ell_both_ways(torch, ek, name, adj, x, cot, what: str, want_v: int = 
 
 def check_ell_kernels(torch, ek, graph_paths):
     """``ell_resident`` at the n = 3 operator and ``ell_hbm`` at the n = 4
-    one (𝒜_in as the ell path builds it), F = 64, 128, 256, forward and the
+    one (𝒜_in as the ell path builds it), F = 32, 64, 128, 256, forward and the
     transpose backward through autograd, against the plain versions, timed
     (the transpose orientation too at F = 256); 𝒜_out and the undirected
     operator at n = 4, F = 256.  Returns the records."""
@@ -2232,6 +2271,21 @@ def check_sddmm(torch, ek, hk, graph_paths):
 DIST_DIMS = (256, 128, 64)
 DIST_EPOCHS = 5
 DIST_WORLD = 2
+# The sharded runs of the distributed phase's spawn: node shards in three
+# modes, and 1 node shard x 2 feature shards ("feat_" kinds) in two, at
+# n = 1..FEAT_N.
+DIST_KINDS = ("hypercube", "halo", "gspmd", "feat_hypercube", "feat_gspmd")
+FEAT_N = 3
+# The feature-sharded runs are held against one device with each level
+# starting from seeded rows on both sides (``_decoupled_levels``): coupled,
+# the 3-level cascade of this configuration parts at level 2 on rounding
+# alone (Adam's normalised step on a gradient that is a cancellation
+# residue), so that the one-device run against itself, its ELL products
+# summed with fmaf (the kernels) or with a multiply and an add (the plain
+# version), reads 1.9e-3 at level 2 and 0.0619 in the exported embeddings,
+# past DIST_EMBED_ATOL (PERF.md §6).  --plant-faults reads the coupled runs
+# and that control too.
+FEAT_KINDS = ("feat_hypercube", "feat_gspmd")
 # A sharded run against the one-device run from the same initial parameters.
 # The first level's first loss (before any update) within DIST_FIRST_RTOL;
 # every other loss and the exported embeddings within the looser bounds:
@@ -2245,20 +2299,30 @@ DIST_LOSS_RTOL = 2e-2
 DIST_EMBED_ATOL = 5e-2
 
 
-def _dist_config(mode: str, ws, out: str):
-    """The distributed phase's configuration: ``ws`` node shards in ``mode``,
-    or (``ws`` None) the one-device run on the matching format."""
+def _kind(kind: str):
+    """(mode, feature shards, levels) of a sharded run's kind."""
+    if kind.startswith("feat_"):
+        return kind[len("feat_"):], 2, FEAT_N
+    return kind, 1, 4
+
+
+def _dist_config(kind: str, ws, out: str):
+    """The distributed phase's configuration: ``ws`` ranks of ``kind``
+    (``_kind``), or (``ws`` None) the one-device run on the matching
+    format."""
     from protgram_directgcn_torch.config import Config
 
+    mode, feats, n_max = _kind(kind)
     cfg = Config().apply_overrides({
-        "graph_builder.ngram_max_n": 4, "gcn.hidden_layer_dims": list(DIST_DIMS),
+        "graph_builder.ngram_max_n": n_max, "gcn.hidden_layer_dims": list(DIST_DIMS),
         "gcn.epochs_per_level": DIST_EPOCHS, "gcn.dropout_rate": 0.0,
         "gcn.default_task_type": "closest_aa", "gcn.apply_pca": False,
         "gcn.run_sanity_check_ppi": False, "id_mapping_mode": "none",
         "gcn.checkpoint_every_epochs": 0, "gcn.use_cluster_training": False})
     cfg.paths.base_output_dir = type(cfg.paths.base_output_dir)(out)
     if ws is not None:
-        cfg.parallel.mesh_nodes = ws
+        cfg.parallel.mesh_nodes = ws // feats
+        cfg.parallel.mesh_feats = feats
         cfg.parallel.mode = mode
     else:  # "auto" takes the hypercube where hypercube mode does (alpha^n <= 4N)
         cfg.gcn.spmm_mode = "auto" if mode == "hypercube" else "ell"
@@ -2386,7 +2450,10 @@ def _planted(fault):
     (None: none): ``halo_zero_recv`` zeroes what a halo exchange delivers;
     ``hyper_gc_shift`` shifts the gc block a key shard's K2 reads by one key;
     ``slab_shift`` gives each rank's node rows the parameters of the row
-    before (its slab shifted by one)."""
+    before (its slab shifted by one); ``gspmd_row_shift`` shifts the ELL
+    tables' rows by one, so that each rank's row block starts a row late;
+    ``feat_cols`` gives feature rank 1 rank 0's columns of every layer's
+    ``w_main_in``."""
     from protgram_directgcn_torch.ops import hyper_kernels as hk
     from protgram_directgcn_torch.parallel import halo, mesh
 
@@ -2394,15 +2461,32 @@ def _planted(fault):
         yield
         return
     real_ring, real_k2, real_shard = halo._ring_exchange, hk.k2, mesh.shard_model_params
+    real_rows = mesh.build_row_shard_tables
 
     def k2(*a, x_gc=None, **kw):
         return real_k2(*a, x_gc=None if x_gc is None else x_gc.roll(1, 0), **kw)
+
+    def row_shift(*a, **kw):
+        tables = real_rows(*a, **kw)
+        return {k: (v if k == "rows_per_shard" else v[list(range(1, len(v))) + [0]])
+                for k, v in tables.items()}
+
+    def feat_cols(params, rows, n, feat=None):
+        out = real_shard(params, rows, n, feat)
+        if feat is not None and feat.rank == 1:
+            first = mesh.FeatShard(feat.shards, 0, feat.group)
+            for lp, cut in zip(params["layers"], out["layers"]):
+                cut["w_main_in"] = mesh._feat_slice(lp["w_main_in"], 1, first)
+        return out
 
     mod, name, fn = {
         "halo_zero_recv": (halo, "_ring_exchange", lambda x, part: real_ring(x, part).zero_()),
         "hyper_gc_shift": (hk, "k2", k2),
         "slab_shift": (mesh, "shard_model_params",
-                       lambda params, rows, n: real_shard(params, rows.roll(1), n)),
+                       lambda params, rows, n, feat=None: real_shard(params, rows.roll(1), n,
+                                                                     feat)),
+        "gspmd_row_shift": (mesh, "build_row_shard_tables", row_shift),
+        "feat_cols": (mesh, "shard_model_params", feat_cols),
     }[fault]
     real = getattr(mod, name)
     setattr(mod, name, fn)
@@ -2412,10 +2496,41 @@ def _planted(fault):
         setattr(mod, name, real)
 
 
-def _sharded_run(torch, mode: str, ws: int, graphs_dir: str, out: str, fasta: str,
+@contextlib.contextmanager
+def _kernel_widths(out: dict):
+    """While active, ``out[kernel]`` collects the widths F of the K1 and ELL
+    launches and ``out["ell_plain"]`` counts the plain ELL version's calls."""
+    from protgram_directgcn_torch.ops import ell_kernels as ek, hyper_kernels as hk
+
+    real = [(hk, "k1", 1), (ek, "ell_resident", 2), (ek, "ell_hbm", 2), (ek, "ell_plain", 2)]
+
+    def recording(mod, name, pos):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            f = int(a[pos].shape[-1])
+            if name == "ell_plain":
+                out["ell_plain"] = out.get("ell_plain", 0) + 1
+            elif f not in out.setdefault(name, []):
+                out[name].append(f)
+            return fn(*a, **kw)
+        return wrapped
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in real]
+    for mod, name, pos in real:
+        setattr(mod, name, recording(mod, name, pos))
+    try:
+        yield out
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _sharded_run(torch, kind: str, ws: int, graphs_dir: str, out: str, fasta: str,
                  device: str) -> dict:
     """One ``HierarchicalTrainer.run`` over the levels on this rank's shard:
-    level stats, launches, exchange counts and the exported file (rank 0)."""
+    level stats, launches, the kernels' widths, exchange counts and the
+    exported file (rank 0)."""
     from protgram_directgcn_torch.ops import ell_kernels as ek, hyper_kernels as hk
     from protgram_directgcn_torch.parallel import distributed as comm
     from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
@@ -2423,17 +2538,19 @@ def _sharded_run(torch, mode: str, ws: int, graphs_dir: str, out: str, fasta: st
     hk.reset_launches()
     ek.reset_launches()
     comm.reset_exchange_stats()
-    trainer = HierarchicalTrainer(_dist_config(mode, ws, out), device=device)
+    trainer = HierarchicalTrainer(_dist_config(kind, ws, out), device=device)
     t0 = time.monotonic()
-    path = trainer.run(fasta, graphs_dir, os.path.join(out, "gcn"))
+    with _kernel_widths({}) as widths:
+        path = trainer.run(fasta, graphs_dir, os.path.join(out, "gcn"))
     if device == "cuda":
         torch.cuda.synchronize()
     levels = {n: {k: st[k] for k in ("route", "losses", "train_seconds", "epochs", "launches",
-                                      "operator_seconds", "eval_seconds", "rank_nodes",
-                                      "peak_device_bytes") if k in st}
+                                      "eval_launches", "operator_seconds", "eval_seconds",
+                                      "rank_nodes", "feat_shards", "peak_device_bytes")
+                  if k in st}
               for n, st in trainer.level_stats.items()}
     return {"seconds": time.monotonic() - t0, "levels": levels, "path": path,
-            "launches": {**hk.launch_counts(), **ek.launch_counts()},
+            "launches": {**hk.launch_counts(), **ek.launch_counts()}, "widths": widths,
             "exchange": dict(comm.EXCHANGE), "backend": comm.backend(), "world_size": comm.world_size()}
 
 
@@ -2441,8 +2558,10 @@ def _dist_rank(rank: int, ws: int, store: str, outdir: str, what: str, args: dic
     """A rank process of the distributed phase: joins a gloo group on the
     card and writes its answers to ``{outdir}/{what}_r{rank}.json`` (the
     probe after each answer, so that an abort leaves what was learnt).
-    ``args``: ``modes`` to train (both by default), a ``fault`` to plant
-    (``_planted``; none by default) and ``decoupled`` (``_decoupled_levels``)."""
+    ``args``: the ``kinds`` to train (``DIST_KINDS`` by default), a ``fault`` to plant
+    (``_planted``; none by default) and ``decoupled``: the kinds whose levels
+    are decoupled (``_decoupled_levels``; ``FEAT_KINDS`` by default, True:
+    every kind)."""
     import torch
 
     path = os.path.join(outdir, f"{what}_r{rank}.json")
@@ -2462,17 +2581,22 @@ def _dist_rank(rank: int, ws: int, store: str, outdir: str, what: str, args: dic
         if what == "probe":
             _probe_backend(torch, torch.device(device), report=write)
             return
+        if what == "scaling":
+            write({"ok": True, **_scaling_points(torch, [1, ws], device)})
+            return
         if device == "cuda":
             hk.build()
             ek.build()
         comm.TIME_EXCHANGES = bool(args.get("time_exchanges"))
         fault = args.get("fault")
-        with (_no_decoder_dropout(), _LevelCache(), _planted(fault),
-              _decoupled_levels(bool(args.get("decoupled")))):
-            runs = {mode: _sharded_run(torch, mode, ws, args["graphs_dir"],
-                                       os.path.join(args["out"], f"{mode}_ws{ws}_{what}"),
-                                       args["fasta"], device)
-                    for mode in args.get("modes", ("hypercube", "halo"))}
+        decoupled = args.get("decoupled", FEAT_KINDS)
+        runs = {}
+        with _no_decoder_dropout(), _LevelCache(), _planted(fault):
+            for kind in args.get("kinds", DIST_KINDS):
+                with _decoupled_levels(decoupled is True or kind in decoupled):
+                    runs[kind] = _sharded_run(torch, kind, ws, args["graphs_dir"],
+                                              os.path.join(args["out"], f"{kind}_ws{ws}_{what}"),
+                                              args["fasta"], device)
         write({"ok": True, "runs": runs})
     except Exception as exc:
         import traceback
@@ -2519,16 +2643,19 @@ def _join_ranks(handle) -> dict:
 
 
 @contextlib.contextmanager
-def _padded_init(mode: str, ws: int):
+def _padded_init(kind: str, ws: int):
     """While active, the trainer's initial parameters of each level are the
-    ``ws``-shard run's: the whole level's draws over the shard-padded node
-    space, cut to the level's own node space (the padding rows of a sharded
-    run touch no real node).  A one-device run, or a one-shard run, then
-    starts where the ``ws``-shard run starts."""
+    ``ws``-rank run's of ``kind``: the whole level's draws over the
+    shard-padded node space, cut to the level's own node space (the padding
+    rows of a sharded run touch no real node).  A one-device run, or a
+    one-shard run, then starts where the ``ws``-rank run starts."""
     import dataclasses
 
     from protgram_directgcn_torch.ops.hypercube import vocab_char_codes
     from protgram_directgcn_torch.pipeline import trainer as trainer_mod
+
+    mode, feats, _ = _kind(kind)
+    ws = ws // feats  # node shards
 
     real_init = trainer_mod.init_directgcn_params
     graph_of = {}
@@ -2574,13 +2701,13 @@ def _padded_init(mode: str, ws: int):
         trainer_mod.HierarchicalTrainer.train_level = real_train
 
 
-def _reference_run(torch, mode: str, ws: int, graphs_dir: str, out: str, fasta: str) -> dict:
-    """The one-device run of the levels from the ``ws``-shard run's initial
-    parameters (``_padded_init``)."""
+def _reference_run(torch, kind: str, ws: int, graphs_dir: str, out: str, fasta: str) -> dict:
+    """The one-device run of ``kind``'s levels from the ``ws``-rank run's
+    initial parameters (``_padded_init``)."""
     from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
 
-    with _padded_init(mode, ws):
-        trainer = HierarchicalTrainer(_dist_config(mode, None, out), device=DEVICE)
+    with _padded_init(kind, ws):
+        trainer = HierarchicalTrainer(_dist_config(kind, None, out), device=DEVICE)
         path = trainer.run(fasta, graphs_dir, os.path.join(out, "gcn"))
     return {"path": path, "levels": {n: {"route": st["route"], "losses": st["losses"]}
                                      for n, st in trainer.level_stats.items()}}
@@ -2609,10 +2736,14 @@ def _gaps(run: dict, ref: dict, what: str) -> dict:
     a, b = read_embeddings(run["path"]), read_embeddings(ref["path"])
     if sorted(a) != sorted(b) or len(a) != N_SEQS:
         fail(f"{what}: exported {len(a)} proteins, the one-device run {len(b)}")
-    emb_err = max(float(np.nan_to_num(np.abs(a[k] - b[k]), nan=np.inf).max()) for k in b)
+    per_protein = np.array([float(np.nan_to_num(np.abs(a[k].astype(np.float32) - b[k]),
+                                                nan=np.inf).max()) for k in b])
     return {"first_loss_rel_err": by_level[min(by_level, key=int)],
             "first_loss_rel_err_by_level": by_level, "loss_max_rel_err": worst_loss,
-            "embeddings_max_abs_err": emb_err}
+            "embeddings_max_abs_err": float(per_protein.max()),
+            # How the gap spreads over the proteins (read, not bounded).
+            "embeddings_p99_abs_err": float(np.quantile(per_protein, 0.99)),
+            "proteins_past_1e-3": int((per_protein > 1e-3).sum())}
 
 
 def _within_bounds(gaps: dict) -> bool:
@@ -2644,28 +2775,48 @@ def _path_counts(runs) -> dict:
     return total
 
 
+def _phase_of(kind: str) -> str:
+    mode, feats, _ = _kind(kind)
+    return "feat" if feats > 1 else ("gspmd" if mode == "gspmd" else "distributed")
+
+
+def _want_kernels(kind: str, n: int, takes_hyper: bool):
+    """(route, kernel groups each launched both ways) of a sharded level."""
+    mode = _kind(kind)[0]
+    if mode == "hypercube" and takes_hyper:
+        return "hyper_shard", (("k1",), ("k2",))
+    if mode == "gspmd":  # the gathered table's rows pick the regime
+        return "gspmd", ((("ell_resident",) if n <= 3 else ("ell_hbm",)),)
+    # A halo level's local and halo tables each take the kernel of their
+    # rows' regime.
+    return "halo", (("ell_resident", "ell_hbm"),)
+
+
 def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
-    """Levels n = 1..4 trained over node shards (``parallel.mesh_nodes``):
-    hypercube mode (n = 1 in halo mode) and halo mode, at world size 1
-    under NCCL in this process and at world size 2 under gloo in two
-    spawned processes sharing the card; gloo's handling of CUDA tensors
-    probed first.  Each run held against the one-device run from the same
-    initial parameters.  Returns the path's launches by kernel."""
+    """Levels trained over shards, each held against the one-device run from
+    the same initial parameters: n = 1..4 over node shards (phase
+    ``distributed``: hypercube mode, n = 1 in halo mode, and halo mode;
+    phase ``gspmd``: the row-sharded ELL) at world size 1 under NCCL in this
+    process and at world size 2 under gloo in two spawned processes sharing
+    the card, and n = 1..FEAT_N over 1 node shard x 2 feature shards (phase
+    ``feat``: hypercube and gspmd modes) at world size 2; gloo's handling of
+    CUDA tensors probed first.  Returns each phase's launches by kernel."""
     from protgram_directgcn_torch.graph.structure import load_graph
     from protgram_directgcn_torch.ops.hypercube import vocab_char_codes
     from protgram_directgcn_torch.parallel import distributed as comm
 
     graphs_dir = os.path.dirname(graph_paths[0])
-    probe = _spawn_ranks(DIST_WORLD, "probe", {"device": DEVICE}, timeout=120)
-    emit("distributed_probe", backend="gloo", device=DEVICE,
-         ranks={str(r): v for r, v in probe.items()})
-
-    # (b) World size 2 under gloo, two processes on the card, running while
-    # this process does (a) and the references: their step and exchange
-    # times are read beside that work (PERF.md gives them alone).
+    probe_handle = _start_ranks(DIST_WORLD, "probe", {"device": DEVICE}, timeout=120)
+    # (b) World size 2 under gloo, two processes on the card, every kind in
+    # turn, running beside the probe and while this process does (a) and
+    # the references: their step and exchange times are read beside that
+    # work.
     handle = _start_ranks(DIST_WORLD, "train",
                           {"graphs_dir": graphs_dir, "out": workdir, "fasta": fasta,
-                           "time_exchanges": True, "device": DEVICE}, timeout=600)
+                           "time_exchanges": True, "device": DEVICE}, timeout=900)
+    probe = _join_ranks(probe_handle)
+    emit("distributed_probe", backend="gloo", device=DEVICE,
+         ranks={str(r): v for r, v in probe.items()})
     # (a) World size 1 under NCCL (the card's backend), in this process, and
     # the one-device references, all from the world-size-2 runs' initial
     # parameters.
@@ -2676,16 +2827,20 @@ def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
                                     device=DEVICE, backend="nccl" if DEVICE == "cuda" else "gloo")
         try:
             ws1 = {}
-            for mode in ("hypercube", "halo"):
-                with _padded_init(mode, DIST_WORLD):
-                    ws1[mode] = _sharded_run(torch, mode, 1, graphs_dir,
-                                             os.path.join(workdir, f"dist_{mode}_ws1"), fasta,
+            for kind in ("hypercube", "halo", "gspmd"):
+                with _padded_init(kind, DIST_WORLD):
+                    ws1[kind] = _sharded_run(torch, kind, 1, graphs_dir,
+                                             os.path.join(workdir, f"dist_{kind}_ws1"), fasta,
                                              DEVICE)
         finally:
             comm.dist.destroy_process_group()
-        for mode in ("hypercube", "halo"):
-            refs[mode] = _reference_run(torch, mode, DIST_WORLD, graphs_dir,
-                                        os.path.join(workdir, f"ref_{mode}"), fasta)
+        for kind in ("hypercube", "halo") + FEAT_KINDS:
+            with _decoupled_levels(kind in FEAT_KINDS):
+                refs[kind] = _reference_run(torch, kind, DIST_WORLD, graphs_dir,
+                                            os.path.join(workdir, f"ref_{kind}"), fasta)
+    # gspmd's one-device run is halo's: the same ELL operators from the same
+    # padded initial parameters.
+    refs["gspmd"] = refs["halo"]
     ranks = _join_ranks(handle)
     for r, v in ranks.items():
         if v["exitcode"] != 0 or not (v["answer"] or {}).get("ok"):
@@ -2693,39 +2848,49 @@ def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
                  f"{(v['answer'] or {}).get('error', 'no answer')}")
     ws2 = {r: v["answer"]["runs"] for r, v in ranks.items()}
 
-    runs_all = list(ws1.values()) + [run for per in ws2.values() for run in per.values()]
     takes_hyper = {}  # the trainer's rule: n >= 2 and alpha^n <= 4x the vocabulary
     for path in graph_paths:
         graph = load_graph(path)
         _, a = vocab_char_codes(graph.vocab)
         takes_hyper[graph.n] = graph.n >= 2 and a**graph.n <= 4 * graph.num_nodes
-    for mode in ("hypercube", "halo"):
-        for ws, run in ((1, ws1[mode]), (DIST_WORLD, ws2[0][mode])):
-            cmp = _compare_runs(run, refs[mode], f"{mode} at world size {ws}")
-            levels = run["levels"]
-            for n, lv in levels.items():
-                want = "hyper_shard" if mode == "hypercube" and takes_hyper[int(n)] else "halo"
-                if lv["route"] != want:
-                    fail(f"distributed: {mode} level n={n} took {lv['route']}, not {want}")
-                # A halo level's local and halo tables each take the kernel of
-                # their rows' regime.
-                groups = ((("k1",), ("k2",)) if want == "hyper_shard"
-                          else (("ell_resident", "ell_hbm"),))
-                for names in groups:
-                    for direction in ("fwd", "bwd"):
-                        if sum(lv["launches"][k][direction] for k in names) <= 0:
-                            fail(f"distributed: {mode} ws={ws} level n={n} never launched "
-                                 f"{'/'.join(names)} ({direction}): {lv['launches']}")
-            ranks_of = [run] if ws == 1 else [ws2[r][mode] for r in sorted(ws2)]
-            emit("distributed", mode=mode, world_size=ws, backend=run["backend"],
+    counts = {}
+    for kind in DIST_KINDS:
+        mode, feats, _ = _kind(kind)
+        phase = _phase_of(kind)
+        for ws, run in ([] if feats > 1 else [(1, ws1[kind])]) + [(DIST_WORLD, ws2[0][kind])]:
+            cmp = _compare_runs(run, refs[kind], f"{kind} at world size {ws}")
+            ranks_of = [run] if ws == 1 else [ws2[r][kind] for r in sorted(ws2)]
+            for r, rr in enumerate(ranks_of):
+                for n, lv in rr["levels"].items():
+                    route, groups = _want_kernels(kind, int(n), takes_hyper[int(n)])
+                    if lv["route"] != route or lv.get("feat_shards", 1) != feats:
+                        fail(f"{phase}: {kind} level n={n} took {lv['route']} over "
+                             f"{lv.get('feat_shards')} feature shards, not {route} over {feats}")
+                    for names in groups:
+                        for direction in ("fwd", "bwd"):
+                            if sum(lv["launches"][k][direction] for k in names) <= 0:
+                                fail(f"{phase}: {kind} ws={ws} rank {r} level n={n} never "
+                                     f"launched {'/'.join(names)} ({direction}): "
+                                     f"{lv['launches']}")
+                if rr["widths"].get("ell_plain"):
+                    fail(f"{phase}: {kind} ws={ws} rank {r} ran the plain ELL version "
+                         f"{rr['widths']['ell_plain']} times")
+            emit(phase, kind=kind, mode=mode, world_size=ws, node_shards=ws // feats,
+                 feat_shards=feats, levels_decoupled=kind in FEAT_KINDS, backend=run["backend"],
                  concurrent_with=(None if ws == 1 else
                                   "this process's one-shard runs and one-device references"),
                  seconds=run["seconds"],
                  exchange={str(r): rr["exchange"] for r, rr in enumerate(ranks_of)},
+                 widths={str(r): rr["widths"] for r, rr in enumerate(ranks_of)},
                  step_seconds={n: lv["train_seconds"] / max(1, lv["epochs"])
-                               for n, lv in levels.items()},
-                 levels=levels, launches=_path_counts(ranks_of), **cmp)
-    return _path_counts(runs_all)
+                               for n, lv in run["levels"].items()},
+                 levels=run["levels"], launches=_path_counts(ranks_of), **cmp)
+            total = counts.setdefault(phase, {})
+            for name, per_dir in _path_counts(ranks_of).items():
+                cur = total.setdefault(name, {"fwd": 0, "bwd": 0})
+                for d, v in per_dir.items():
+                    cur[d] += v
+    return counts
 
 
 @contextlib.contextmanager
@@ -2772,56 +2937,216 @@ def _decoupled_levels(on: bool = True):
         HierarchicalTrainer._initial_features = real
 
 
-# (fault, mode) of --plant-faults: each a world-size-2 run of one mode.
+# (fault, kind) of --plant-faults: each a world-size-2 run of one kind.
 DIST_FAULTS = (("halo_zero_recv", "halo"), ("hyper_gc_shift", "hypercube"),
-               ("slab_shift", "halo"))
+               ("slab_shift", "halo"), ("gspmd_row_shift", "gspmd"),
+               ("feat_cols", "feat_hypercube"))
+
+
+@contextlib.contextmanager
+def _plain_ell():
+    """While active, in this process, ELL products on the card run the plain
+    version (a multiply and an add a slot) in place of the kernels (fmaf)."""
+    from protgram_directgcn_torch.ops import spmm
+
+    real = spmm._on_card
+    spmm._on_card = lambda t: False
+    try:
+        yield
+    finally:
+        spmm._on_card = real
 
 
 def plant_faults(torch, graph_paths, workdir: str, fasta: str) -> bool:
-    """The distributed phase's world-size-2 levels, sound, with the levels
-    decoupled (``_decoupled_levels``) and with each planted fault of
-    ``DIST_FAULTS``, in spawned processes at once; the one-device
-    references (decoupled too) and, for halo mode, the control with the ELL
-    slots reversed, in this process.  Emits each run's ``_gaps`` beside the
-    bounds; True where every sound run and the control are within them and
-    every fault is past them."""
+    """The distributed phase's world-size-2 runs of every kind, sound (the
+    feature-sharded kinds with their levels decoupled, as the phase runs
+    them) and with each planted fault of ``DIST_FAULTS``, in spawned
+    processes at once, held against the one-device references in this
+    process, with a control: the one-device halo run with the ELL slots
+    reversed; and, read but not bounded, the node-sharded kinds with their
+    levels decoupled, the feature-sharded kinds coupled, and the one-device
+    feature kinds' gspmd run with the plain ELL version on the card.  Emits
+    each run's ``_gaps`` beside the bounds; True where every sound run and
+    the control are within them and every fault is past them."""
     graphs_dir = os.path.dirname(graph_paths[0])
     base = {"graphs_dir": graphs_dir, "out": workdir, "fasta": fasta, "device": DEVICE}
     handles = {"sound": _start_ranks(DIST_WORLD, "sound", base, timeout=900),
-               "decoupled": _start_ranks(DIST_WORLD, "decoupled", {**base, "decoupled": True},
-                                         timeout=900)}
-    for fault, mode in DIST_FAULTS:
+               "decoupled": _start_ranks(DIST_WORLD, "decoupled",
+                                         {**base, "decoupled": True,
+                                          "kinds": ("hypercube", "halo")}, timeout=900),
+               "coupled": _start_ranks(DIST_WORLD, "coupled",
+                                       {**base, "decoupled": (), "kinds": FEAT_KINDS},
+                                       timeout=900)}
+    for fault, kind in DIST_FAULTS:
         handles[fault] = _start_ranks(DIST_WORLD, fault, {**base, "fault": fault,
-                                                          "modes": (mode,)}, timeout=900)
+                                                          "kinds": (kind,)}, timeout=900)
     refs = {}
     with _no_decoder_dropout(), _LevelCache():
         for decoupled in (False, True):
             with _decoupled_levels(decoupled):
-                for mode in ("hypercube", "halo"):
-                    refs[decoupled, mode] = _reference_run(
-                        torch, mode, DIST_WORLD, graphs_dir,
-                        os.path.join(workdir, f"ref_{mode}_{decoupled}"), fasta)
+                for kind in ("hypercube", "halo") + FEAT_KINDS:
+                    refs[decoupled, kind] = _reference_run(
+                        torch, kind, DIST_WORLD, graphs_dir,
+                        os.path.join(workdir, f"ref_{kind}_{decoupled}"), fasta)
         with _reversed_slots():
             control = _reference_run(torch, "halo", DIST_WORLD, graphs_dir,
                                      os.path.join(workdir, "control_halo"), fasta)
-    readings = {"control_halo": _gaps(control, refs[False, "halo"], "control")}
+        with _plain_ell():
+            control_feat = _reference_run(torch, "feat_gspmd", DIST_WORLD, graphs_dir,
+                                          os.path.join(workdir, "control_feat"), fasta)
+    refs[False, "gspmd"] = refs[False, "halo"]  # the same ELL run
+    readings = {"control_halo": _gaps(control, refs[False, "halo"], "control"),
+                "control_feat_gspmd": _gaps(control_feat, refs[False, "feat_gspmd"],
+                                            "feature control")}
+    diagnostic = {"control_feat_gspmd"}
     for name, handle in handles.items():
         ranks = _join_ranks(handle)
         for r, v in ranks.items():
             if v["exitcode"] != 0 or not (v["answer"] or {}).get("ok"):
                 fail(f"plant-faults: {name} rank {r} failed (exit {v['exitcode']}): "
                      f"{(v['answer'] or {}).get('error', 'no answer')}")
-        for mode, run in ranks[0]["answer"]["runs"].items():
-            readings[f"{name}_{mode}"] = _gaps(run, refs[name == "decoupled", mode],
-                                               f"{name} {mode}")
+        for kind, run in ranks[0]["answer"]["runs"].items():
+            decoupled = name == "decoupled" or (name != "coupled" and kind in FEAT_KINDS)
+            key = f"{name}_{kind}"
+            readings[key] = _gaps(run, refs[decoupled, kind], f"{name} {kind}")
+            readings[key]["levels_decoupled"] = decoupled
+            if name in ("decoupled", "coupled"):
+                diagnostic.add(key)
     for key, gaps in readings.items():
         gaps["within_bounds"] = _within_bounds(gaps)
+        gaps["bounded"] = key not in diagnostic
     ok = all(g["within_bounds"] == (not any(key.startswith(f) for f, _ in DIST_FAULTS))
-             for key, g in readings.items())
+             for key, g in readings.items() if g["bounded"])
     emit("distributed_bounds", world_size=DIST_WORLD, bounds={
         "first_loss_rtol": DIST_FIRST_RTOL, "loss_rtol": DIST_LOSS_RTOL,
         "embeddings_atol": DIST_EMBED_ATOL}, readings=readings, bounds_separate=ok)
     return ok
+
+
+# -----------------------------------------------------------------------------
+# Doctor, transformer stage, scaling harness
+# -----------------------------------------------------------------------------
+
+
+def start_doctor():
+    """``python -m protgram_directgcn_torch.doctor`` started in a process of
+    its own (the kernel builds it checks are phase 0's, cached);
+    ``check_doctor`` waits for it; a run that fails before kills it."""
+    import atexit
+
+    proc = subprocess.Popen([sys.executable, "-m", "protgram_directgcn_torch.doctor"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return time.monotonic(), proc
+
+
+def check_doctor(handle) -> None:
+    """Every check of the doctor ``[ok]``, and its exit 0."""
+    t0, proc = handle
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    checks = [ln for ln in lines if ln.startswith("[")]
+    if proc.returncode != 0 or len(checks) < 8 or not all(c.startswith("[ok]") for c in checks):
+        fail(f"doctor: exit {proc.returncode}: {lines} {err[-2000:]}")
+    emit("doctor", seconds=time.monotonic() - t0, lines=lines)
+
+
+def run_transformer(torch, fasta: str, workdir: str) -> None:
+    """``--stages transformer`` on the main path's FASTA and ``--out``: no
+    checkpoint loads on this machine, so the stage writes the seeded
+    residue-projection fallback; one finite 64-wide vector a protein, equal
+    to the same vectors computed in this process on the CPU."""
+    import numpy as np
+
+    from protgram_directgcn_torch.config import Config
+    from protgram_directgcn_torch.pipeline.transformer import residue_projection_embeddings
+    from protgram_directgcn_torch.utils.io import parse_fasta, read_embeddings
+
+    argv = ["--fasta", fasta, "--out", os.path.join(workdir, "out"), "--stages", "transformer",
+            "--device", DEVICE]
+    result, seconds = _drive(torch, argv)
+    paths = result["transformer_paths"]
+    if not result["transformer"].fallback or len(paths) != 1:
+        fail(f"transformer: files {paths}, fallback {result['transformer'].fallback}")
+    got = read_embeddings(paths[0])
+    vecs = np.stack(list(got.values())).astype(np.float32)
+    if len(got) != N_SEQS or vecs.shape[1] != 64 or not np.isfinite(vecs).all():
+        fail(f"transformer: {len(got)} proteins, shape {vecs.shape}")
+    tcfg = Config()
+    cpu = residue_projection_embeddings(list(parse_fasta(fasta)), tcfg.transformer.fallback_dim,
+                                        tcfg.random_state, tcfg.transformer.pooling_strategy)
+    if sorted(cpu) != sorted(got) or any(not np.array_equal(got[k], cpu[k]) for k in cpu):
+        fail("transformer: the card's run differs from the CPU's")
+    emit("transformer", wall_seconds=seconds, stage_seconds=result["seconds"]["transformer"],
+         proteins=len(got), dim=int(vecs.shape[1]), fallback=True,
+         files=[os.path.basename(p) for p in paths], equal_to_cpu=True)
+
+
+SCALE_NODES = 4096  # weak scaling: the ngram workload's nodes a shard
+SCALE_KEYS = 512  # the hypercube workload's keys a shard
+SCALE_FEAT = 32  # the fixed-graph curves' width (the JAX package's default)
+
+
+def _scaling_points(torch, counts, device) -> dict:
+    """The two weak-scaling reports at shard counts ``counts``."""
+    from protgram_directgcn_torch.bench import scaling
+
+    return {"weak": [p.__dict__ for p in scaling.weak_scaling_report(
+                nodes_per_shard=SCALE_NODES, shard_counts=counts, device=device)],
+            "hyper": [p.__dict__ for p in scaling.hyper_shard_scaling_report(
+                keys_per_shard=SCALE_KEYS, shard_counts=counts, device=device)]}
+
+
+def run_scaling(torch, graph_path: str) -> None:
+    """The scaling harness (``bench/scaling.py``): ``weak_scaling_report``
+    (ngram, SCALE_NODES nodes a shard) and ``hyper_shard_scaling_report``
+    (SCALE_KEYS keys a shard) at D = 1 and 2 under gloo in two spawned
+    processes on the card, then at D = 1 under NCCL in this process with
+    ``fivegram_scaling_report``'s five curves on the level saved at
+    ``graph_path`` (the ell path's n = 4 level); each curve's ms a step and
+    edges a second."""
+    from protgram_directgcn_torch.bench import scaling
+    from protgram_directgcn_torch.parallel import distributed as comm
+
+    t0 = time.monotonic()
+    ranks = _spawn_ranks(DIST_WORLD, "scaling", {"device": DEVICE}, timeout=300)
+    for r, v in ranks.items():
+        if v["exitcode"] != 0 or not (v["answer"] or {}).get("ok"):
+            fail(f"scaling: rank {r} failed (exit {v['exitcode']}): "
+                 f"{(v['answer'] or {}).get('error', 'no answer')}")
+    gloo = ranks[0]["answer"]
+    gloo_seconds = time.monotonic() - t0
+    store = os.path.join(tempfile.mkdtemp(prefix="protgram_scaling_"), "store")
+    comm.initialize_distributed(init_method="file://" + store, world_size=1, rank=0,
+                                device=DEVICE, backend="nccl")
+    try:
+        nccl = _scaling_points(torch, [1], DEVICE)
+        t5 = time.monotonic()
+        fixed = scaling.fivegram_scaling_report(feat_dim=SCALE_FEAT, shard_counts=[1],
+                                                graph_path=graph_path, device=DEVICE)
+        fixed_seconds = time.monotonic() - t5
+    finally:
+        comm.dist.destroy_process_group()
+    points = {f"{name}_{backend}": pts for backend, out in (("gloo", gloo), ("nccl", nccl))
+              for name, pts in out.items() if name in ("weak", "hyper")}
+    for key, pts in list(points.items()) + [(c, v) for c, v in fixed.items() if c != "graph"]:
+        if not pts or not all(_finite([p[k] for k in ("seconds_per_step", "edges_per_s",
+                                                     "efficiency")]) for p in pts):
+            fail(f"scaling: {key} points {pts}")
+    curves = {c: {"ms_per_step": v[0]["seconds_per_step"] * 1e3,
+                  "edges_per_s": v[0]["edges_per_s"]}
+              for c, v in fixed.items() if c != "graph"}
+    emit("scaling", note="D = 2 runs two ranks on one card under gloo, whose exchanges pass "
+                         "through host memory: a path check, no scaling result",
+         points=points, fixed_graph=fixed["graph"], fixed_graph_file=os.path.basename(graph_path),
+         fixed_curves=curves, gloo_seconds=gloo_seconds, fixed_seconds=fixed_seconds,
+         seconds=time.monotonic() - t0)
 
 
 def _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
@@ -2994,6 +3319,7 @@ def main() -> int:
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
+    doctor = start_doctor()
     records = check_kernels(torch, hk, hyper)
     k2_gc = check_k2_gc(torch, hk)
     with tempfile.TemporaryDirectory(prefix="protgram_smoke_") as workdir:
@@ -3004,7 +3330,9 @@ def main() -> int:
         emit("main_path_input", sequences=N_SEQS, residues=residues,
              positive_pairs=N_POSITIVE_PAIRS, negative_pairs=N_NEGATIVE_PAIRS)
         counts, main_graphs, pca_path = run_main_path(torch, hk, fasta, workdir)
+        check_doctor(doctor)
         run_word2vec(torch, fasta, workdir)
+        run_transformer(torch, fasta, workdir)
         run_ppi(torch, workdir)
         check_ppi_reference(torch, workdir, pca_path)
         torch.cuda.empty_cache()
@@ -3041,6 +3369,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         sddmm_counts = check_sddmm(torch, ek, hk, graph_paths)
         dist_counts = run_distributed(torch, graph_paths, workdir, fasta)
+        torch.cuda.empty_cache()
+        # The ell path's n = 4 level: the 5-gram level's five curves took 74 s
+        # (PERF.md §4), over the 60 s this phase may take.
+        run_scaling(torch, graph_paths[3])
 
     kernels = _kernels_line(records, counts, ell_records, ell_edges, ell_counts, retile_records,
                             tier_counts, cluster_counts, bench_counts, bench_by_v, bench_ell)
@@ -3048,8 +3380,9 @@ def main() -> int:
         name = {"hyper_k1": "k1", "hyper_k2": "k2"}.get(entry["name"], entry["name"])
         if name == "k2":
             entry["x_gc"] = k2_gc
-        if name in dist_counts:
-            entry["launches_distributed_path"] = dist_counts[name]
+        for phase, per_kernel in dist_counts.items():
+            if name in per_kernel:
+                entry[f"launches_{phase}_path"] = per_kernel[name]
         if name in sddmm_counts:
             entry["launches_sddmm_path"] = sddmm_counts[name]
     print(json.dumps({"kernels": kernels}), flush=True)

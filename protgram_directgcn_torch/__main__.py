@@ -1,27 +1,28 @@
 """Pipeline CLI of the port: ``python -m protgram_directgcn_torch``.
 
     python -m protgram_directgcn_torch --fasta seqs.fasta --out results \\
-        --stages graph,gcn,word2vec,benchmark,ppi [--set gcn.epochs_per_level=5 ...] \\
-        [--device cpu]
+        --stages graph,gcn,word2vec,transformer,benchmark,ppi \\
+        [--set gcn.epochs_per_level=5 ...] [--device cpu]
 
-Runs the ported stages in the JAX package's ``main.py`` order: graph
-building (with ``graph`` or ``gcn``), hierarchical GCN training, protein
-pooling and the PPI sanity check (``gcn``), the Word2Vec baseline
-(``word2vec``), the GNN zoo benchmark on node classification
-(``benchmark``), and PPI link-prediction evaluation of the embedding sets
-found under ``--out`` (``ppi``; ``dummy`` evaluates synthetic data
-instead), on the card, or on the CPU with ``--device cpu``.  The
-``transformer`` stage is not ported yet and raises.
+Runs the stages in the JAX package's ``main.py`` order: graph building
+(with ``graph`` or ``gcn``), hierarchical GCN training, protein pooling and
+the PPI sanity check (``gcn``), the Word2Vec baseline (``word2vec``), the
+transformer embedder (``transformer``: a local checkpoint, or without one
+the seeded residue-projection fallback), the GNN zoo benchmark on node
+classification (``benchmark``), and PPI link-prediction evaluation of the
+embedding sets found under ``--out`` (``ppi``; ``dummy`` evaluates
+synthetic data instead), on the card, or on the CPU with ``--device cpu``.
 
-Node-sharded training, one process a device (main.py:78-80):
+Sharded training, one process a device (main.py:78-80), D = Dn x Df:
 
     torchrun --nproc-per-node D -m protgram_directgcn_torch --stages graph,gcn \
-        --set parallel.mesh_nodes=D [--set parallel.mode=hypercube]
+        --set parallel.mesh_nodes=Dn [--set parallel.mesh_feats=Df] \
+        [--set parallel.mode=halo|hypercube|gspmd]
 
 starts the process group first (``parallel.distributed``); rank 0 builds the
 graphs while the others wait at a barrier, every rank trains every level
 over its node shard, and rank 0 alone writes the embeddings and runs the
-word2vec, benchmark, ppi and dummy stages.
+word2vec, transformer, benchmark, ppi and dummy stages.
 """
 
 from __future__ import annotations
@@ -34,8 +35,7 @@ from pathlib import Path
 
 from protgram_directgcn_torch.config import Config
 
-_PORTED = {"graph", "gcn", "word2vec", "benchmark", "ppi", "dummy"}
-_UNPORTED = {"transformer": "Queue 1 item 14 (the transformer stage)"}
+_STAGES = {"graph", "gcn", "word2vec", "transformer", "benchmark", "ppi", "dummy"}
 
 
 def parse_args(argv=None):
@@ -46,7 +46,7 @@ def parse_args(argv=None):
     p.add_argument("--fasta", help="input FASTA path")
     p.add_argument("--out", help="base output directory")
     p.add_argument("--stages", default="graph,gcn",
-                   help="comma list of graph,gcn,word2vec,benchmark,ppi,dummy")
+                   help="comma list of graph,gcn,word2vec,transformer,benchmark,ppi,dummy")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -75,19 +75,16 @@ def main(argv=None):
     {n: the builder's stats of level n, with the ETL path it took},
     "trainer": ..., "pooled": {protein_id: vector}, "embeddings_path": the
     GCN stage's last embeddings file, "embedder": the Word2VecEmbedder,
-    "word2vec_path": its pooled embeddings file, "benchmarker": the
+    "word2vec_path": its pooled embeddings file, "transformer": the
+    TransformerEmbedder, "transformer_paths": its files, "benchmarker": the
     GNNBenchmarker, "benchmark_results": its result rows, "ppi": the
     PPIPipeline, "ppi_results": its results, "seconds": {stage: s}}`` (a
     stage that did not run leaves its entries None and its seconds
     absent)."""
     args = parse_args(argv)
     wanted = {s.strip() for s in args.stages.split(",") if s.strip()}
-    unported = sorted(wanted & set(_UNPORTED))
-    if unported:
-        raise NotImplementedError(f"stages {unported} are not ported yet (ROADMAP "
-                                  + "; ".join(_UNPORTED[s] for s in unported) + ")")
-    if wanted - _PORTED:
-        raise ValueError(f"unknown stages {sorted(wanted - _PORTED)}")
+    if wanted - _STAGES:
+        raise ValueError(f"unknown stages {sorted(wanted - _STAGES)}")
     cfg = build_config(args)
     from protgram_directgcn_torch.parallel import distributed as comm
 
@@ -101,6 +98,7 @@ def main(argv=None):
     st = cfg.stages
     st.run_gcn_pipeline = bool(wanted & {"graph", "gcn"})
     st.run_word2vec_pipeline = "word2vec" in wanted
+    st.run_transformer_pipeline = "transformer" in wanted
     st.run_benchmarking_pipeline = "benchmark" in wanted
     st.run_main_ppi_evaluation = "ppi" in wanted
     st.run_dummy_test = "dummy" in wanted
@@ -108,6 +106,7 @@ def main(argv=None):
     from protgram_directgcn_torch.graph.builder import NgramGraphBuilder
     from protgram_directgcn_torch.pipeline.ppi import PPIPipeline
     from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
+    from protgram_directgcn_torch.pipeline.transformer import TransformerEmbedder
     from protgram_directgcn_torch.pipeline.word2vec import Word2VecEmbedder
     from protgram_directgcn_torch.utils.io import logger
 
@@ -120,6 +119,8 @@ def main(argv=None):
     trainer = HierarchicalTrainer(cfg, device=args.device) if "gcn" in wanted else None
     embedder = (Word2VecEmbedder(cfg, device=args.device)
                 if st.run_word2vec_pipeline and main_rank else None)
+    transformer = (TransformerEmbedder(cfg, device=args.device)
+                   if st.run_transformer_pipeline and main_rank else None)
     benchmarker = (GNNBenchmarker(cfg, device=args.device)
                    if st.run_benchmarking_pipeline and main_rank else None)
     ppi = (PPIPipeline(cfg, device=args.device)
@@ -127,6 +128,7 @@ def main(argv=None):
     t0 = time.monotonic()
     result = {"graphs": None, "graph_etl": None, "trainer": trainer, "pooled": None,
               "embeddings_path": None, "embedder": embedder, "word2vec_path": None,
+              "transformer": transformer, "transformer_paths": None,
               "benchmarker": benchmarker, "benchmark_results": None,
               "ppi": ppi, "ppi_results": None, "seconds": {}}
     if st.run_gcn_pipeline:
@@ -145,6 +147,10 @@ def main(argv=None):
         t_stage = time.monotonic()
         result["word2vec_path"] = embedder.run()
         result["seconds"]["word2vec"] = time.monotonic() - t_stage
+    if transformer is not None:
+        t_stage = time.monotonic()
+        result["transformer_paths"] = transformer.run()
+        result["seconds"]["transformer"] = time.monotonic() - t_stage
     if benchmarker is not None:
         t_stage = time.monotonic()
         result["benchmark_results"] = benchmarker.run()

@@ -1,9 +1,10 @@
-"""Configuration of the ported stages (graph, gcn, word2vec, ppi, benchmark).
+"""Configuration of the pipeline's stages (graph, gcn, word2vec, transformer,
+benchmark, ppi).
 
-Same field names and defaults as protgram_directgcn_tpu/config.py:20-341 for
-what the port runs (paths, stage toggles, graph builder, GCN trainer,
-Word2Vec, PPI evaluation, the GNN zoo benchmark, the node-sharded
-training of ``parallel``), and the same dotted
+Same field names and defaults as protgram_directgcn_tpu/config.py:20-341
+(paths, stage toggles, graph builder, GCN trainer, Word2Vec, the transformer
+embedder, PPI evaluation, the GNN zoo benchmark, the sharded training of
+``parallel``), and the same dotted
 ``--set`` overrides.  Each of
 these sections keeps every field of the JAX package, so ``--set`` lines
 written for it apply here.
@@ -226,18 +227,41 @@ class BenchmarkConfig:
 
 
 @dataclass
+class TransformerConfig:
+    """Transformer inference embedder knobs (config.py:209-226 of the JAX
+    package; reference: config.py:126-133)."""
+
+    models_to_run: List[Dict[str, Any]] = field(
+        default_factory=lambda: [
+            {"name": "ProtBERT", "hf_id": "Rostlab/prot_bert", "is_t5": False,
+             "batch_size_multiplier": 1}
+        ]
+    )
+    max_length: int = 1024
+    base_batch_size: int = 16
+    pooling_strategy: str = "mean"
+    apply_pca: bool = True
+    # Where no checkpoint loads from local files (no network), write seeded
+    # per-residue projection embeddings (an amino-acid-composition
+    # baseline) instead of nothing.
+    offline_fallback: bool = True
+    fallback_dim: int = 64
+
+
+@dataclass
 class ParallelConfig:
-    """Node-sharded training (config.py:307-341 of the JAX package).  The
-    port runs one process per device under ``torch.distributed``
-    (``parallel/``): ``mesh_nodes`` is the number of node shards, which
-    must equal the world size; None trains on one device."""
+    """Sharded training (config.py:307-341 of the JAX package).  The port
+    runs one process per device under ``torch.distributed`` (``parallel/``):
+    ``mesh_nodes`` node shards by ``mesh_feats`` feature shards (weights
+    sharded by columns), whose product must equal the world size; None
+    trains on one device."""
 
     mesh_nodes: Optional[int] = None
     mesh_feats: int = 1
     # "hypercube": the hypercube format sharded along its key axis (falls
     # back to "halo" per level where the format does not apply); "halo":
-    # edge-partitioned propagation with a ring halo exchange; "gspmd": not
-    # ported (ROADMAP Queue 1, item 13b).
+    # edge-partitioned propagation with a ring halo exchange; "gspmd": the
+    # ELL tables' rows sharded, each propagation gathering the features.
     mode: str = "halo"
     # Kept for the JAX package's settings; nothing reads it.
     partition_strategy: str = "block"
@@ -248,14 +272,12 @@ class ParallelConfig:
     debug_checksums: bool = False
 
     def check(self) -> None:
-        """Raise NotImplementedError for the settings the port lacks."""
-        if int(self.mesh_feats) > 1 or self.mode == "gspmd":
-            raise NotImplementedError(
-                f"parallel.mesh_feats={self.mesh_feats} / parallel.mode={self.mode!r}: "
-                "feature-sharded weights and the gspmd mode are not ported yet "
-                "(ROADMAP Queue 1, item 13b)")
-        if self.mode not in ("halo", "hypercube"):
+        """Raise ValueError for an unknown mode or a shard count below 1."""
+        if self.mode not in ("halo", "hypercube", "gspmd"):
             raise ValueError(f"unknown parallel.mode: {self.mode!r}")
+        if int(self.mesh_feats) < 1 or (self.mesh_nodes is not None and int(self.mesh_nodes) < 1):
+            raise ValueError(f"parallel.mesh_nodes={self.mesh_nodes}, parallel.mesh_feats="
+                             f"{self.mesh_feats}: each needs at least 1 shard")
 
 
 @dataclass
@@ -270,6 +292,7 @@ class Config:
     gcn: GCNConfig = field(default_factory=GCNConfig)
     word2vec: Word2VecConfig = field(default_factory=Word2VecConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    transformer: TransformerConfig = field(default_factory=TransformerConfig)
     benchmark: BenchmarkConfig = field(default_factory=BenchmarkConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     id_mapping_mode: str = "regex"  # 'regex' | 'none'

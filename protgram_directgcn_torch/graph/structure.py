@@ -36,7 +36,10 @@ class DeviceGraph:
     then holds the hypercube id of each real node (None for the others).
     The node-sharded operators of ``parallel/`` act on this rank's rows, and
     ``tri`` holds their layer-level operator (one exchange for the three
-    matrices, run by ``spmm.propagate3``).
+    matrices, run by ``spmm.propagate3``).  ``feat`` (a
+    ``parallel.mesh.FeatShard``) is set where the weights are sharded by
+    columns over feature shards: the model then computes this rank's
+    columns of each layer and gathers whole rows between layers.
     """
 
     p_in: Adjacency  # from 𝒜_in  (built from A_in_w = A_out_wᵀ)
@@ -45,6 +48,7 @@ class DeviceGraph:
     num_nodes: int = 0
     node_map: Optional[torch.Tensor] = None
     tri: Optional[object] = None
+    feat: Optional[object] = None
 
     @property
     def route(self) -> str:

@@ -251,10 +251,13 @@ def _gather_node_params(p: Params, original_indices: Optional[torch.Tensor]):
 
 
 def _combine_paths(p: Params, x: torch.Tensor, ic, oc, uc,
-                   original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   original_indices: Optional[torch.Tensor] = None, feat=None) -> torch.Tensor:
     """Hierarchical gating + per-node constant
-    (reference combine: protgram_directgcn.py:131-135)."""
+    (reference combine: protgram_directgcn.py:131-135).  ``feat``: the paths
+    hold this feature shard's columns, and so does the constant's share."""
     (c_in, c_out, c_dir, c_und, c_all), const = _gather_node_params(p, original_indices)
+    if feat is not None and isinstance(const, torch.Tensor):
+        const = const[..., feat.cols(ic.shape[-1])]
     if x.dim() == 3:
         lead = x.shape[:2]
         c_in, c_out, c_dir, c_und, c_all, const = (
@@ -284,7 +287,7 @@ def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig,
     ic = pi + (p["b_main_in"] + p["b_shared_in"]).to(ct)
     oc = po + (p["b_main_out"] + p["b_shared_out"]).to(ct)
     uc = pu + (p["b_und"] + p["b_shared_und"]).to(ct)
-    return _combine_paths(p, x, ic, oc, uc, original_indices)
+    return _combine_paths(p, x, ic, oc, uc, original_indices, getattr(graph, "feat", None))
 
 
 def _layer_literal(p: Params, graph, xc: torch.Tensor, ct: torch.dtype,
@@ -300,7 +303,7 @@ def _layer_literal(p: Params, graph, xc: torch.Tensor, ct: torch.dtype,
     ic = path(graph.p_in, "w_main_in", "b_main_in", "b_shared_in")
     oc = path(graph.p_out, "w_main_out", "b_main_out", "b_shared_out")
     uc = path(graph.p_und, "w_und", "b_und", "b_shared_und")
-    return _combine_paths(p, xc, ic, oc, uc, original_indices)
+    return _combine_paths(p, xc, ic, oc, uc, original_indices, getattr(graph, "feat", None))
 
 
 def _layer_paths_remat(p: Params, graph, xc: torch.Tensor, cfg: DirectGCNConfig,
@@ -336,12 +339,16 @@ def _layer_paths_remat(p: Params, graph, xc: torch.Tensor, cfg: DirectGCNConfig,
     return acc + const
 
 
-def _dropout(t: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _dropout(t: torch.Tensor, rate: float, seed: int, feat=None) -> torch.Tensor:
     """Inverted dropout with a mask drawn from ``seed``: the same seed gives
-    the same mask, so a recompute replays the forward's."""
+    the same mask, so a recompute replays the forward's.  ``feat``: ``t``
+    holds a feature shard's columns; the mask is the whole rows' one, cut."""
     keep = 1.0 - rate
     gen = torch.Generator(device=t.device).manual_seed(seed)
-    mask = torch.rand(t.shape, generator=gen, device=t.device) < keep
+    shape = t.shape if feat is None else t.shape[:-1] + (t.shape[-1] * feat.shards,)
+    mask = torch.rand(shape, generator=gen, device=t.device) < keep
+    if feat is not None:
+        mask = mask[..., feat.cols(t.shape[-1])]
     return torch.where(mask, t / keep, torch.zeros((), dtype=t.dtype, device=t.device))
 
 
@@ -363,19 +370,28 @@ def apply_layer_range(params: Params, graph, h: torch.Tensor, cfg: DirectGCNConf
     the next layer (or the caller) unpacks it, so a slice hands over and
     takes packed carries.  ``seeds`` holds the whole net's seeds (one a
     layer, then the decoder's), so that a slice drops what the whole stack
-    drops.  ``original_indices``: see :func:`_layer_apply`."""
+    drops.  ``original_indices``: see :func:`_layer_apply`.  On feature
+    shards (``graph.feat``) a layer computes this rank's columns and the
+    carry is gathered to whole rows before the activation."""
     ct = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     pack = cfg.remat_paths and rg_lead is not None
+    feat = getattr(graph, "feat", None)
 
     def layer_block(layer_p, rp, hh, seed):
         if pack:
             hh = unpack_rg_carry(hh, layer_p["w_main_in"].shape[0], rg_lead[1])
         gcn_out = _layer_apply(layer_p, graph, hh, cfg, original_indices)
         # Residual weights cast to the carry type (directgcn.py:547-551).
-        res_out = hh if rp is None else hh @ rp["w"].to(hh.dtype) + rp["b"].to(hh.dtype)
+        if rp is not None:
+            res_out = hh @ rp["w"].to(hh.dtype) + rp["b"].to(hh.dtype)
+        else:
+            res_out = hh if feat is None else hh[..., feat.cols(gcn_out.shape[-1])]
+        s = gcn_out + res_out
+        if feat is not None:
+            s = feat.gather(s)
         # Pack before the activation tail: packing is a permutation with zero
         # pad slots, which leaky ReLU and dropout keep zero (directgcn.py:556-561).
-        s = pack_rg_carry(gcn_out + res_out, pack)
+        s = pack_rg_carry(s, pack)
         out = F.leaky_relu(s, negative_slope=cfg.leaky_relu_slope)
         if train and seed is not None and cfg.dropout > 0:
             out = _dropout(out, cfg.dropout, seed)
@@ -388,15 +404,22 @@ def apply_layer_range(params: Params, graph, h: torch.Tensor, cfg: DirectGCNConf
 
 
 def apply_decoder(dec_p: Params, h: torch.Tensor, cfg: DirectGCNConfig, *, train: bool,
-                  seed: Optional[int]) -> torch.Tensor:
+                  seed: Optional[int], feat=None) -> torch.Tensor:
     """The 2-layer decoder head in the carry type
-    (reference: protgram_directgcn.py:173-180; directgcn.py:584-606)."""
+    (reference: protgram_directgcn.py:173-180; directgcn.py:584-606).  On
+    feature shards (``feat``) ``relu(h @ w1[:, cols] + b1[cols]) @
+    w2[cols, :]`` is summed over the shards, ``b2`` counted on rank 0's."""
 
     def block(dp, hh):
         z = F.relu(hh @ dp["w1"].to(hh.dtype) + dp["b1"].to(hh.dtype))
         if train and seed is not None and cfg.decoder_dropout > 0:
-            z = _dropout(z, cfg.decoder_dropout, seed)
-        return z @ dp["w2"].to(z.dtype) + dp["b2"].to(z.dtype)
+            z = _dropout(z, cfg.decoder_dropout, seed, feat)
+        out = z @ dp["w2"].to(z.dtype)
+        if feat is None:
+            return out + dp["b2"].to(z.dtype)
+        # b2 counts once in the sum; it enters every rank's graph, so that
+        # every rank's leaves hold a gradient to reduce.
+        return feat.sum(out + dp["b2"].to(z.dtype) * (1.0 if feat.rank == 0 else 0.0))
 
     return _maybe_checkpoint(cfg.remat, block, dec_p, h)
 
@@ -446,7 +469,8 @@ def directgcn_apply(params: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig
                           rg_lead=rg_lead, original_indices=original_indices)
     if rg_lead is not None:
         h = unpack_rg_carry(h, cfg.layer_dims[-1], rg_lead[1])
-    logits = apply_decoder(params["decoder"], h, cfg, train=train, seed=seeds[-1])
+    logits = apply_decoder(params["decoder"], h, cfg, train=train, seed=seeds[-1],
+                           feat=getattr(graph, "feat", None))
     h32 = h.float()
     normalized = h32 / (torch.linalg.vector_norm(h32, dim=-1, keepdim=True) + cfg.l2_eps)
     log_sm = F.log_softmax(logits.float(), dim=-1).to(logits.dtype)

@@ -31,7 +31,8 @@ card, and the SDDMM runs beside them as plain torch, as the JAX package
 computes it outside Pallas (spmm.py:602).
 
 The distributed operators of ``parallel/`` (``HaloAdj``, ``TriHaloAdj``,
-``HyperShardAdj``, ``HyperShardTri``) dispatch from here as in the JAX
+``HyperShardAdj``, ``HyperShardTri``, ``RowShardEllAdj``, ``RowShardTri``)
+dispatch from here as in the JAX
 package (spmm.py:621-630, :677-685, :716-720).
 """
 
@@ -518,12 +519,14 @@ def _propagate_edge_grads(adj, x: torch.Tensor) -> torch.Tensor:
 
 def _distributed(adj):
     """The ``parallel/`` module whose operator ``adj`` is, or None."""
-    from protgram_directgcn_torch.parallel import halo, hyper_shard
+    from protgram_directgcn_torch.parallel import gspmd, halo, hyper_shard
 
     if isinstance(adj, (halo.HaloAdj, halo.TriHaloAdj)):
         return halo
     if isinstance(adj, (hyper_shard.HyperShardAdj, hyper_shard.HyperShardTri)):
         return hyper_shard
+    if isinstance(adj, (gspmd.RowShardEllAdj, gspmd.RowShardTri)):
+        return gspmd
     return None
 
 

@@ -13,12 +13,17 @@ two ranks on one device).  Where the JAX package logs a failed start and
 carries on in one process, this raises: a rank that carried on alone would
 train the whole level and race the others for the output files.
 
-The exchange layer calls ``all_to_all_single``, ``all_reduce`` and
-``all_gather`` only: gloo takes CUDA tensors for those (it copies them
+Every collective takes an optional process ``group`` (None: the world), so
+that a 2-D rank grid (``mesh.make_mesh``: node shards x feature shards) runs
+its node-axis exchanges within one feature column of ranks and its
+feature-axis reductions within one node shard; ``new_group`` makes and
+keeps such groups.  The exchange layer calls ``all_to_all_single``,
+``all_reduce`` and ``all_gather`` only: gloo takes CUDA tensors for those (it copies them
 through host memory itself), and aborts the process on a
 ``batch_isend_irecv`` of CUDA tensors (``chip_smoke.py``'s probe on an
 NVIDIA H100, PERF.md), so a ring of point-to-point steps is one ``all_to_all_single``.
-``EXCHANGE`` counts the exchanges and their bytes, and under
+``EXCHANGE`` counts the exchanges (all-to-alls and the gspmd mode's
+all-gathers, whatever their group) and their bytes, and under
 ``TIME_EXCHANGES`` their seconds on the host clock with the device
 synchronised around each one.
 """
@@ -28,7 +33,7 @@ from __future__ import annotations
 import datetime
 import os
 import time
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -122,6 +127,36 @@ def backend() -> Optional[str]:
     return dist.get_backend() if is_initialized() else None
 
 
+_GROUPS: Dict[Tuple[int, ...], Any] = {}
+
+
+def new_group(ranks: Sequence[int]) -> Any:
+    """The process group of ``ranks`` (None for the whole world), made once
+    and kept.  Every rank must call it with the same ranks in the same order
+    (``dist.new_group`` is collective), members or not."""
+    ranks = tuple(sorted(int(r) for r in ranks))
+    if not is_initialized() or len(ranks) == world_size():
+        return None
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = dist.new_group(list(ranks))
+    return _GROUPS[ranks]
+
+
+def group_size(group: Any = None) -> int:
+    """The ranks in ``group`` (None: the world); 1 outside a process group."""
+    if not is_initialized():
+        return 1
+    return dist.get_world_size(group) if group is not None else dist.get_world_size()
+
+
+def _count(t: torch.Tensor, t0: float) -> None:
+    if TIME_EXCHANGES and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    EXCHANGE["calls"] += 1
+    EXCHANGE["bytes"] += t.numel() * t.element_size()
+    EXCHANGE["seconds"] += time.monotonic() - t0
+
+
 def _wire(t: torch.Tensor) -> torch.Tensor:
     """bfloat16 crosses a gloo group as its bits, viewed float16 (gloo's
     CUDA all-to-all refuses int16: "Invalid scalar type")."""
@@ -129,10 +164,11 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 
 def all_to_all(send: torch.Tensor, out_splits: Optional[Sequence[int]] = None,
-               in_splits: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """``all_to_all_single`` on rows: rank p gets ``send``'s ``in_splits[p]``
-    rows (equal shares when None), and the result holds ``out_splits[q]``
-    rows from each rank q in rank order.  Outside a group: ``send``."""
+               in_splits: Optional[Sequence[int]] = None, group: Any = None) -> torch.Tensor:
+    """``all_to_all_single`` on rows within ``group``: its p-th rank gets
+    ``send``'s ``in_splits[p]`` rows (equal shares when None), and the
+    result holds ``out_splits[q]`` rows from each rank q in group order.
+    Outside a process group: ``send``."""
     if not is_initialized():
         return send
     t0 = time.monotonic()
@@ -143,27 +179,30 @@ def all_to_all(send: torch.Tensor, out_splits: Optional[Sequence[int]] = None,
     out = send.new_empty((rows,) + tuple(send.shape[1:]))
     dist.all_to_all_single(_wire(out), _wire(send),
                            None if out_splits is None else list(out_splits),
-                           None if in_splits is None else list(in_splits))
-    if TIME_EXCHANGES and send.is_cuda:
-        torch.cuda.synchronize(send.device)
-    EXCHANGE["calls"] += 1
-    EXCHANGE["bytes"] += send.numel() * send.element_size()
-    EXCHANGE["seconds"] += time.monotonic() - t0
+                           None if in_splits is None else list(in_splits), group=group)
+    _count(send, t0)
     return out
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place; returns it."""
-    if world_size() > 1:
-        dist.all_reduce(t)
+def all_reduce_sum(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group``, in place; returns it."""
+    if group_size(group) > 1:
+        dist.all_reduce(t, group=group)
     return t
 
 
-def all_gather(t: torch.Tensor) -> List[torch.Tensor]:
-    """Every rank's ``t`` (equal shapes), in rank order."""
-    if world_size() == 1:
+def all_gather(t: torch.Tensor, group: Any = None, count: bool = False) -> List[torch.Tensor]:
+    """Every rank's ``t`` (equal shapes) in ``group``, in group order.
+    ``count``: an exchange of the propagation (``EXCHANGE``)."""
+    size = group_size(group)
+    if size == 1:
         return [t]
+    t0 = time.monotonic()
+    if count and TIME_EXCHANGES and t.is_cuda:
+        torch.cuda.synchronize(t.device)
     t = t.contiguous()
-    outs = [torch.empty_like(t) for _ in range(world_size())]
-    dist.all_gather([_wire(o) for o in outs], _wire(t))
+    outs = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather([_wire(o) for o in outs], _wire(t), group=group)
+    if count:
+        _count(t, t0)
     return outs

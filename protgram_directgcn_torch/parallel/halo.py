@@ -12,7 +12,9 @@ sends the rows its peer ``(rank + k) % D`` needs, padded to that step's
 largest count over the ranks, and receives from ``(rank - k) % D``; the
 buffer concatenates the steps' chunks.  Where the JAX package issues one
 ``ppermute`` a step, the port issues the whole ring as one
-``all_to_all_single`` with split sizes and puts the chunks in step order.
+``all_to_all_single`` with split sizes and puts the chunks in step order,
+within the partition's ``group`` (the ranks of one feature shard on a 2-D
+rank grid; None: the world).
 
 The host builds every rank's tables as the JAX package does (byte for byte,
 stacked on a leading rank axis: ``build_halo_tables``) and each rank keeps
@@ -27,7 +29,7 @@ exchange of their concatenated rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -172,10 +174,11 @@ class HaloPartition:
     rows_per_shard: int = 0
     rank: int = 0
     debug_checksums: bool = False
+    group: Any = None  # the node shards' process group (None: the world)
 
     @classmethod
     def from_tables(cls, tables: Dict[str, object], rank: int, device,
-                    debug_checksums: bool = False) -> "HaloPartition":
+                    debug_checksums: bool = False, group: Any = None) -> "HaloPartition":
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -185,7 +188,7 @@ class HaloPartition:
                    send_steps=tuple(dev(s[rank].astype(np.int64)) for s in steps),
                    num_shards=len(steps) + 1, num_nodes=int(tables["num_nodes"]),
                    rows_per_shard=int(tables["rows_per_shard"]), rank=int(rank),
-                   debug_checksums=bool(debug_checksums))
+                   debug_checksums=bool(debug_checksums), group=group)
 
 
 def _check_sums(expected: torch.Tensor, got: torch.Tensor) -> None:
@@ -207,14 +210,14 @@ def _ring_exchange(x_local: torch.Tensor, part: HaloPartition) -> torch.Tensor:
     for k, sidx in enumerate(part.send_steps, start=1):
         chunks[(rk + k) % d] = x_local[sidx]
         in_splits[(rk + k) % d] = out_splits[(rk - k) % d] = int(sidx.shape[0])
-    recv = comm.all_to_all(torch.cat(chunks, dim=0), out_splits, in_splits)
+    recv = comm.all_to_all(torch.cat(chunks, dim=0), out_splits, in_splits, part.group)
     by_peer = torch.split(recv, out_splits, dim=0)
     steps = [by_peer[(rk - k) % d] for k in range(1, d)]
     if part.debug_checksums:
         peers = [p for p in range(d) if p != rk]
         ones = [0 if p == rk else 1 for p in range(d)]
         sent = torch.stack([chunks[p].float().sum() for p in peers])
-        expect = comm.all_to_all(sent, ones, ones)  # what each peer sent here, summed there
+        expect = comm.all_to_all(sent, ones, ones, part.group)  # what each peer sent here, summed there
         _check_sums(expect, torch.stack([by_peer[p].float().sum() for p in peers]))
     return torch.cat(steps, dim=0)
 
@@ -291,12 +294,12 @@ def propagate(adj: HaloAdj, x: torch.Tensor) -> torch.Tensor:
 
 
 def build_halo_adjacency(src, tgt, w, num_nodes: int, num_shards: int, rank: int, device,
-                         debug_checksums: bool = False) -> HaloAdj:
+                         debug_checksums: bool = False, group: Any = None) -> HaloAdj:
     return HaloAdj(
         fwd=HaloPartition.from_tables(build_halo_tables(src, tgt, w, num_nodes, num_shards),
-                                      rank, device, debug_checksums),
+                                      rank, device, debug_checksums, group),
         bwd=HaloPartition.from_tables(build_halo_tables(tgt, src, w, num_nodes, num_shards),
-                                      rank, device, debug_checksums))
+                                      rank, device, debug_checksums, group))
 
 
 @dataclasses.dataclass
@@ -344,12 +347,12 @@ def propagate_tri(adj: TriHaloAdj, x_in, x_out, x_und):
 
 
 def build_tri_halo_adjacency(coos, num_nodes: int, num_shards: int, rank: int, device,
-                             debug_checksums: bool = False) -> TriHaloAdj:
+                             debug_checksums: bool = False, group: Any = None) -> TriHaloAdj:
     """``coos``: three (src, tgt, w) triples for (𝒜_in, 𝒜_out, undirected)."""
 
     def tri(triples):
         return TriHaloPartition(parts=tuple(
-            HaloPartition.from_tables(t, rank, device, debug_checksums)
+            HaloPartition.from_tables(t, rank, device, debug_checksums, group)
             for t in build_tri_halo_tables(triples, num_nodes, num_shards)))
 
     return TriHaloAdj(fwd=tri(coos), bwd=tri([(t, s, w) for s, t, w in coos]))

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -157,6 +157,7 @@ class HyperShardAdj:
     rank: int = 0
     wire_bf16: bool = False  # PROTGRAM_HS_WIRE=bf16: f32 rows cross as bf16
     nocomm: bool = False  # PROTGRAM_HS_NOCOMM=1: every exchange is the identity
+    group: Any = None  # the node shards' process group (None: the world)
     route = "hyper_shard"
 
     @property
@@ -192,8 +193,10 @@ class HyperShardAdj:
 
 def build_hyper_shard(src, tgt, val, codes, alphabet_size: int, num_shards: int, rank: int,
                       device, weights_dtype: torch.dtype = torch.float32,
-                      tables: Optional[Dict[str, np.ndarray]] = None) -> HyperShardAdj:
-    """This rank's ``HyperShardAdj`` of a coalesced COO matrix."""
+                      tables: Optional[Dict[str, np.ndarray]] = None,
+                      group: Any = None) -> HyperShardAdj:
+    """This rank's ``HyperShardAdj`` of a coalesced COO matrix; ``rank``
+    is its place among the ``num_shards`` key shards of ``group``."""
     slabs = build_hyper_shard_slabs(src, tgt, val, codes, alphabet_size, num_shards)
     a = int(alphabet_size)
     if tables is None:
@@ -211,7 +214,7 @@ def build_hyper_shard(src, tgt, val, codes, alphabet_size: int, num_shards: int,
                          tables=HyperShardTables.for_rank(tables, rank, device),
                          node_map=slabs["node_map"], num_shards=int(num_shards), rank=int(rank),
                          wire_bf16=os.environ.get("PROTGRAM_HS_WIRE", "auto") == "bf16",
-                         nocomm=nocomm)
+                         nocomm=nocomm, group=group)
 
 
 # ----------------------------------------------------------------------------
@@ -231,7 +234,7 @@ def _exchange(send_idx: torch.Tensor, asm_idx: torch.Tensor,
     wire = torch.bfloat16 if adj.wire_bf16 and rows[0].dtype == torch.float32 else rows[0].dtype
     send = torch.cat([r[send_idx].to(wire).view(num_shards, s, f) for r in rows], dim=1)
     flat_send = send.view(-1, f)
-    recv = (flat_send if adj.nocomm else comm.all_to_all(flat_send)).view(
+    recv = (flat_send if adj.nocomm else comm.all_to_all(flat_send, group=adj.group)).view(
         num_shards, len(rows) * s, f)
     outs = []
     for i, r in enumerate(rows):

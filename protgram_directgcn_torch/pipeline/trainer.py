@@ -195,7 +195,8 @@ class TrainOptimizer(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if group["kind"] == "adafactor":
                 for p in params:
-                    _adafactor_update(self.state[p], p, lr, wd, group.get("n_global"))
+                    _adafactor_update(self.state[p], p, lr, wd, group.get("n_global"),
+                                      group.get("node_group"))
                 continue
             together: Dict[int, list] = {}
             for p in params:
@@ -265,13 +266,13 @@ def _adam_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> None:
 
 
 def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float,
-                      n_global: Optional[int] = None) -> None:
+                      n_global: Optional[int] = None, node_group: Any = None) -> None:
     """optax ``scale_by_factored_rms`` (factorized.py:143-182).  A factored
     moment takes two passes over the slices: the squared gradient's sums
     (accumulated over the slices where dim 0 is reduced), then the update.
     ``n_global``: ``p`` holds this rank's rows of that many nodes (dim 0);
     the factoring is the global shape's and a sum over dim 0 runs over
-    every rank."""
+    the node shards' ``node_group``."""
     shape = tuple(p.shape)
     shape_g = shape if n_global is None else (int(n_global),) + shape[1:]
     dims = _factored_dims(shape_g)
@@ -307,12 +308,12 @@ def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float,
             else:
                 total[sl] = sq.sum(d)
     if n_global is not None and 0 in sums:
-        comm.all_reduce_sum(sums[0])
+        comm.all_reduce_sum(sums[0], node_group)
     v_row = state["v_row"].mul_(beta).add_(sums[d0] / shape_g[d0], alpha=1.0 - beta)
     v_col = state["v_col"].mul_(beta).add_(sums[d1] / shape_g[d1], alpha=1.0 - beta)
     reduced_d1 = d1 - 1 if d1 > d0 else d1
     if n_global is not None and d0 != 0 and reduced_d1 == 0:  # a mean over the nodes
-        row_mean = comm.all_reduce_sum(v_row.sum(0, keepdim=True)) / shape_g[0]
+        row_mean = comm.all_reduce_sum(v_row.sum(0, keepdim=True), node_group) / shape_g[0]
     else:
         row_mean = v_row.mean(reduced_d1, keepdim=True)
     row_factor = (v_row / row_mean).pow(-0.5).unsqueeze(d0)
@@ -325,12 +326,13 @@ def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float,
 
 def make_optimizer(params, lr: float, weight_decay: float,
                    factor_node_params_above: Optional[int] = None,
-                   n_global: Optional[int] = None) -> TrainOptimizer:
+                   n_global: Optional[int] = None, node_group: Any = None) -> TrainOptimizer:
     """Adam over every parameter (reference: protgram_directgcn_trainer.py:354);
     with ``factor_node_params_above=N``, the per-node tables (by name, with
     shape[0] == N, or an rg constant [A, G, out] with A*G == N) train with
     factored Adafactor instead (trainer.py:134-197).  On a node shard, N is
-    the rank's rows and ``n_global`` the level's nodes."""
+    the rank's rows, ``n_global`` the level's nodes and ``node_group`` the
+    process group of the node shards."""
     n = factor_node_params_above
 
     def is_node(name: str, p: torch.Tensor) -> bool:
@@ -340,7 +342,7 @@ def make_optimizer(params, lr: float, weight_decay: float,
     leaves = named_leaves(params)
     groups = [{"params": [p for name, p in leaves if not is_node(name, p)], "kind": "adam"},
               {"params": [p for name, p in leaves if is_node(name, p)], "kind": "adafactor",
-               "n_global": n_global}]
+               "n_global": n_global, "node_group": node_group}]
     return TrainOptimizer([grp for grp in groups if grp["params"]],
                           {"lr": lr, "weight_decay": weight_decay})
 
@@ -392,11 +394,14 @@ def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_l
 @dataclasses.dataclass
 class NodeShard:
     """This rank's node rows on a node-sharded level (``parallel/``): the
-    rank's operator ``adj`` (``HaloAdj`` or ``HyperShardAdj``) names them
-    (``adj.node_rows()``), ``n_global`` is the padded node space."""
+    rank's operator ``adj`` (``HaloAdj``, ``HyperShardAdj`` or
+    ``RowShardEllAdj``) names them (``adj.node_rows()``), ``n_global`` is
+    the padded node space, ``layout`` the rank grid (None: one feature
+    shard over the world)."""
 
     adj: Any
     n_global: int
+    layout: Optional[mesh.RankLayout] = None
 
     @property
     def n_local(self) -> int:
@@ -406,8 +411,21 @@ class NodeShard:
     def is_main(self) -> bool:
         return comm.is_main()
 
+    @property
+    def node_group(self) -> Any:
+        return None if self.layout is None else self.layout.node_group
+
+    @property
+    def feat(self) -> Optional[mesh.FeatShard]:
+        return None if self.layout is None else self.layout.feat
+
     def is_node(self, name: str, p: torch.Tensor) -> bool:
         return mesh.node_sharded(name, p, self.n_local)
+
+    def feat_axis(self, name: str, p: torch.Tensor) -> Optional[int]:
+        """The axis along which leaf ``p`` holds this rank's feature shard."""
+        ax = mesh.feat_axis(name) if self.feat is not None else None
+        return ax if ax is not None and p.dim() > ax else None
 
     def state_is_node(self, key: str, p: torch.Tensor) -> bool:
         """Whether optimizer state ``key`` of node leaf ``p`` holds node rows:
@@ -422,12 +440,37 @@ class NodeShard:
         return (d0 if key == "v_row" else d1) != 0
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of ``t`` at their global ids."""
-        return mesh.gather_rows(t, self.adj, self.n_global)
+        """Every node shard's rows of ``t`` at their global ids."""
+        return mesh.gather_rows(t, self.adj, self.n_global, self.node_group)
 
     def slab(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global ``t``."""
         return t[self.adj.node_rows().to(t.device)].contiguous()
+
+    def full(self, name: str, p: torch.Tensor, t: Any, key: Optional[str] = None) -> Any:
+        """Leaf ``p`` (or its optimizer state ``key``, ``t``) whole: a node
+        leaf's rows gathered over the node shards, a feature-sharded leaf's
+        columns over the feature shards (Adam's moments have its shape)."""
+        if not isinstance(t, torch.Tensor):
+            return t
+        if self.is_node(name, p) and (key is None or self.state_is_node(key, p)):
+            return self.gather(t)
+        ax = self.feat_axis(name, p)
+        if ax is not None and t.shape == p.shape:
+            return torch.cat(comm.all_gather(t.contiguous(), self.feat.group), dim=ax)
+        return t
+
+    def own(self, name: str, p: torch.Tensor, t: Any, key: Optional[str] = None) -> Any:
+        """This rank's share of a whole leaf (or state) ``t``: the inverse of
+        :meth:`full`."""
+        if not isinstance(t, torch.Tensor):
+            return t
+        if self.is_node(name, p) and (key is None or self.state_is_node(key, p)):
+            return self.slab(t)
+        ax = self.feat_axis(name, p)
+        if ax is not None and t.dim() == p.dim() and t.shape[ax] == p.shape[ax] * self.feat.shards:
+            return t.narrow(ax, self.feat.rank * p.shape[ax], p.shape[ax]).contiguous()
+        return t
 
 
 def make_train_step_sharded(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer,
@@ -435,13 +478,38 @@ def make_train_step_sharded(model_cfg: DirectGCNConfig, opt: torch.optim.Optimiz
     """One full-batch step on a node shard, the JAX package's GSPMD step
     written out by hand.  Each rank's loss is its nodes' share of the global
     masked mean (``mask_total``: the mask summed over the ranks) plus
-    ``l2_lambda`` times its node rows' squares and 1 / world of the
-    replicated leaves' squares, so that the ranks' losses sum to the global
-    loss; the replicated leaves' gradients are summed over the ranks before
-    the update (node rows get theirs whole through the exchanges' backward).
-    Returns (loss, primary) summed over the ranks, as computed before the
-    update."""
+    ``l2_lambda`` times the sum of squares of its leaves, each weighed by
+    1 / (the ranks that hold a copy of it), so that the leaves' L2
+    gradients, summed over those ranks, are whole.  After the backward:
+
+    - a leaf replicated over the node shards (every leaf but the node rows)
+      sums its gradient over the node group; under feature shards a
+      feature-sharded leaf does so within its feature shard;
+    - node leaves (gates, constants) get their rows whole from the
+      exchanges' backward; under feature shards each feature rank holds the
+      part of its columns, summed over the feature group;
+    - fully replicated leaves (``b2``, ``pe_table``, scalar gates) sum over
+      the world.
+
+    Returns (loss, primary) over the level, as computed before the update
+    (each node shard's primary counted once)."""
     world = comm.world_size()
+    feat = shard.feat
+    df = 1 if feat is None else feat.shards
+
+    def copies(n: str, p: torch.Tensor) -> int:
+        if shard.is_node(n, p):
+            return df
+        return world // df if shard.feat_axis(n, p) is not None else world
+
+    def reduce_groups(leaves):
+        """(process group, leaves) whose gradients sum over that group."""
+        if feat is None:  # one flat sum over the world
+            return [(None, [p for n, p in leaves if not shard.is_node(n, p)])]
+        return [(shard.node_group, [p for n, p in leaves if shard.feat_axis(n, p) is not None]),
+                (feat.group, [p for n, p in leaves if shard.is_node(n, p)]),
+                (None, [p for n, p in leaves
+                        if not shard.is_node(n, p) and shard.feat_axis(n, p) is None])]
 
     def step(params, graph, x, y, mask, weight_factor, gen, original_indices=None):
         if original_indices is not None:
@@ -455,19 +523,27 @@ def make_train_step_sharded(model_cfg: DirectGCNConfig, opt: torch.optim.Optimiz
         per_node = -torch.gather(log_sm, -1, y[..., None])[..., 0]
         primary = torch.sum(per_node * mask) / max(mask_total, 1.0)
         leaves = named_leaves(params)
-        l2 = sum(torch.sum(torch.square(p.float())) * (1.0 if shard.is_node(n, p) else 1.0 / world)
-                 for n, p in leaves)
+        l2 = sum(torch.sum(torch.square(p.float())) * (1.0 / copies(n, p)) for n, p in leaves)
         loss = primary * weight_factor + l2_lambda * l2
         loss.backward()
-        # The leaves without a gradient are the same on every rank.
-        replicated = [p for n, p in leaves if not shard.is_node(n, p) and p.grad is not None]
-        flat = comm.all_reduce_sum(torch.cat([p.grad.reshape(-1).float() for p in replicated]))
-        offset = 0
-        for p in replicated:
-            p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
-            offset += p.numel()
+        for group, ps in reduce_groups(leaves):
+            # The leaves without a gradient are the same on every rank.
+            ps = [p for p in ps if p.grad is not None]
+            if not ps:
+                continue
+            flat = comm.all_reduce_sum(torch.cat([p.grad.reshape(-1).float() for p in ps]),
+                                       group)
+            offset = 0
+            for p in ps:
+                p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
+                offset += p.numel()
         opt.step()
-        both = comm.all_reduce_sum(torch.stack([loss.detach().float(), primary.detach().float()]))
+        if feat is None:
+            both = torch.stack([loss.detach().float(), primary.detach().float()])
+        else:  # a node shard's primary is on each of its df ranks
+            p_share = primary.detach().float() / df
+            both = torch.stack([p_share * weight_factor + l2_lambda * l2.detach(), p_share])
+        both = comm.all_reduce_sum(both)
         return both[0], both[1]
 
     return step
@@ -977,14 +1053,15 @@ class HierarchicalTrainer:
                                dtype=dtype, device=self.device)
 
     def _rank_layout(self) -> Optional[mesh.RankLayout]:
-        """This process's node shard when the level trains sharded: under
-        ``parallel.mesh_nodes`` > 1, or = 1 inside a process group (one
-        shard through the sharded operators); else None."""
+        """This process's place in the rank grid when the level trains
+        sharded: under ``parallel.mesh_nodes`` x ``parallel.mesh_feats`` > 1
+        (trainer.py:1843-1844), or = 1 inside a process group (one shard
+        through the sharded operators); else None."""
         par = self.config.parallel
         if par.mesh_nodes is None:
             return None
         par.check()
-        if int(par.mesh_nodes) == 1 and not comm.is_initialized():
+        if int(par.mesh_nodes) * int(par.mesh_feats) == 1 and not comm.is_initialized():
             return None
         return mesh.make_mesh(int(par.mesh_nodes), int(par.mesh_feats))
 
@@ -1006,7 +1083,7 @@ class HierarchicalTrainer:
         try:
             tables = hs.build_hyper_shard_tables(alpha, alpha ** (graph.n - 1), shards)
             ops = [hs.build_hyper_shard(*csr_to_coo_arrays(m), codes, alpha, shards, rank,
-                                        self.device, dtype, tables)
+                                        self.device, dtype, tables, layout.node_group)
                    for m in (graph.mathcal_a_in(), graph.mathcal_a_out(), graph.undirected_norm())]
         except BlockStructureError as exc:
             logger.info("hypercube sharding refused: %s", exc)
@@ -1015,19 +1092,23 @@ class HierarchicalTrainer:
         use_tri = knob == "on" or (knob == "auto" and self.device.type == "cuda")
         return DeviceGraph(*ops, num_nodes=ops[0].n_out,
                            node_map=torch.from_numpy(ops[0].node_map),
-                           tri=hs.HyperShardTri(adjs=tuple(ops)) if use_tri else None)
+                           tri=hs.HyperShardTri(adjs=tuple(ops)) if use_tri else None,
+                           feat=layout.feat)
 
     def _to_distributed_graph(self, graph: NgramGraph, plan: LevelPlan,
                               layout: mesh.RankLayout) -> DeviceGraph:
         """This rank's operators of a node-sharded level (trainer.py:1840-1897):
         the key-sharded hypercube under ``parallel.mode="hypercube"`` where the
-        level takes it, else the halo operators."""
+        level takes it, else the halo operators; under "gspmd" the ELL
+        tables' row blocks (``mesh.shard_device_graph``: every level, the
+        JAX package's row-alignable format)."""
         par = self.config.parallel
+        par.check()
         mode = par.mode
         if mode == "hypercube" and graph.n < 2:
             logger.info("1-gram level has no key structure; using halo mode")
             mode = "halo"
-        dg = None
+        dg = mesh.shard_device_graph(graph, layout, self.device) if mode == "gspmd" else None
         if mode == "hypercube":
             dg = self._to_hyper_shard_graph(graph, layout, plan.compute_dtype)
             if dg is None:
@@ -1035,9 +1116,9 @@ class HierarchicalTrainer:
         if dg is None:
             dg = mesh.build_distributed_device_graph(graph, layout, par.debug_checksums,
                                                      self.device)
-        logger.info("distributed level n=%d: %d node shards, %s operators (%d nodes padded "
-                    "to %d)", graph.n, layout.node_shards, dg.route, graph.num_nodes,
-                    dg.p_in.global_nodes)
+        logger.info("distributed level n=%d: %d node shards x %d feature shards, %s operators "
+                    "(%d nodes padded to %d)", graph.n, layout.node_shards, layout.feat_shards,
+                    dg.route, graph.num_nodes, dg.p_in.global_nodes)
         return dg
 
     def _make_cluster_batches(self, graph: NgramGraph, x: np.ndarray, y: np.ndarray,
@@ -1144,16 +1225,18 @@ class HierarchicalTrainer:
         ``{"level", "loss", "lr"}`` each epoch at ``step=epoch``.  The
         clustered loop neither checkpoints nor logs.
 
-        Under ``parallel.mesh_nodes`` (one process a node shard,
-        ``parallel/``) the level trains full batch over the shards
+        Under ``parallel.mesh_nodes`` x ``parallel.mesh_feats`` (one process
+        a device, ``parallel/``) the level trains full batch over the shards
         (trainer.py:1835-1934, 2031-2049): ``parallel.mode`` "hypercube"
         takes the key-sharded hypercube where the level has one (n >= 2),
-        else and under "halo" the halo operators; per-path remat, the staged
-        step and cluster training are off; each rank keeps its node rows of
-        the parameters and inputs, initialised from the whole level's draws;
-        the checkpoint holds the whole level's state (rank 0 writes it, each
-        rank restores its rows); the embeddings are gathered on every rank.
-        The dropout masks come from a generator of each rank's own."""
+        else and under "halo" the halo operators, and "gspmd" the ELL
+        tables' row blocks; per-path remat, the staged step and cluster
+        training are off; each rank keeps its node rows of the parameters
+        and inputs and, over feature shards, its columns of the weights,
+        initialised from the whole level's draws; the checkpoint holds the
+        whole level's state (rank 0 writes it, each rank restores its
+        share); the embeddings are gathered on every rank.  The dropout
+        masks come from a generator of each node shard's own."""
         gcn = self.gcn
         dev = self.device
         n_val = graph.n
@@ -1171,7 +1254,7 @@ class HierarchicalTrainer:
         shard: Optional[NodeShard] = None
         if layout is not None:
             full_graph = self._to_distributed_graph(graph, plan, layout)
-            shard = NodeShard(full_graph.p_in, int(full_graph.p_in.global_nodes))
+            shard = NodeShard(full_graph.p_in, int(full_graph.p_in.global_nodes), layout)
             total_nodes = shard.n_global
         else:
             # The format's byte model sees the widest layer (trainer.py:1899).
@@ -1218,7 +1301,8 @@ class HierarchicalTrainer:
         init_gen = torch.Generator(device=dev).manual_seed(self.config.random_state + n_val)
         params = init_directgcn_params(init_gen, model_cfg, device=dev)
         if shard is not None:  # trainer.py:1931-1934
-            params = mesh.shard_model_params(params, shard.adj.node_rows(), shard.n_global)
+            params = mesh.shard_model_params(params, shard.adj.node_rows(), shard.n_global,
+                                             layout.feat)
         else:
             params = _node_params_to_rg(params, full_graph)
         for p in param_leaves(params):
@@ -1232,7 +1316,8 @@ class HierarchicalTrainer:
         local_nodes = total_nodes if shard is None else shard.n_local
         opt = make_optimizer(params, gcn.lr, wd,
                              factor_node_params_above=local_nodes if plan.factored else None,
-                             n_global=None if shard is None else shard.n_global)
+                             n_global=None if shard is None else shard.n_global,
+                             node_group=None if shard is None else shard.node_group)
         # A stage per layer (trainer.py:1952-1958); Cluster-GCN batches are
         # small and train fused (the JAX staged step takes no subgraph batch).
         staged = bool(plan.stage_split) and not use_cluster
@@ -1247,9 +1332,11 @@ class HierarchicalTrainer:
         stopper = (EarlyStopper(gcn.early_stopping_patience, gcn.early_stopping_min_delta)
                    if gcn.use_early_stopping else None)
         # On the host: a step draws its masks' seeds without a device sync;
-        # one generator a rank.
+        # one generator a node shard (its feature shards draw the same masks
+        # of the whole rows they hold alike).
         drop_gen = torch.Generator().manual_seed(
-            self.config.random_state * 7919 + n_val + 104729 * comm.rank())
+            self.config.random_state * 7919 + n_val
+            + 104729 * (comm.rank() if layout is None else layout.rank))
 
         def end_epoch(epoch: int, loss: float) -> bool:
             """Step the plateau scheduler; True where early stopping ends the level."""
@@ -1263,7 +1350,8 @@ class HierarchicalTrainer:
         stats: Dict[str, Any] = {"route": "cluster" if use_cluster else full_graph.route,
                                  "staged": staged, "layer_dims": list(layer_dims)}
         if shard is not None:
-            stats.update(world_size=layout.node_shards, rank=layout.rank,
+            stats.update(world_size=comm.world_size(), rank=comm.rank(),
+                         node_shards=layout.node_shards, feat_shards=layout.feat_shards,
                          rank_nodes=shard.n_local)
         losses: List[float] = []
         if use_cluster:

@@ -17,8 +17,9 @@ own type (float32 moments over bfloat16 parameters), which
 
 On a node-sharded level (``shard``: the trainer's ``NodeShard``) the file
 holds the whole level's state: every rank's node rows of the node leaves and
-of their state are gathered, rank 0 writes them, and each rank restores its
-own rows.
+of their state, and over feature shards every rank's columns of the
+feature-sharded weights and of their moments, are gathered, rank 0 writes
+them, and each rank restores its own share.
 """
 
 from __future__ import annotations
@@ -47,10 +48,7 @@ def save_train_state(ckpt_dir: os.PathLike, step: int, params: Any,
 
     def whole(name, p, key=None, v=None):
         t = p if key is None else v
-        if (shard is not None and isinstance(t, torch.Tensor) and shard.is_node(name, p)
-                and (key is None or shard.state_is_node(key, p))):
-            t = shard.gather(t)
-        return _cpu(t)
+        return _cpu(t if shard is None else shard.full(name, p, t, key))
 
     leaves = named_leaves(params)
     state = {
@@ -89,7 +87,7 @@ def restore_train_state(ckpt_dir: os.PathLike, params: Any, opt: torch.optim.Opt
     """Restore the latest checkpoint into ``params`` (in place) and ``opt``;
     returns (step, extra), or None where there is none or it does not fit
     these parameters (then nothing is changed and a warning is logged).
-    With ``shard``, each rank takes its rows of the node leaves."""
+    With ``shard``, each rank takes its share (``NodeShard.own``)."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None
@@ -98,10 +96,7 @@ def restore_train_state(ckpt_dir: os.PathLike, params: Any, opt: torch.optim.Opt
     leaves = [p for _, p in named]
 
     def own(name, p, t, key=None):
-        if (shard is not None and isinstance(t, torch.Tensor) and shard.is_node(name, p)
-                and (key is None or shard.state_is_node(key, p))):
-            return shard.slab(t)
-        return t
+        return t if shard is None else shard.own(name, p, t, key)
 
     try:
         state = torch.load(path, map_location="cpu", weights_only=True)

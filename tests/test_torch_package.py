@@ -203,6 +203,17 @@ def test_ppi_and_word2vec_entry_points_raise_without_cuda(monkeypatch, toy_fasta
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["--fasta", str(toy_fasta), "--out", str(tmp_path / "o"), "--stages", stages])
     assert not (tmp_path / "o").exists()  # failed before any work
+    from protgram_directgcn_torch.pipeline.transformer import TransformerEmbedder
+
+    # The transformer stage, once refused as unported, now runs: it too
+    # raises without CUDA before any work, and runs with --device cpu
+    # (no local checkpoint: the residue-projection fallback).
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TransformerEmbedder(Config())
     for stages in ("transformer", "graph,benchmark,transformer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--fasta", str(toy_fasta), "--stages", stages, "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--fasta", str(toy_fasta), "--out", str(tmp_path / "o"), "--stages", stages])
+    assert not (tmp_path / "o").exists()
+    done = main(["--fasta", str(toy_fasta), "--out", str(tmp_path / "t"), "--stages",
+                 "transformer", "--device", "cpu"])
+    assert done["transformer"].fallback and len(done["transformer_paths"]) == 1

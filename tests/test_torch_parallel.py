@@ -218,16 +218,29 @@ def test_hyper_shard_tables_and_slabs_equal_jax(ws):
 
 
 def test_layout_and_config_refusals():
+    """The gspmd mode and feature shards are accepted (the runs themselves:
+    tests/test_torch_trainer_distributed.py, tests/test_torch_gspmd.py); a
+    grid the world size does not fill, an unknown mode, a shard count below
+    1 and a width the feature shards do not divide are refused."""
     with pytest.raises(ValueError, match="world size 1"):
         t_mesh.make_mesh(2)
-    with pytest.raises(NotImplementedError, match="13b"):
-        t_mesh.make_mesh(2, feat_axis=2)
-    for bad in (ParallelConfig(mode="gspmd"), ParallelConfig(mesh_feats=2)):
-        with pytest.raises(NotImplementedError, match="13b"):
-            bad.check()
+    with pytest.raises(ValueError, match="world size 1"):
+        t_mesh.make_mesh(1, feat_axis=2)
+    for good in (ParallelConfig(mode="gspmd"), ParallelConfig(mesh_feats=2),
+                 ParallelConfig(mesh_nodes=2, mesh_feats=2, mode="hypercube")):
+        good.check()
     with pytest.raises(ValueError, match="unknown parallel.mode"):
         ParallelConfig(mode="ring").check()
+    with pytest.raises(ValueError, match="at least 1"):
+        ParallelConfig(mesh_feats=0).check()
     assert t_mesh.make_mesh(1) == t_mesh.RankLayout(node_shards=1, rank=0)
+    assert t_mesh.make_mesh(1).feat is None
+    # JAX's device_put refuses PartitionSpec(None, "feat") on dims [15, 8]
+    # over 2 feature shards; the port names the leaf and its width.
+    tree = {"layers": [{"w_main_in": torch.ones(12, 15), "b_main_in": torch.zeros(15)}],
+            "res_projs": [None], "decoder": {"w1": torch.ones(8, 4)}}
+    with pytest.raises(ValueError, match=r"width 15 of layers\[0\].b_main_in"):
+        t_mesh.shard_model_params(tree, torch.arange(3), 3, t_mesh.FeatShard(2, 0))
 
 
 def test_shard_model_params_keeps_the_rows_of_node_leaves():
@@ -241,7 +254,16 @@ def test_shard_model_params_keeps_the_rows_of_node_leaves():
     assert out["layers"][0]["c_in"].view(-1).tolist() == [1.0, 5.0, 7.0]
     torch.testing.assert_close(out["layers"][0]["constant"], tree["layers"][0]["constant"][rows])
     assert out["layers"][0]["w_main_in"] is tree["layers"][0]["w_main_in"]
-    assert out["decoder"] is tree["decoder"]
+    assert out["decoder"]["w1"] is tree["decoder"]["w1"]
+    # Over 2 feature shards, rank 1 keeps the second half of each split axis.
+    wide = dict(tree, decoder={"w1": torch.arange(4.0).view(2, 2), "w2": torch.ones(2, 3),
+                               "b2": torch.zeros(3)})
+    cut = t_mesh.shard_model_params(wide, rows, n, t_mesh.FeatShard(2, 1))
+    assert cut["layers"][0]["w_main_in"].shape == (3, 1)
+    assert cut["layers"][0]["b_main_in"].shape == (1,)
+    torch.testing.assert_close(cut["layers"][0]["constant"], out["layers"][0]["constant"])
+    assert cut["decoder"]["w1"].view(-1).tolist() == [1.0, 3.0]
+    assert cut["decoder"]["w2"].shape == (1, 3) and cut["decoder"]["b2"].shape == (3,)
 
 
 def _one_shard(monkeypatch, env):

@@ -329,8 +329,13 @@ def test_cli_graph_and_gcn_on_cpu(tmp_path):
     only_graph = t_main(["--fasta", str(fasta), "--out", str(tmp_path / "g"), "--stages",
                          "graph"])
     assert only_graph["trainer"] is None and len(only_graph["graphs"]) == 3
-    with pytest.raises(NotImplementedError):
-        t_main(["--fasta", str(fasta), "--stages", "graph,gcn,transformer", "--device", "cpu"])
+    # The transformer stage, once refused as unported, runs after gcn.
+    full = t_main(["--fasta", str(fasta), "--out", str(tmp_path / "t"), "--stages",
+                   "graph,gcn,transformer", "--device", "cpu",
+                   "--set", "gcn.hidden_layer_dims=[8,4]", "--set", "gcn.one_gram_init_dim=8",
+                   "--set", "gcn.epochs_per_level=1", "--set", "gcn.run_sanity_check_ppi=false"])
+    assert full["transformer"].fallback and set(full["seconds"]) == {"graph", "gcn",
+                                                                      "transformer"}
 
 
 def test_hypercube_over_budget_falls_back_to_dense(tmp_path):

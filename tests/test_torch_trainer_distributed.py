@@ -1,5 +1,6 @@
-"""Port parity: a level trained over node shards (``parallel.mesh_nodes``),
-one gloo rank a shard, in halo and hypercube mode, on 2 and 3 ranks.
+"""Port parity: a level trained over node shards (``parallel.mesh_nodes``)
+and feature shards (``parallel.mesh_feats``), one gloo rank a shard, in
+halo, hypercube and gspmd mode, on 2, 3 and 4 ranks.
 
 For each run the JAX package's distributed trainer (``train_level`` on a
 mesh of the same size) draws the initial parameters; their shard-padding
@@ -17,8 +18,9 @@ tables with factored Adafactor moments ([32, 32] dims), whose means over the
 node axis run over the ranks; it is held against JAX only (the one-device
 trainer factors a hypercube level's rg constant otherwise).  A level cut after 2 epochs and resumed from
 its step checkpoint to 4 equals the uncut run bit for bit (halo on 2 ranks;
-hypercube with Adafactor on 3).  And the CLI under ``torchrun`` on the CPU
-writes the pooled embeddings once.
+hypercube with Adafactor on 3; hypercube over 2 feature shards).  And the
+CLI under ``torchrun`` on the CPU writes the pooled embeddings once, over
+node shards and over feature shards.
 """
 
 import os
@@ -52,25 +54,33 @@ ADAM_DRIFT = 2e-3
 EPOCHS = 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# name: (world size, mode, hidden dims, node_param_factored)
+# name: (world size, mode, hidden dims, node_param_factored, feature shards)
 RUNS = {
-    "halo_ws2": (2, "halo", [16, 8], "auto"),
-    "halo_ws3": (3, "halo", [16, 8], "auto"),
-    "hyper_ws2": (2, "hypercube", [16, 8], "auto"),
-    "hyper_ws3": (3, "hypercube", [32, 32], "on"),
+    "halo_ws2": (2, "halo", [16, 8], "auto", 1),
+    "halo_ws3": (3, "halo", [16, 8], "auto", 1),
+    "hyper_ws2": (2, "hypercube", [16, 8], "auto", 1),
+    "hyper_ws3": (3, "hypercube", [32, 32], "on", 1),
+    "gspmd_ws2": (2, "gspmd", [16, 8], "auto", 1),
+    "feat_gspmd_1x2": (2, "gspmd", [16, 8], "auto", 2),
+    "feat_hyper_1x2": (2, "hypercube", [16, 8], "auto", 2),
+    "feat_halo_2x2": (4, "halo", [16, 8], "auto", 2),
 }
+ROUTES = {"halo": "halo", "hypercube": "hyper_shard", "gspmd": "gspmd"}
+CUT_RUNS = ["halo_ws2", "hyper_ws3", "feat_hyper_1x2"]
 
 
-def _set(mode, ws, dims, factored, epochs=EPOCHS):
+def _set(mode, ws, dims, factored, feats=1, epochs=EPOCHS):
     return {"gcn.hidden_layer_dims": dims, "gcn.epochs_per_level": epochs,
             "gcn.dropout_rate": 0.0, "gcn.node_param_factored": factored,
-            "gcn.checkpoint_every_epochs": 2, "parallel.mesh_nodes": ws, "parallel.mode": mode}
+            "gcn.checkpoint_every_epochs": 2, "parallel.mesh_nodes": ws // feats,
+            "parallel.mesh_feats": feats, "parallel.mode": mode}
 
 
 def _pad_rows(graph, total, mode):
     """The rows of the padded node space that belong to no node of the level's
-    own space: the shard padding past N (halo), the keys past G (hypercube)."""
-    if mode == "halo":
+    own space: the shard padding past N (halo, gspmd), the keys past G
+    (hypercube)."""
+    if mode != "hypercube":
         return np.arange(graph.num_nodes, total)
     codes, a = vocab_char_codes(graph.vocab)
     g = a ** (graph.n - 1)
@@ -80,7 +90,7 @@ def _pad_rows(graph, total, mode):
 
 def _to_level_space(arr, graph, total, mode):
     """Rows of a padded node table in the one-device trainer's node space."""
-    if mode == "halo":
+    if mode != "hypercube":
         return arr[: graph.num_nodes]
     codes, a = vocab_char_codes(graph.vocab)
     g = a ** (graph.n - 1)
@@ -107,8 +117,8 @@ def _flat(tree):
 
 @pytest.fixture(scope="module")
 def study(tmp_path_factory):
-    """The JAX runs, the port's ranks on 2 and 3 processes (one spawn each),
-    and the port's one-device runs."""
+    """The JAX runs, the port's ranks on 2, 3 and 4 processes (one spawn
+    each), and the port's one-device runs."""
     d = tmp_path_factory.mktemp("trainer_dist")
     fasta = write_seeded_fasta(d / "seq.fasta", n_seqs=30, lo=10, hi=40)
     paths = TBuilder(n_max=2).run(fasta, d / "graphs")
@@ -117,7 +127,7 @@ def study(tmp_path_factory):
     y, classes = next_node_labels(jg)
 
     jax_out, runs = {}, {}
-    for name, (ws, mode, dims, factored) in RUNS.items():
+    for name, (ws, mode, dims, factored, feats) in RUNS.items():
         captured, losses = {}, []
 
         def capture_init(key, cfg, _mode=mode):
@@ -144,7 +154,7 @@ def study(tmp_path_factory):
 
         j_init, j_step = j_trainer.init_directgcn_params, j_trainer.make_train_step
         cfg = JConfig()
-        for k, v in _set(mode, ws, dims, factored).items():
+        for k, v in _set(mode, ws, dims, factored, feats).items():
             cfg.apply_overrides({k: v})
         cfg.gcn.checkpoint_every_epochs = 0
         j_trainer.init_directgcn_params, j_trainer.make_train_step = capture_init, step_factory
@@ -159,32 +169,33 @@ def study(tmp_path_factory):
                          "params": _flat(convert.params_from_jax(
                              jax.tree_util.tree_map(np.array, params), device="cpu"))}
         runs[name] = {"world_size": ws, "graph": paths[1], "x": x, "y": y, "classes": classes,
-                      "set": _set(mode, ws, dims, factored), "params": captured["params"]}
+                      "set": _set(mode, ws, dims, factored, feats), "params": captured["params"]}
 
     # Cut after 2 epochs and resumed to 4, against 4 uncut epochs.
-    for name, base in (("halo_ws2", "halo_ws2"), ("hyper_ws3", "hyper_ws3")):
-        ws, mode, dims, factored = RUNS[base]
+    for name in CUT_RUNS:
+        ws, mode, dims, factored, feats = RUNS[name]
         for kind, cut in (("uncut", [4]), ("resumed", [2, 4])):
-            runs[f"{name}_{kind}"] = dict(runs[base], set=_set(mode, ws, dims, factored, 4),
+            runs[f"{name}_{kind}"] = dict(runs[name],
+                                          set=_set(mode, ws, dims, factored, feats, 4),
                                           cut=cut, ckpt_dir=str(d / f"ckpt_{name}_{kind}"))
     with open(d / "runs.pkl", "wb") as fh:
         pickle.dump(runs, fh)
     port = {}
-    for ws in (2, 3):
+    for ws in (2, 3, 4):
         W.spawn(W.trainer_scenarios, ws, str(d), timeout=300)
         with open(d / "trainer_r0.pkl", "rb") as fh:
             port.update(pickle.load(fh))
 
     one = {}
-    for name, (ws, mode, dims, factored) in RUNS.items():
+    for name, (ws, mode, dims, factored, feats) in RUNS.items():
         total = jax_out[name]["total"]
         tree = _map_nodes(runs[name]["params"], lambda v: _to_level_space(v, jg, total, mode),
                           total)
         cfg = TConfig()
-        for k, v in _set(mode, ws, dims, factored).items():
+        for k, v in _set(mode, ws, dims, factored, feats).items():
             cfg.apply_overrides({k: v})
-        cfg.parallel.mesh_nodes = None
-        cfg.gcn.spmm_mode = "ell" if mode == "halo" else "hypercube"
+        cfg.parallel.mesh_nodes, cfg.parallel.mesh_feats = None, 1
+        cfg.gcn.spmm_mode = "hypercube" if mode == "hypercube" else "ell"
         tr = t_trainer.HierarchicalTrainer(cfg, device="cpu")
         saved = (t_trainer.init_directgcn_params, t_trainer.DirectGCNConfig)
         t_trainer.init_directgcn_params = lambda gen, c, device, _t=tree: \
@@ -211,9 +222,9 @@ def _params_close(got, ref, steps, what):
 
 @pytest.mark.parametrize("name", list(RUNS))
 def test_sharded_level_matches_jax(study, name):
-    ws, mode, _, _ = RUNS[name]
+    ws, mode = RUNS[name][:2]
     j, p = study["jax"][name], study["port"][name]
-    assert p["route"] == ("halo" if mode == "halo" else "hyper_shard")
+    assert p["route"] == ROUTES[mode]
     assert p["world_size"] == ws
     assert len(p["losses"]) == len(j["losses"]) == EPOCHS
     np.testing.assert_allclose(p["losses"], j["losses"], rtol=RTOL)
@@ -226,10 +237,10 @@ def test_sharded_level_matches_one_device(study, name):
     """Adam runs only: the one-device trainer stores a hypercube level's
     constant rg [A, G, out], which Adafactor factors otherwise than the
     sharded (and the JAX distributed) flat table."""
-    ws, mode, _, _ = RUNS[name]
+    mode = RUNS[name][1]
     jg = study["graph"]
     o, p = study["one"][name], study["port"][name]
-    assert o["route"] == ("ell" if mode == "halo" else "hypercube")
+    assert o["route"] == ("hypercube" if mode == "hypercube" else "ell")
     np.testing.assert_allclose(p["losses"], o["losses"], rtol=RTOL)
     np.testing.assert_allclose(p["embeds"], o["embeds"], rtol=RTOL, atol=1e-5)
     total = study["jax"][name]["total"]
@@ -244,7 +255,7 @@ def test_sharded_level_matches_one_device(study, name):
     _params_close(mapped, o["params"], EPOCHS, name)
 
 
-@pytest.mark.parametrize("name", ["halo_ws2", "hyper_ws3"])
+@pytest.mark.parametrize("name", CUT_RUNS)
 def test_cut_and_resumed_level_equals_uncut(study, name):
     uncut, resumed = study["port"][f"{name}_uncut"], study["port"][f"{name}_resumed"]
     assert resumed["start_epoch"] == 3 and len(resumed["losses"]) == 2
@@ -254,13 +265,14 @@ def test_cut_and_resumed_level_equals_uncut(study, name):
     np.testing.assert_array_equal(resumed["embeds"], uncut["embeds"])
 
 
-def test_cli_under_torchrun_on_the_cpu(tmp_path, toy_fasta):
+def _torchrun_cli(tmp_path, toy_fasta, *sets):
+    """The CLI under torchrun on 2 CPU ranks; returns the process and the
+    pooled embeddings of the one file it wrote."""
     out = tmp_path / "out"
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
            "-m", "protgram_directgcn_torch", "--fasta", str(toy_fasta), "--out", str(out),
-           "--stages", "graph,gcn", "--device", "cpu", "--set", "parallel.mesh_nodes=2",
-           "--set", "parallel.mode=hypercube", "--set", "graph_builder.ngram_max_n=2",
+           "--stages", "graph,gcn", "--device", "cpu", *sets, "--set", "graph_builder.ngram_max_n=2",
            "--set", "gcn.hidden_layer_dims=[16,8]", "--set", "gcn.one_gram_init_dim=12",
            "--set", "gcn.epochs_per_level=3", "--set", "gcn.apply_pca=false",
            "--set", "gcn.run_sanity_check_ppi=false", "--set", "id_mapping_mode=none"]
@@ -273,4 +285,19 @@ def test_cli_under_torchrun_on_the_cpu(tmp_path, toy_fasta):
     pooled = read_embeddings(str(emb_dir / files[0]))
     assert set(pooled) == {"P001", "P002", "P003"}
     assert all(v.shape == (8,) and np.isfinite(v).all() for v in pooled.values())
+    return proc, pooled
+
+
+def test_cli_feature_shards_under_torchrun_on_the_cpu(tmp_path, toy_fasta):
+    """One node shard by 2 feature shards, gspmd mode: both levels train over
+    the feature shards and rank 0 writes the embeddings once."""
+    proc, _ = _torchrun_cli(tmp_path, toy_fasta, "--set", "parallel.mesh_nodes=1",
+                            "--set", "parallel.mesh_feats=2", "--set", "parallel.mode=gspmd")
+    log = proc.stderr + proc.stdout
+    assert log.count("1 node shards x 2 feature shards, gspmd operators") == 2 * 2  # levels, ranks
+
+
+def test_cli_under_torchrun_on_the_cpu(tmp_path, toy_fasta):
+    proc, _ = _torchrun_cli(tmp_path, toy_fasta, "--set", "parallel.mesh_nodes=2",
+                            "--set", "parallel.mode=hypercube")
     assert "2 node shards" in proc.stderr or "2 node shards" in proc.stdout

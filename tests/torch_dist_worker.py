@@ -149,9 +149,9 @@ def parallel_scenarios(rank: int, world_size: int, tmpdir: str) -> None:
     real = comm.all_to_all
     calls = {"n": 0}
 
-    def corrupt(send, out_splits=None, in_splits=None):
+    def corrupt(send, out_splits=None, in_splits=None, group=None):
         calls["n"] += 1
-        got = real(send, out_splits, in_splits)
+        got = real(send, out_splits, in_splits, group)
         return got + 1.0 if calls["n"] == 1 else got
 
     comm.all_to_all = corrupt
@@ -166,6 +166,67 @@ def parallel_scenarios(rank: int, world_size: int, tmpdir: str) -> None:
     np.savez(os.path.join(tmpdir, f"parallel_r{rank}.npz"), **res)
 
 
+def gspmd_scenarios(rank: int, world_size: int, tmpdir: str) -> None:
+    """Every rank's rows of the gspmd mode's row-sharded ELL product and
+    VJP (``out_gspmd``, ``dx_gspmd``) and of its tri operator's
+    (``out_gspmdtri{m}``, ``dx_gspmdtri{m}``), for the cotangent
+    ``features(..., seed=9)``, and the all-gathers counted."""
+    import torch
+
+    _init(rank, world_size, tmpdir)
+    from protgram_directgcn_torch.parallel import distributed as comm
+    from protgram_directgcn_torch.parallel import gspmd
+
+    res = {}
+    coos = [random_coo(HALO_N, seed=s) for s in (0, 1, 2)]
+    ops = [gspmd.RowShardEllAdj.from_tables(
+        gspmd.build_row_shard_tables(*c, HALO_N, world_size), world_size, rank, "cpu")
+        for c in coos]
+    rows = ops[0].node_rows().numpy()
+    total = ops[0].global_nodes
+
+    def pad(a):
+        return torch.from_numpy(np.pad(a, ((0, total - len(a)), (0, 0)))[rows])
+
+    cot = pad(features(HALO_N, HALO_F, 9))
+    xl = pad(features(HALO_N, HALO_F, 3)).requires_grad_(True)
+    out = gspmd.propagate(ops[0], xl)
+    (out * cot).sum().backward()
+    res.update(rows=rows, out_gspmd=out.detach().numpy(), dx_gspmd=xl.grad.numpy())
+    xs = [pad(features(HALO_N, HALO_F, 3 + m)).requires_grad_(True) for m in range(3)]
+    outs = gspmd.propagate_tri(gspmd.RowShardTri(adjs=tuple(ops)), *xs)
+    sum((o * cot).sum() for o in outs).backward()
+    for m in range(3):
+        res[f"out_gspmdtri{m}"] = outs[m].detach().numpy()
+        res[f"dx_gspmdtri{m}"] = xs[m].grad.numpy()
+    res["exchange_calls"] = np.array(comm.EXCHANGE["calls"])
+    np.savez(os.path.join(tmpdir, f"gspmd_r{rank}.npz"), **res)
+
+
+def scaling_scenarios(rank: int, world_size: int, tmpdir: str, graph_path: str) -> None:
+    """The scaling harness's three reports at D = 1 and 2 on a small size,
+    every curve of the fixed-graph one on the level saved at ``graph_path``;
+    rank 0 writes the points."""
+    _init(rank, world_size, tmpdir)
+    from protgram_directgcn_torch.bench import scaling
+
+    counts = [1, 2]
+    out = {"weak": [p.__dict__ for p in scaling.weak_scaling_report(
+               nodes_per_shard=64, deg=4, feat_dim=4, shard_counts=counts, iters=2,
+               device="cpu")],
+           "uniform": [p.__dict__ for p in scaling.weak_scaling_report(
+               nodes_per_shard=64, deg=4, feat_dim=4, shard_counts=counts, iters=2,
+               graph="uniform", device="cpu")],
+           "hyper": [p.__dict__ for p in scaling.hyper_shard_scaling_report(
+               keys_per_shard=8, alpha=4, feat_dim=4, shard_counts=counts, iters=2,
+               device="cpu")],
+           "fivegram": scaling.fivegram_scaling_report(
+               feat_dim=4, shard_counts=counts, iters=2, graph_path=graph_path, device="cpu")}
+    if rank == 0:
+        with open(os.path.join(tmpdir, "scaling_r0.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+
+
 # ----------------------------------------------------------------------------
 # Trainer scenarios
 # ----------------------------------------------------------------------------
@@ -176,7 +237,8 @@ def trainer_scenarios(rank: int, world_size: int, tmpdir: str) -> None:
     ``{tmpdir}/runs.pkl`` (graph file, inputs, config overrides, the initial
     parameters to inject, optional checkpoint directory), dropout 0 in the
     decoder too; rank 0 writes each run's losses, embeddings, stats and the
-    final parameters gathered to the whole level."""
+    final parameters gathered to the whole level (node rows and feature
+    columns)."""
     import torch
 
     _init(rank, world_size, tmpdir)
@@ -209,11 +271,11 @@ def trainer_scenarios(rank: int, world_size: int, tmpdir: str) -> None:
             params, emb, _, dg = tr.train_level(g, run["x"], run["y"], run["classes"],
                                                 ckpt_dir=run.get("ckpt_dir"))
         st = tr.level_stats[g.n]
-        shard = t_trainer.NodeShard(dg.p_in, int(dg.p_in.global_nodes))
+        shard = t_trainer.NodeShard(dg.p_in, int(dg.p_in.global_nodes), tr._rank_layout())
         with torch.no_grad():
             whole = {}
             for i, (k, p) in enumerate(named_leaves(params)):
-                whole[f"{i}:{k}"] = (shard.gather(p) if shard.is_node(k, p) else p).detach().numpy()
+                whole[f"{i}:{k}"] = shard.full(k, p, p).detach().numpy()
         out[name] = {"losses": st["losses"], "route": st["route"], "embeds": emb,
                      "params": whole, "start_epoch": st.get("start_epoch"),
                      "world_size": st.get("world_size"), "rank_nodes": st.get("rank_nodes")}
