@@ -21,6 +21,7 @@ from protgram_directgcn_torch.graph import transforms
 from protgram_directgcn_torch.ops.block import BlockNgramAdj
 from protgram_directgcn_torch.ops.hypercube import HypercubeAdj
 from protgram_directgcn_torch.ops.spmm import BucketedEllAdj, CooAdj, DenseAdj, EllAdj
+from protgram_directgcn_torch.utils.profiling import trace
 
 Adjacency = Union[DenseAdj, EllAdj, BucketedEllAdj, CooAdj, BlockNgramAdj, HypercubeAdj]
 _ROUTES = ((DenseAdj, "dense"), (HypercubeAdj, "hypercube"), (EllAdj, "ell"),
@@ -115,28 +116,33 @@ class NgramGraph:
         "ell"), "bucketed", "coo" or "block".  The 𝒜 matrices are symmetric-pattern by
         construction, so (row→col) edges feed the (src→tgt,
         aggregate-at-tgt) operator directly
-        (reference: protgram_directgcn_trainer.py:362-367).
+        (reference: protgram_directgcn_trainer.py:362-367).  Spans, always
+        recorded: ``operators.transforms`` (the three scipy matrices) and
+        ``operators.build`` (the format's build and its copy to ``device``).
         """
         from protgram_directgcn_torch.ops.hypercube import build_hypercube, vocab_char_codes
         from protgram_directgcn_torch.ops.block import ngram_node_keys
         from protgram_directgcn_torch.ops.spmm import build_adjacency
 
-        mats = (self.mathcal_a_in(), self.mathcal_a_out(), self.undirected_norm())
+        with trace("operators.transforms", always=True):
+            mats = (self.mathcal_a_in(), self.mathcal_a_out(), self.undirected_norm())
         if mode == "hypercube":
             codes, alpha = vocab_char_codes(self.vocab)
-            ops = [
-                build_hypercube(*transforms.csr_to_coo_arrays(m), codes, alpha,
-                                max_block_bytes=hbm_budget // 3, weights_dtype=dtype,
-                                device=device)
-                for m in mats
-            ]
+            with trace("operators.build", always=True):
+                ops = [
+                    build_hypercube(*transforms.csr_to_coo_arrays(m), codes, alpha,
+                                    max_block_bytes=hbm_budget // 3, weights_dtype=dtype,
+                                    device=device)
+                    for m in mats
+                ]
             return DeviceGraph(*ops, num_nodes=ops[0].n_out, node_map=ops[0].node_map)
         n = self.num_nodes
         node_keys = ngram_node_keys(self.vocab) if self.n >= 2 and n else None
-        ops = [build_adjacency(*transforms.csr_to_coo_arrays(m), n, mode=mode,
-                               feat_dim=feat_dim, dtype=dtype, node_keys=node_keys,
-                               device=device)
-               for m in mats]
+        with trace("operators.build", always=True):
+            ops = [build_adjacency(*transforms.csr_to_coo_arrays(m), n, mode=mode,
+                                   feat_dim=feat_dim, dtype=dtype, node_keys=node_keys,
+                                   device=device)
+                   for m in mats]
         return DeviceGraph(*ops, num_nodes=n)
 
     def lookup(self, ngrams: np.ndarray) -> np.ndarray:

@@ -25,6 +25,9 @@ it and refuse a plan they cannot run.
 (pallas_spmm.py:111-119) does: by ``adj.idx_t.shape[0]`` (n_in).  Its
 backward runs the same kernel on the transpose orientation ``(idx_t, w_t)``
 (pallas_spmm.py:100-105): no scatter, and the graph gets no gradient.
+Spans (``utils/profiling.py``): each call of an entry point, the CPU's plain
+path included, inside ``ops.ell_resident`` or ``ops.ell_hbm`` under a
+profiler; the library's build and load inside ``ops.build`` always.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from protgram_directgcn_torch.ops import _nvcc
+from protgram_directgcn_torch.utils.profiling import trace
 
 # pallas_spmm.py:32-34: the resident tile is [n_in, 128] f32 within 8 MiB.
 _X_RESIDENT_BUDGET = 8 * 1024 * 1024
@@ -83,8 +87,9 @@ def build() -> Dict[str, object]:
     with _lib_lock:
         if _lib is not None:
             return BUILD_INFO
-        info = _nvcc.compile_source("ell")
-        lib = ctypes.CDLL(str(info["path"]))
+        with trace("ops.build", always=True):
+            info = _nvcc.compile_source("ell")
+            lib = ctypes.CDLL(str(info["path"]))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in LAUNCHES:
             fn = getattr(lib, f"{name}_f32")
@@ -228,19 +233,21 @@ def ell_hbm_plain(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.
 
 def _launch(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
             direction: str) -> torch.Tensor:
-    if idx.dim() != 2 or x.dim() != 2:
-        raise ValueError(f"{name}: idx must be [N_out, K] and x [N_in, F], got "
-                         f"{tuple(idx.shape)} and {tuple(x.shape)}")
-    n_out, k = idx.shape
-    f = x.shape[1]
-    _nvcc.check_tensor("idx", idx, (n_out, k), torch.int32, x.device)
-    _nvcc.check_tensor("w", w, (n_out, k), torch.float32, x.device)
-    _nvcc.check_tensor("x", x, tuple(x.shape), torch.float32, x.device)
-    if x.device.type == "cpu":
-        return ell_plain(idx, w, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return _launch_cuda(name, idx, w, x, direction)
+    """Check the inputs and run ``name``: the plain version on the CPU, the
+    kernel on the card; inside the span ``ops.<name>`` (under a profiler)."""
+    with trace(f"ops.{name}"):
+        if idx.dim() != 2 or x.dim() != 2:
+            raise ValueError(f"{name}: idx must be [N_out, K] and x [N_in, F], got "
+                             f"{tuple(idx.shape)} and {tuple(x.shape)}")
+        n_out, k = idx.shape
+        _nvcc.check_tensor("idx", idx, (n_out, k), torch.int32, x.device)
+        _nvcc.check_tensor("w", w, (n_out, k), torch.float32, x.device)
+        _nvcc.check_tensor("x", x, tuple(x.shape), torch.float32, x.device)
+        if x.device.type == "cpu":
+            return ell_plain(idx, w, x)
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {x.device}")
+        return _launch_cuda(name, idx, w, x, direction)
 
 
 def _launch_cuda(name: str, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor,

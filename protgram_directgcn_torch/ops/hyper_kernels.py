@@ -19,7 +19,9 @@ when the source's hash changes (``ops/_nvcc.py``), and loaded with
 ``ctypes``.  CPU tensors take the plain PyTorch versions below; CUDA tensors
 launch the kernels or raise.  ``launch_plan`` works out each launch's
 geometry here, before the launch; the entry points check it and refuse a
-plan they cannot run.
+plan they cannot run.  Spans (``utils/profiling.py``): each launch inside
+``ops.k1`` or ``ops.k2`` under a profiler, the library's build and load
+inside ``ops.build`` always.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from protgram_directgcn_torch.ops import _nvcc
+from protgram_directgcn_torch.utils.profiling import trace
 
 BUILD_DIR = _nvcc.BUILD_DIR
 
@@ -81,8 +84,9 @@ def build() -> Dict[str, object]:
     with _lib_lock:
         if _lib is not None:
             return BUILD_INFO
-        info = _nvcc.compile_source("hyper")
-        lib = ctypes.CDLL(str(info["path"]))
+        with trace("ops.build", always=True):
+            info = _nvcc.compile_source("hyper")
+            lib = ctypes.CDLL(str(info["path"]))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         plan = [i32] * 7  # v, amax, keys, ct, threads, grid_x, grid_y
         for dt in ("f32", "bf16"):
@@ -230,12 +234,13 @@ def k1(w1: torch.Tensor, x: torch.Tensor, direction: str = "fwd") -> torch.Tenso
         return k1_plain(w1, x)
     if x.device.type != "cuda":
         raise ValueError(f"k1: unsupported device {x.device}")
-    z = torch.empty((g, a, f), dtype=x.dtype, device=x.device)
-    plan = _plan_args(a, g, f, x.dtype, _aligned(x, z), x.device.index)
-    fn = getattr(_library(), f"hyper_k1_{_SUFFIX[x.dtype]}")
-    rc = fn(w1.data_ptr(), x.data_ptr(), z.data_ptr(), a, g, f, *plan, _nvcc.stream_ptr(x))
-    _nvcc.raise_on(rc, "K1")
-    _count("k1", direction, plan[0])
+    with trace("ops.k1"):
+        z = torch.empty((g, a, f), dtype=x.dtype, device=x.device)
+        plan = _plan_args(a, g, f, x.dtype, _aligned(x, z), x.device.index)
+        fn = getattr(_library(), f"hyper_k1_{_SUFFIX[x.dtype]}")
+        rc = fn(w1.data_ptr(), x.data_ptr(), z.data_ptr(), a, g, f, *plan, _nvcc.stream_ptr(x))
+        _nvcc.raise_on(rc, "K1")
+        _count("k1", direction, plan[0])
     return z
 
 
@@ -253,13 +258,15 @@ def k2(d: torch.Tensor, w2: torch.Tensor, z_rg: torch.Tensor, x: torch.Tensor,
         return k2_plain(d, w2, z_rg, x, scale, shift, x_gc)
     if x.device.type != "cuda":
         raise ValueError(f"k2: unsupported device {x.device}")
-    gc = x if x_gc is None else x_gc
-    out = torch.empty_like(x)
-    plan = _plan_args(a, g, f, x.dtype, _aligned(x, gc, z_rg, out), x.device.index)
-    fn = getattr(_library(), f"hyper_k2_{_SUFFIX[x.dtype]}")
-    rc = fn(d.data_ptr(), w2.data_ptr(), z_rg.data_ptr(), gc.data_ptr(), x.data_ptr(),
-            out.data_ptr(), a, g, f, float(scale), float(shift), *plan, _nvcc.stream_ptr(x))
-    _nvcc.raise_on(rc, "K2")
-    _count("k2", direction, plan[0])
+    with trace("ops.k2"):
+        gc = x if x_gc is None else x_gc
+        out = torch.empty_like(x)
+        plan = _plan_args(a, g, f, x.dtype, _aligned(x, gc, z_rg, out), x.device.index)
+        fn = getattr(_library(), f"hyper_k2_{_SUFFIX[x.dtype]}")
+        rc = fn(d.data_ptr(), w2.data_ptr(), z_rg.data_ptr(), gc.data_ptr(), x.data_ptr(),
+                out.data_ptr(), a, g, f, float(scale), float(shift), *plan,
+                _nvcc.stream_ptr(x))
+        _nvcc.raise_on(rc, "K2")
+        _count("k2", direction, plan[0])
     return out
 

@@ -22,6 +22,9 @@ The source is built like ``csrc/hyper.cu`` (``ops/_nvcc.py``).  CPU tensors
 take the plain PyTorch versions below; CUDA tensors launch the kernels or
 raise.  ``pack_rg`` and ``unpack_pad_rg`` are the differentiable entry
 points: each one's backward is the other kernel (pallas_retile.py:123-144).
+Spans (``utils/profiling.py``): each launch inside ``ops.pack`` or
+``ops.unpack`` under a profiler, the library's build and load inside
+``ops.build`` always.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from protgram_directgcn_torch.ops import _nvcc
+from protgram_directgcn_torch.utils.profiling import trace
 
 WIDTHS = (8, 16, 32, 64)
 LANES = 128
@@ -71,8 +75,9 @@ def build() -> Dict[str, object]:
     with _lib_lock:
         if _lib is not None:
             return BUILD_INFO
-        info = _nvcc.compile_source("retile")
-        lib = ctypes.CDLL(str(info["path"]))
+        with trace("ops.build", always=True):
+            info = _nvcc.compile_source("retile")
+            lib = ctypes.CDLL(str(info["path"]))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for dt in _SUFFIX.values():
             unpack_fn = getattr(lib, f"retile_unpack_{dt}")
@@ -141,12 +146,14 @@ def unpack(t: torch.Tensor, f: int, direction: str = "fwd") -> torch.Tensor:
         return unpack_plain(t, f)
     if t.device.type != "cuda":
         raise ValueError(f"unpack: unsupported device {t.device}")
-    out = torch.empty((a, gp * (LANES // f), LANES), dtype=t.dtype, device=t.device)
-    if out.numel() == 0:  # nothing to move: no launch
-        return out
-    fn = getattr(_library(), f"retile_unpack_{_SUFFIX[t.dtype]}")
-    _nvcc.raise_on(fn(t.data_ptr(), out.data_ptr(), a * gp, f, _nvcc.stream_ptr(t)), "unpack")
-    LAUNCHES["unpack"][direction] += 1
+    with trace("ops.unpack"):
+        out = torch.empty((a, gp * (LANES // f), LANES), dtype=t.dtype, device=t.device)
+        if out.numel() == 0:  # nothing to move: no launch
+            return out
+        fn = getattr(_library(), f"retile_unpack_{_SUFFIX[t.dtype]}")
+        _nvcc.raise_on(fn(t.data_ptr(), out.data_ptr(), a * gp, f, _nvcc.stream_ptr(t)),
+                       "unpack")
+        LAUNCHES["unpack"][direction] += 1
     return out
 
 
@@ -164,13 +171,14 @@ def pack(t: torch.Tensor, f: int, direction: str = "fwd") -> torch.Tensor:
         return pack_plain(t, f)
     if t.device.type != "cuda":
         raise ValueError(f"pack: unsupported device {t.device}")
-    out = torch.empty((a, g8 // k, LANES), dtype=t.dtype, device=t.device)
-    if out.numel() == 0:
-        return out
-    fn = getattr(_library(), f"retile_pack_{_SUFFIX[t.dtype]}")
-    rc = fn(t.data_ptr(), out.data_ptr(), a * (g8 // k), f, lanes, _nvcc.stream_ptr(t))
-    _nvcc.raise_on(rc, "pack")
-    LAUNCHES["pack"][direction] += 1
+    with trace("ops.pack"):
+        out = torch.empty((a, g8 // k, LANES), dtype=t.dtype, device=t.device)
+        if out.numel() == 0:
+            return out
+        fn = getattr(_library(), f"retile_pack_{_SUFFIX[t.dtype]}")
+        rc = fn(t.data_ptr(), out.data_ptr(), a * (g8 // k), f, lanes, _nvcc.stream_ptr(t))
+        _nvcc.raise_on(rc, "pack")
+        LAUNCHES["pack"][direction] += 1
     return out
 
 

@@ -86,6 +86,12 @@ from protgram_directgcn_torch.utils.io import (
     write_embeddings,
 )
 from protgram_directgcn_torch.utils.metrics import MetricLogger
+from protgram_directgcn_torch.utils.profiling import (
+    reset_spans,
+    span_seconds,
+    trace,
+    trace_outside,
+)
 
 
 class PlateauScheduler:
@@ -378,14 +384,21 @@ def _masked_nll(log_sm: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> to
 def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_lambda: float):
     """One step on the full level or a Cluster-GCN batch: loss and
     gradients, then the optimizer update.  Returns (loss, primary) as
-    computed before the update."""
+    computed before the update.  Spans (under a profiler): ``step``, with
+    ``step.optimizer`` (zero_grad), ``step.forward``, ``step.backward`` and
+    ``step.optimizer`` (the update)."""
 
     def step(params, graph, x, y, mask, weight_factor, gen, original_indices=None):
-        opt.zero_grad(set_to_none=True)
-        loss, primary = _loss_fn(params, graph, x, y, mask, weight_factor, gen, model_cfg,
-                                 l2_lambda, original_indices)
-        loss.backward()
-        opt.step()
+        with trace("step"):
+            with trace("step.optimizer"):
+                opt.zero_grad(set_to_none=True)
+            with trace("step.forward"):
+                loss, primary = _loss_fn(params, graph, x, y, mask, weight_factor, gen,
+                                         model_cfg, l2_lambda, original_indices)
+            with trace("step.backward"):
+                loss.backward()
+            with trace("step.optimizer"):
+                opt.step()
         return loss.detach(), primary.detach()
 
     return step
@@ -492,7 +505,8 @@ def make_train_step_sharded(model_cfg: DirectGCNConfig, opt: torch.optim.Optimiz
       the world.
 
     Returns (loss, primary) over the level, as computed before the update
-    (each node shard's primary counted once)."""
+    (each node shard's primary counted once).  Spans as ``make_train_step``'s;
+    the gradients' sums over the ranks are inside ``step.backward``."""
     world = comm.world_size()
     feat = shard.feat
     df = 1 if feat is None else feat.shards
@@ -514,30 +528,39 @@ def make_train_step_sharded(model_cfg: DirectGCNConfig, opt: torch.optim.Optimiz
     def step(params, graph, x, y, mask, weight_factor, gen, original_indices=None):
         if original_indices is not None:
             raise ValueError("a node-sharded step trains the full level")
-        opt.zero_grad(set_to_none=True)
-        log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
-                                    flatten_rg=False)
-        if log_sm.dim() == 3:
-            y = y.reshape(log_sm.shape[:2])
-            mask = mask.reshape(log_sm.shape[:2])
-        per_node = -torch.gather(log_sm, -1, y[..., None])[..., 0]
-        primary = torch.sum(per_node * mask) / max(mask_total, 1.0)
-        leaves = named_leaves(params)
-        l2 = sum(torch.sum(torch.square(p.float())) * (1.0 / copies(n, p)) for n, p in leaves)
-        loss = primary * weight_factor + l2_lambda * l2
-        loss.backward()
-        for group, ps in reduce_groups(leaves):
-            # The leaves without a gradient are the same on every rank.
-            ps = [p for p in ps if p.grad is not None]
-            if not ps:
-                continue
-            flat = comm.all_reduce_sum(torch.cat([p.grad.reshape(-1).float() for p in ps]),
-                                       group)
-            offset = 0
-            for p in ps:
-                p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
-                offset += p.numel()
-        opt.step()
+        with trace("step"):
+            return sharded_step(params, graph, x, y, mask, weight_factor, gen)
+
+    def sharded_step(params, graph, x, y, mask, weight_factor, gen):
+        with trace("step.optimizer"):
+            opt.zero_grad(set_to_none=True)
+        with trace("step.forward"):
+            log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
+                                        flatten_rg=False)
+            if log_sm.dim() == 3:
+                y = y.reshape(log_sm.shape[:2])
+                mask = mask.reshape(log_sm.shape[:2])
+            per_node = -torch.gather(log_sm, -1, y[..., None])[..., 0]
+            primary = torch.sum(per_node * mask) / max(mask_total, 1.0)
+            leaves = named_leaves(params)
+            l2 = sum(torch.sum(torch.square(p.float())) * (1.0 / copies(n, p))
+                     for n, p in leaves)
+            loss = primary * weight_factor + l2_lambda * l2
+        with trace("step.backward"):
+            loss.backward()
+            for group, ps in reduce_groups(leaves):
+                # The leaves without a gradient are the same on every rank.
+                ps = [p for p in ps if p.grad is not None]
+                if not ps:
+                    continue
+                flat = comm.all_reduce_sum(torch.cat([p.grad.reshape(-1).float() for p in ps]),
+                                           group)
+                offset = 0
+                for p in ps:
+                    p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
+                    offset += p.numel()
+        with trace("step.optimizer"):
+            opt.step()
         if feat is None:
             both = torch.stack([loss.detach().float(), primary.detach().float()])
         else:  # a node shard's primary is on each of its df ranks
@@ -601,7 +624,10 @@ def make_train_step_staged(model_cfg: DirectGCNConfig, opt: torch.optim.Optimize
     Adam and Adafactor update each leaf on its own with its own step count,
     and the dropout masks come from the same per-layer seeds.  No
     positional-encoding table (n = 1 levels train fused).  Returns (loss,
-    primary) as computed before the update."""
+    primary) as computed before the update.  Spans (under a profiler):
+    ``step``, with ``step.forward`` (the forward stages, the decoder and the
+    loss), a ``step.backward`` a backward stage (its recompute included) and
+    a ``step.optimizer`` an update (the L2 term with it)."""
     if model_cfg.one_gram_dim:
         raise ValueError("the staged step takes no positional-encoding table (n >= 2 levels)")
     dims = model_cfg.layer_dims
@@ -609,16 +635,26 @@ def make_train_step_staged(model_cfg: DirectGCNConfig, opt: torch.optim.Optimize
     # held[k]: carry k (layer k's input; k = n_layers: the decoder's) is kept.
     held = [True] + [_packable(dims[k]) for k in range(1, n_layers)] + [True]
 
-    def update(leaves) -> None:
-        _add_l2_grads(leaves, l2_lambda)
-        opt.step()  # only the leaves with a gradient move
-        for p in leaves:
-            p.grad = None
+    def update(leaves) -> torch.Tensor:
+        """Update ``leaves`` and free their gradients; returns their sum of
+        squares (the loss's L2 term) before the update."""
+        with trace("step.optimizer"):
+            l2_sum = _l2_sum(leaves)
+            _add_l2_grads(leaves, l2_lambda)
+            opt.step()  # only the leaves with a gradient move
+            for p in leaves:
+                p.grad = None
+        return l2_sum
 
     def step(params, graph, x, y, mask, weight_factor, gen, original_indices=None):
         if original_indices is not None:
             raise ValueError("the staged step trains the full level, not a subgraph batch")
-        opt.zero_grad(set_to_none=True)
+        with trace("step"):
+            return staged_step(params, graph, x, y, mask, weight_factor, gen)
+
+    def staged_step(params, graph, x, y, mask, weight_factor, gen):
+        with trace("step.optimizer"):
+            opt.zero_grad(set_to_none=True)
         rg_lead = tuple(x.shape[:2]) if x.dim() == 3 else None
         seeds = dropout_seeds(gen, n_layers + 1)
 
@@ -626,42 +662,42 @@ def make_train_step_staged(model_cfg: DirectGCNConfig, opt: torch.optim.Optimize
             return apply_layer_range(params, graph, c, model_cfg, k, k + 1, train=True,
                                      seeds=seeds, rg_lead=rg_lead)
 
-        carries: List[Optional[torch.Tensor]] = [x] + [None] * n_layers
-        with torch.no_grad():
-            c = x
-            for k in range(n_layers):
-                c = layer(k, c)
-                if held[k + 1]:
-                    carries[k + 1] = c
-            del c
+        with trace("step.forward"):
+            carries: List[Optional[torch.Tensor]] = [x] + [None] * n_layers
+            with torch.no_grad():
+                c = x
+                for k in range(n_layers):
+                    c = layer(k, c)
+                    if held[k + 1]:
+                        carries[k + 1] = c
+                del c
 
-        h = carries[n_layers].detach().requires_grad_(True)
-        carries[n_layers] = None
-        hh = h if rg_lead is None else unpack_rg_carry(h, dims[-1], rg_lead[1])
-        logits = apply_decoder(params["decoder"], hh, model_cfg, train=True, seed=seeds[-1])
-        log_sm = F.log_softmax(logits.float(), dim=-1).to(logits.dtype)
-        primary = _masked_nll(log_sm, y, mask)
-        (primary * weight_factor).backward()
+            h = carries[n_layers].detach().requires_grad_(True)
+            carries[n_layers] = None
+            hh = h if rg_lead is None else unpack_rg_carry(h, dims[-1], rg_lead[1])
+            logits = apply_decoder(params["decoder"], hh, model_cfg, train=True, seed=seeds[-1])
+            log_sm = F.log_softmax(logits.float(), dim=-1).to(logits.dtype)
+            primary = _masked_nll(log_sm, y, mask)
+        with trace("step.backward"):
+            (primary * weight_factor).backward()
         del hh, logits, log_sm
-        leaves = param_leaves(params["decoder"])
-        l2_sum = _l2_sum(leaves)
-        update(leaves)
+        l2_sum = update(param_leaves(params["decoder"]))
         g = h.grad
         del h
 
         for k in reversed(range(n_layers)):
-            c = carries[k]
-            if c is None:  # recompute from the nearest kept carry below
-                j = max(i for i in range(k) if carries[i] is not None)
-                with torch.no_grad():
-                    c = carries[j]
-                    for t in range(j, k):
-                        c = layer(t, c)
-            c = c.detach().requires_grad_(k > 0)
-            layer(k, c).backward(g)
-            leaves = param_leaves({"layer": params["layers"][k], "res": params["res_projs"][k]})
-            l2_sum = l2_sum + _l2_sum(leaves)
-            update(leaves)
+            with trace("step.backward"):
+                c = carries[k]
+                if c is None:  # recompute from the nearest kept carry below
+                    j = max(i for i in range(k) if carries[i] is not None)
+                    with torch.no_grad():
+                        c = carries[j]
+                        for t in range(j, k):
+                            c = layer(t, c)
+                c = c.detach().requires_grad_(k > 0)
+                layer(k, c).backward(g)
+            l2_sum = l2_sum + update(
+                param_leaves({"layer": params["layers"][k], "res": params["res_projs"][k]}))
             g = c.grad
             if k > 0:
                 carries[k] = None
@@ -691,6 +727,13 @@ def _node_params_to_rg(params, full_graph: DeviceGraph):
 # Auto-select the gather-free hypercube format when the padded node space
 # [alphabet^n] stays within this multiple of the real vocabulary.
 _HYPERCUBE_MAX_RATIO = 4.0
+
+
+# A level's set-up spans, recorded always (once a level or a process, so
+# their cost is nil); ``level_stats[n]["spans"]`` gives their seconds by name.
+SETUP_SPANS = ("level.plan", "level.operators", "operators.transforms", "operators.build",
+               "level.init", "level.cluster_batches", "level.first_epoch", "level.eval",
+               "ops.build")
 
 
 def _launch_counts() -> Dict[str, Dict[str, int]]:
@@ -1236,30 +1279,50 @@ class HierarchicalTrainer:
         initialised from the whole level's draws; the checkpoint holds the
         whole level's state (rank 0 writes it, each rank restores its
         share); the embeddings are gathered on every rank.  The dropout
-        masks come from a generator of each node shard's own."""
+        masks come from a generator of each node shard's own.
+
+        Spans (``utils/profiling.py``; the store is reset at the call):
+        always ``level.plan``, ``level.operators`` (``operators.transforms``
+        and ``operators.build`` inside), ``level.init`` (parameters,
+        optimizer, step, inputs to the device), ``level.cluster_batches``,
+        ``level.first_epoch`` (the call's first epoch whole) and
+        ``level.eval``; under a profiler an ``epoch`` each, with the step's
+        spans, ``epoch.loss_read``, ``epoch.log``, ``epoch.end``,
+        ``level.checkpoint`` and, streaming, ``batch.to_device``.
+        ``self.level_stats[n]`` is written as the level goes: the plan, then
+        the route and ``operator_seconds``, and the set-up spans' seconds by
+        name (``spans``) after each stage."""
         gcn = self.gcn
         dev = self.device
         n_val = graph.n
         feat_dim = x_np.shape[1]
-        layout = self._rank_layout()
-        plan = self._level_plan(graph, feat_dim, num_classes)
-        if layout is not None and (plan.remat_paths or plan.stage_split):
-            plan = dataclasses.replace(plan, remat_paths=False, stage_split=0)
+        reset_spans()
+        with trace("level.plan", always=True):
+            layout = self._rank_layout()
+            plan = self._level_plan(graph, feat_dim, num_classes)
+            if layout is not None and (plan.remat_paths or plan.stage_split):
+                plan = dataclasses.replace(plan, remat_paths=False, stage_split=0)
         # The degrade policy's dims replace the configured ones (trainer.py:1830-1833).
         hidden = plan.layer_dims_override or tuple(gcn.hidden_layer_dims)
         layer_dims = tuple([feat_dim] + list(hidden))
+        # Written as the level goes: the plan now, the route and the
+        # operators' seconds once built, the set-up spans after each stage.
+        stats: Dict[str, Any] = {"plan": dataclasses.asdict(plan), "nodes": graph.num_nodes,
+                                 "layer_dims": list(layer_dims)}
+        self.level_stats[n_val] = stats
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t_ops = time.monotonic()
         shard: Optional[NodeShard] = None
-        if layout is not None:
-            full_graph = self._to_distributed_graph(graph, plan, layout)
-            shard = NodeShard(full_graph.p_in, int(full_graph.p_in.global_nodes), layout)
-            total_nodes = shard.n_global
-        else:
-            # The format's byte model sees the widest layer (trainer.py:1899).
-            full_graph = self._to_device_graph(graph, plan, max(layer_dims))
-            total_nodes = full_graph.num_nodes
+        with trace("level.operators", always=True):
+            if layout is not None:
+                full_graph = self._to_distributed_graph(graph, plan, layout)
+                shard = NodeShard(full_graph.p_in, int(full_graph.p_in.global_nodes), layout)
+                total_nodes = shard.n_global
+            else:
+                # The format's byte model sees the widest layer (trainer.py:1899).
+                full_graph = self._to_device_graph(graph, plan, max(layer_dims))
+                total_nodes = full_graph.num_nodes
         operator_seconds = time.monotonic() - t_ops
         node_map = None if full_graph.node_map is None else full_graph.node_map.cpu().numpy()
 
@@ -1271,6 +1334,17 @@ class HierarchicalTrainer:
         if use_cluster and gcn.cluster_auto_fullbatch and full_graph.route == "hypercube":
             logger.info("auto-routing n=%d to full-batch (hypercube operators built)", n_val)
             use_cluster = False
+        # A stage per layer (trainer.py:1952-1958); Cluster-GCN batches are
+        # small and train fused (the JAX staged step takes no subgraph batch).
+        staged = bool(plan.stage_split) and not use_cluster
+        stats.update(route="cluster" if use_cluster else full_graph.route, staged=staged,
+                     device_nodes=total_nodes,
+                     operator_seconds=operator_seconds,  # host build + copy of the operators
+                     spans=span_seconds(SETUP_SPANS))
+        if shard is not None:
+            stats.update(world_size=comm.world_size(), rank=comm.rank(),
+                         node_shards=layout.node_shards, feat_shards=layout.feat_shards,
+                         rank_nodes=shard.n_local)
 
         def pad_nodes(arr: np.ndarray) -> np.ndarray:
             """Scatter real-node rows into the device graph's node space (the
@@ -1284,119 +1358,132 @@ class HierarchicalTrainer:
                 out[node_map] = arr
             return out
 
-        model_cfg = DirectGCNConfig(
-            layer_dims=layer_dims,
-            num_nodes=total_nodes,
-            num_classes=num_classes,
-            n_gram_len=n_val,
-            one_gram_dim=(gcn.one_gram_init_dim if n_val == 1 else 0),
-            max_pe_len=gcn.max_pe_len,
-            dropout=gcn.dropout_rate,
-            use_vector_coeffs=gcn.use_vector_coeffs,
-            remat=plan.remat,
-            remat_paths=plan.remat_paths,
-            compute_dtype=plan.compute_dtype,
-            node_param_dtype=plan.node_param_dtype,
-        )
-        init_gen = torch.Generator(device=dev).manual_seed(self.config.random_state + n_val)
-        params = init_directgcn_params(init_gen, model_cfg, device=dev)
-        if shard is not None:  # trainer.py:1931-1934
-            params = mesh.shard_model_params(params, shard.adj.node_rows(), shard.n_global,
-                                             layout.feat)
-        else:
-            params = _node_params_to_rg(params, full_graph)
-        for p in param_leaves(params):
-            p.requires_grad_(True)
+        with trace("level.init", always=True):
+            model_cfg = DirectGCNConfig(
+                layer_dims=layer_dims,
+                num_nodes=total_nodes,
+                num_classes=num_classes,
+                n_gram_len=n_val,
+                one_gram_dim=(gcn.one_gram_init_dim if n_val == 1 else 0),
+                max_pe_len=gcn.max_pe_len,
+                dropout=gcn.dropout_rate,
+                use_vector_coeffs=gcn.use_vector_coeffs,
+                remat=plan.remat,
+                remat_paths=plan.remat_paths,
+                compute_dtype=plan.compute_dtype,
+                node_param_dtype=plan.node_param_dtype,
+            )
+            init_gen = torch.Generator(device=dev).manual_seed(self.config.random_state + n_val)
+            params = init_directgcn_params(init_gen, model_cfg, device=dev)
+            if shard is not None:  # trainer.py:1931-1934
+                params = mesh.shard_model_params(params, shard.adj.node_rows(), shard.n_global,
+                                                 layout.feat)
+            else:
+                params = _node_params_to_rg(params, full_graph)
+            for p in param_leaves(params):
+                p.requires_grad_(True)
 
-        l2_lambda = gcn.l2_reg_lambda
-        wd = gcn.weight_decay if l2_lambda <= 0 else 0.0
-        if plan.factored:
-            logger.info("level n=%d: per-node tables train with factored (Adafactor) second "
-                        "moments (node_param_factored=%s)", n_val, gcn.node_param_factored)
-        local_nodes = total_nodes if shard is None else shard.n_local
-        opt = make_optimizer(params, gcn.lr, wd,
-                             factor_node_params_above=local_nodes if plan.factored else None,
-                             n_global=None if shard is None else shard.n_global,
-                             node_group=None if shard is None else shard.node_group)
-        # A stage per layer (trainer.py:1952-1958); Cluster-GCN batches are
-        # small and train fused (the JAX staged step takes no subgraph batch).
-        staged = bool(plan.stage_split) and not use_cluster
-        if shard is not None:
-            mask_total = float(graph.num_nodes)
-            step = make_train_step_sharded(model_cfg, opt, l2_lambda, shard, mask_total)
-        else:
-            step = (make_train_step_staged if staged else make_train_step)(model_cfg, opt,
-                                                                            l2_lambda)
-        sched = (PlateauScheduler(gcn.lr, gcn.lr_scheduler_patience, gcn.lr_scheduler_factor)
-                 if gcn.use_lr_scheduler else None)
-        stopper = (EarlyStopper(gcn.early_stopping_patience, gcn.early_stopping_min_delta)
-                   if gcn.use_early_stopping else None)
-        # On the host: a step draws its masks' seeds without a device sync;
-        # one generator a node shard (its feature shards draw the same masks
-        # of the whole rows they hold alike).
-        drop_gen = torch.Generator().manual_seed(
-            self.config.random_state * 7919 + n_val
-            + 104729 * (comm.rank() if layout is None else layout.rank))
+            l2_lambda = gcn.l2_reg_lambda
+            wd = gcn.weight_decay if l2_lambda <= 0 else 0.0
+            if plan.factored:
+                logger.info("level n=%d: per-node tables train with factored (Adafactor) second "
+                            "moments (node_param_factored=%s)", n_val, gcn.node_param_factored)
+            local_nodes = total_nodes if shard is None else shard.n_local
+            opt = make_optimizer(params, gcn.lr, wd,
+                                 factor_node_params_above=local_nodes if plan.factored else None,
+                                 n_global=None if shard is None else shard.n_global,
+                                 node_group=None if shard is None else shard.node_group)
+            if shard is not None:
+                mask_total = float(graph.num_nodes)
+                step = make_train_step_sharded(model_cfg, opt, l2_lambda, shard, mask_total)
+            else:
+                step = (make_train_step_staged if staged else make_train_step)(model_cfg, opt,
+                                                                                l2_lambda)
+            sched = (PlateauScheduler(gcn.lr, gcn.lr_scheduler_patience,
+                                      gcn.lr_scheduler_factor)
+                     if gcn.use_lr_scheduler else None)
+            stopper = (EarlyStopper(gcn.early_stopping_patience, gcn.early_stopping_min_delta)
+                       if gcn.use_early_stopping else None)
+            # On the host: a step draws its masks' seeds without a device sync;
+            # one generator a node shard (its feature shards draw the same masks
+            # of the whole rows they hold alike).
+            drop_gen = torch.Generator().manual_seed(
+                self.config.random_state * 7919 + n_val
+                + 104729 * (comm.rank() if layout is None else layout.rank))
+            if not use_cluster:
+                # The input in the compute type (trainer.py:2031-2032), rg on
+                # the hypercube; a shard's rows of it (trainer.py:2040-2049).
+                x_dtype = torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32
+                ones = np.ones(graph.num_nodes, dtype=np.float32)
+                if shard is not None:
+                    x, y, mask = mesh.shard_training_inputs(
+                        pad_nodes(x_np.astype(np.float32)), pad_nodes(y_np.astype(np.int64)),
+                        pad_nodes(ones), shard.adj, dev, x_dtype)
+                else:
+                    x = torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev).to(x_dtype)
+                    if full_graph.route == "hypercube":
+                        x = x.reshape(full_graph.p_in.feature_shape + (feat_dim,))
+                    y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
+                    mask = torch.from_numpy(pad_nodes(ones)).to(dev)
+        stats["spans"] = span_seconds(SETUP_SPANS)
 
         def end_epoch(epoch: int, loss: float) -> bool:
             """Step the plateau scheduler; True where early stopping ends the level."""
-            if sched is not None:
-                set_learning_rate(opt, sched.step(loss))
-            if stopper is not None and stopper.should_stop(loss):
-                logger.info("early stop at epoch %d (best %.5f)", epoch, stopper.best_loss)
-                return True
-            return False
+            with trace("epoch.end"):
+                if sched is not None:
+                    set_learning_rate(opt, sched.step(loss))
+                if stopper is not None and stopper.should_stop(loss):
+                    logger.info("early stop at epoch %d (best %.5f)", epoch, stopper.best_loss)
+                    return True
+                return False
 
-        stats: Dict[str, Any] = {"route": "cluster" if use_cluster else full_graph.route,
-                                 "staged": staged, "layer_dims": list(layer_dims)}
-        if shard is not None:
-            stats.update(world_size=comm.world_size(), rank=comm.rank(),
-                         node_shards=layout.node_shards, feat_shards=layout.feat_shards,
-                         rank_nodes=shard.n_local)
+        def epoch_spans(first: bool):
+            """An epoch's ``epoch`` span (under a profiler), inside the
+            always-on ``level.first_epoch`` where it is this call's first."""
+            outer = trace("level.first_epoch", always=True) if first else contextlib.nullcontext()
+            return outer, trace("epoch")
+
         losses: List[float] = []
         if use_cluster:
             t_build = time.monotonic()
-            batches, resident = self._make_cluster_batches(
-                graph, x_np, y_np, self.config.random_state, node_map=node_map)
+            with trace("level.cluster_batches", always=True):
+                batches, resident = self._make_cluster_batches(
+                    graph, x_np, y_np, self.config.random_state, node_map=node_map)
             stats.update(clusters=len(batches), budget=int(batches[0].x.shape[0]),
                          block_format=("dense" if isinstance(batches[0].graph.p_in, DenseAdj)
                                        else "ell"),
-                         resident=resident, cluster_build_seconds=time.monotonic() - t_build)
+                         resident=resident, cluster_build_seconds=time.monotonic() - t_build,
+                         spans=span_seconds(SETUP_SPANS))
             shuffle_rng = np.random.default_rng(self.config.random_state + n_val)
             launches0 = _launch_counts()
             t0 = time.monotonic()
             for epoch in range(1, gcn.epochs_per_level + 1):
-                batch_losses = []
-                for bi in shuffle_rng.permutation(len(batches)):
-                    # Streaming: this batch alone is copied to the device.
-                    b = batches[bi] if resident else batches[bi].to_device(dev)
-                    batch_losses.append(step(params, b.graph, b.x, b.y, b.mask, b.weight_factor,
-                                             drop_gen, b.original_indices)[0])
-                # One read-back an epoch, summed in batch order as the JAX
-                # loop sums float(loss) of each batch (trainer.py:2000-2005).
-                epoch_loss = 0.0
-                for v in torch.stack(batch_losses).tolist():
-                    epoch_loss += v
-                losses.append(epoch_loss / len(batches))
-                if end_epoch(epoch, losses[-1]):
+                outer, inner = epoch_spans(epoch == 1)
+                with outer, inner:
+                    batch_losses = []
+                    for bi in shuffle_rng.permutation(len(batches)):
+                        b = batches[bi]
+                        if not resident:  # streaming: this batch alone is copied
+                            with trace("batch.to_device"):
+                                b = b.to_device(dev)
+                        batch_losses.append(step(params, b.graph, b.x, b.y, b.mask,
+                                                 b.weight_factor, drop_gen,
+                                                 b.original_indices)[0])
+                    # One read-back an epoch, summed in batch order as the JAX
+                    # loop sums float(loss) of each batch (trainer.py:2000-2005).
+                    with trace("epoch.loss_read"):
+                        epoch_loss = 0.0
+                        for v in torch.stack(batch_losses).tolist():
+                            epoch_loss += v
+                    losses.append(epoch_loss / len(batches))
+                    stop = end_epoch(epoch, losses[-1])
+                if epoch == 1:
+                    stats["spans"] = span_seconds(SETUP_SPANS)
+                if stop:
                     break
             stats["steps"] = len(losses) * len(batches)
             del batches
         else:
-            # The input in the compute type (trainer.py:2031-2032), rg on the
-            # hypercube; a shard's rows of it (trainer.py:2040-2049).
-            x_dtype = torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32
-            ones = np.ones(graph.num_nodes, dtype=np.float32)
-            if shard is not None:
-                x, y, mask = mesh.shard_training_inputs(
-                    pad_nodes(x_np.astype(np.float32)), pad_nodes(y_np.astype(np.int64)),
-                    pad_nodes(ones), shard.adj, dev, x_dtype)
-            else:
-                x = torch.from_numpy(pad_nodes(x_np.astype(np.float32))).to(dev).to(x_dtype)
-                if full_graph.route == "hypercube":
-                    x = x.reshape(full_graph.p_in.feature_shape + (feat_dim,))
-                y = torch.from_numpy(pad_nodes(y_np.astype(np.int64))).to(dev)
-                mask = torch.from_numpy(pad_nodes(ones)).to(dev)
             every = gcn.checkpoint_every_epochs if ckpt_dir is not None else 0
             start_epoch = 1
             if every > 0:
@@ -1408,17 +1495,25 @@ class HierarchicalTrainer:
             launches0 = _launch_counts()
             t0 = time.monotonic()
             for epoch in range(start_epoch, gcn.epochs_per_level + 1):
-                loss, _ = step(params, full_graph, x, y, mask, 1.0, drop_gen)
-                losses.append(float(loss))
-                if metrics is not None:
-                    metrics.log_metrics({"level": n_val, "loss": losses[-1],
-                                         "lr": sched.lr if sched else gcn.lr}, step=epoch)
-                if end_epoch(epoch, losses[-1]):
+                outer, inner = epoch_spans(epoch == start_epoch)
+                with outer, inner:
+                    loss, _ = step(params, full_graph, x, y, mask, 1.0, drop_gen)
+                    with trace("epoch.loss_read"):
+                        losses.append(float(loss))
+                    if metrics is not None:  # a callback, which may switch profilers
+                        with trace_outside("epoch.log"):
+                            metrics.log_metrics({"level": n_val, "loss": losses[-1],
+                                                 "lr": sched.lr if sched else gcn.lr}, step=epoch)
+                    stop = end_epoch(epoch, losses[-1])
+                    if not stop and every > 0 and epoch % every == 0:
+                        with trace("level.checkpoint"):
+                            ckpt.save_train_state(ckpt_dir, epoch, params, opt,
+                                                  {"dropout_generator": drop_gen.get_state()},
+                                                  shard=shard)
+                if epoch == start_epoch:
+                    stats["spans"] = span_seconds(SETUP_SPANS)
+                if stop:
                     break
-                if every > 0 and epoch % every == 0:
-                    ckpt.save_train_state(ckpt_dir, epoch, params, opt,
-                                          {"dropout_generator": drop_gen.get_state()},
-                                          shard=shard)
             stats["steps"] = len(losses)
             del x
         seconds = time.monotonic() - t0
@@ -1430,41 +1525,40 @@ class HierarchicalTrainer:
 
         # Eval-mode embeddings on the full graph (reference: models_utils.py:264-273).
         t_eval = time.monotonic()
-        x_eval = pad_nodes(x_np.astype(np.float32))
-        with torch.no_grad():
-            if shard is not None:
-                x_eval = mesh.shard_training_inputs(x_eval, np.zeros(total_nodes, np.int64),
-                                                    np.zeros(total_nodes, np.float32),
-                                                    shard.adj, dev)[0]
-                _, embeds = directgcn_apply(params, full_graph, x_eval, model_cfg, train=False)
-                embeds = shard.gather(embeds)
-            else:
-                _, embeds = directgcn_apply(params, full_graph, torch.from_numpy(x_eval).to(dev),
-                                            model_cfg, train=False)
-        embeds = embeds.cpu().numpy()
-        if node_map is not None:
-            embeds = embeds[node_map]
-        elif embeds.shape[0] > graph.num_nodes:  # the shard padding's rows
-            embeds = embeds[: graph.num_nodes]
+        with trace("level.eval", always=True):
+            x_eval = pad_nodes(x_np.astype(np.float32))
+            with torch.no_grad():
+                if shard is not None:
+                    x_eval = mesh.shard_training_inputs(x_eval, np.zeros(total_nodes, np.int64),
+                                                        np.zeros(total_nodes, np.float32),
+                                                        shard.adj, dev)[0]
+                    _, embeds = directgcn_apply(params, full_graph, x_eval, model_cfg,
+                                                train=False)
+                    embeds = shard.gather(embeds)
+                else:
+                    _, embeds = directgcn_apply(params, full_graph,
+                                                torch.from_numpy(x_eval).to(dev), model_cfg,
+                                                train=False)
+            embeds = embeds.cpu().numpy()
+            if node_map is not None:
+                embeds = embeds[node_map]
+            elif embeds.shape[0] > graph.num_nodes:  # the shard padding's rows
+                embeds = embeds[: graph.num_nodes]
         eval_seconds = time.monotonic() - t_eval
         launches2 = _launch_counts()
-        self.level_stats[n_val] = {
-            **stats,
-            "plan": dataclasses.asdict(plan),
-            "nodes": graph.num_nodes,
-            "device_nodes": total_nodes,
-            "epochs": len(losses),
-            "losses": losses,
-            "operator_seconds": operator_seconds,  # host build + copy of the operators
-            "train_seconds": seconds,
-            "eval_seconds": eval_seconds,  # eval pass and copy of the embeddings to the host
+        stats.update(
+            epochs=len(losses),
+            losses=losses,
+            train_seconds=seconds,
+            eval_seconds=eval_seconds,  # eval pass and copy of the embeddings to the host
             # Training's kernel launches, and the eval pass's.
-            "launches": _launch_diff(launches0, launches1),
-            "eval_launches": _launch_diff(launches1, launches2),
+            launches=_launch_diff(launches0, launches1),
+            eval_launches=_launch_diff(launches1, launches2),
             # From the operators' build to the eval pass (None off the card).
-            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
-                                  if dev.type == "cuda" else None),
-        }
+            peak_device_bytes=(torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else None),
+            spans=span_seconds(SETUP_SPANS),
+        )
         return params, embeds, model_cfg, full_graph
 
     # ------------------------------------------------------------------

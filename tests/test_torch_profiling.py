@@ -1,54 +1,19 @@
-"""Port parity: ``utils/profiling.py`` against the JAX package's.
-
-``StepTimer``'s statistics on a given sequence of step times equal JAX's
-exactly (the same arithmetic on the same floats); ``capture_trace`` writes
-a Chrome trace that names a ``trace()`` range; the roofline helper equals
-JAX's; ``detect_bandwidth`` gives the CPU entry and refuses a card it does
-not know.
+"""``utils/profiling.py``'s profiles: ``capture_trace`` writes a Chrome
+trace that names a ``trace()`` span, and ``device_busy`` counts the union of
+the device's intervals, so operations that overlap count once.
 """
 
 import json
 
-import numpy as np
 import pytest
 import torch
 
 from protgram_directgcn_torch.utils import profiling as t_prof
-from protgram_directgcn_tpu.utils import profiling as j_prof
-
-
-@pytest.mark.parametrize("n_times,warmup", [(0, 2), (1, 2), (2, 2), (3, 2), (7, 2), (5, 0),
-                                            (6, 4)])
-def test_step_timer_statistics_match_jax(n_times, warmup):
-    times = list(np.random.default_rng(n_times * 10 + warmup).random(n_times) * 1e-3)
-    jt, tt = j_prof.StepTimer(warmup=warmup), t_prof.StepTimer(warmup=warmup)
-    jt.times.extend(times)
-    tt.times.extend(times)
-    assert tt.steady == jt.steady
-    for stat in ("mean", "best"):
-        j, t = getattr(jt, stat)(), getattr(tt, stat)()
-        assert (np.isnan(j) and np.isnan(t)) or j == t, stat
-
-
-def test_step_timer_records_each_step():
-    timer = t_prof.StepTimer(warmup=1)
-    for _ in range(3):
-        with timer:
-            torch.ones(8).sum()
-    assert len(timer.times) == 3 and all(t >= 0 for t in timer.times)
-    assert timer.best() <= timer.mean()
-
-
-@pytest.mark.parametrize("feat_dim,bandwidth,dtype_bytes", [(64, 5e10, 4), (256, 3.35e12, 2),
-                                                            (7, 8.19e11, 4)])
-def test_roofline_matches_jax(feat_dim, bandwidth, dtype_bytes):
-    assert (t_prof.spmm_roofline_edges_per_s(feat_dim, bandwidth, dtype_bytes)
-            == j_prof.spmm_roofline_edges_per_s(feat_dim, bandwidth, dtype_bytes))
 
 
 def test_capture_trace_names_the_trace_range(tmp_path):
     with t_prof.capture_trace(tmp_path / "prof", device="cpu") as prof:
-        with t_prof.trace("zoo_forward", log=True):
+        with t_prof.trace("zoo_forward"):
             (torch.ones(32, 32) @ torch.ones(32, 32)).sum()
     path = tmp_path / "prof" / "trace.json"
     events = json.loads(path.read_text())["traceEvents"]
@@ -57,10 +22,49 @@ def test_capture_trace_names_the_trace_range(tmp_path):
     assert busy["busy_share"] is None and busy["wall_seconds"] == 1.0
 
 
-def test_detect_bandwidth(monkeypatch):
-    assert t_prof.detect_bandwidth("cpu") == j_prof.HBM_BANDWIDTH["cpu"]
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "NVIDIA H100 80GB HBM3")
-    assert t_prof.detect_bandwidth("cuda") == 3.35e12
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "Some Other Card")
-    with pytest.raises(ValueError, match="Some Other Card"):
-        t_prof.detect_bandwidth("cuda")
+class _Event:
+    """A raw profiler event as ``device_busy`` reads it."""
+
+    def __init__(self, start, end, device=True, annotation=False):
+        self._start, self._end = start, end
+        self._device = torch.autograd.DeviceType.CUDA if device else torch.autograd.DeviceType.CPU
+        self._annotation = annotation
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._end - self._start
+
+    def device_type(self):
+        return self._device
+
+    def is_user_annotation(self):
+        return self._annotation
+
+
+class _Profile:
+    def __init__(self, events):
+        results = type("Results", (), {"events": lambda _self: events})()
+        self.profiler = type("Profiler", (), {"kineto_results": results})()
+
+
+@pytest.mark.parametrize("intervals,busy_ns", [
+    ([(0, 100), (200, 300)], 200),  # disjoint
+    ([(0, 100), (50, 150)], 150),  # overlapping, two streams
+    ([(0, 300), (100, 200)], 300),  # nested
+    ([(0, 100), (100, 200), (150, 250), (400, 410)], 260),  # touching, a chain, a gap
+])
+def test_device_busy_counts_overlaps_once(intervals, busy_ns):
+    events = [_Event(a, b) for a, b in intervals]
+    # Host operations and the device's annotation ranges are not device time.
+    events += [_Event(0, 10_000, device=False), _Event(0, 10_000, annotation=True)]
+    busy = t_prof.device_busy(_Profile(events), 1e-6)
+    assert busy["device_seconds"] == busy_ns / 1e9
+    assert busy["busy_share"] == pytest.approx(busy_ns / 1e3)
+
+
+@pytest.mark.parametrize("intervals", [[(5, 9), (0, 3), (2, 4)], [(3, 3)], []])
+def test_union_ns_is_order_free(intervals):
+    points = {t for a, b in intervals for t in range(a, b)}
+    assert t_prof.union_ns(intervals) == len(points)
