@@ -8,7 +8,8 @@ Phases, each printing one JSON line as it ends:
 
 0. device: the card's name and power limit (as nvidia-smi prints them), and
    the nvcc builds of csrc/hyper.cu (K1/K2), csrc/ell.cu (the ELL kernels)
-   and csrc/retile.cu (pack/unpack), started together, with their times,
+   csrc/retile.cu (pack/unpack) and csrc/optim.cu (Adam, the sum of
+   squares), started together, with their times,
    ptxas's registers and spills, and the ELL plans' occupancy; then
    ``python -m protgram_directgcn_torch.doctor`` in a process of its own,
    started here and read after phase 2, every check ``[ok]`` (phase
@@ -104,7 +105,14 @@ Phases, each printing one JSON line as it ends:
    G = 194,481 padded to 194,482, f = 64), float32 and bfloat16, the
    exact-width and the 128-padded pack input, forward and the autograd
    backward, held bit for bit against their plain versions; timed like
-   K1/K2, beside one PyTorch call of the same function;
+   K1/K2, beside one PyTorch call of the same function; then
+   ``optim_kernels``: Adam and the sum of squares over the benchmark cells'
+   parameters (n = 4, dims [256, 128, 64], 194,481 and 167,325 node rows,
+   f32) and over the tier path's 5-gram level at tier 2 (4,084,101 rows,
+   bf16 node tables), one step against the plain versions, and timed.
+   Every level the smoke trains through ``train_level`` on one card must
+   read in ``level_stats[n]["optimizer"]`` every Adam leaf updated by the
+   Adam kernel and none by the plain version;
 12. tier path: the entry point with ``graph_builder.ngram_max_n=5``, dims
    [256, 128, 64], ``gcn.default_task_type=closest_aa`` and the plan's
    device budget pinned to 32 GiB (``HierarchicalTrainer._hbm_override``),
@@ -235,6 +243,14 @@ ELL_WIDTHS = (32, 64, 128, 256)  # 32: the feature shards' last layer
 ELL_PATH_EPOCHS = 10  # epochs a level on the ell path
 CLUSTER_PATH_EPOCHS = 2
 W2V_EPOCHS = 2  # word2vec.epochs cut from 5
+# The optimizer kernels' cases, at input width 64 and dims [256, 128, 64]:
+# (node rows, n, node-table type).  The benchmark cells' n = 4 level over the
+# hypercube's rows or the vocabulary (f32), and the tier path's 5-gram level
+# at tier 2 (the free-memory level: bf16 node tables in the Adam group, the
+# layer-1 constant [21, 194,481, 256] of 1.05e9 elements).
+OPTIM_CASES = {"hyper.ngram4": (21**4, 4, "float32"), "ell.ngram4": (167_325, 4, "float32"),
+               "tier2.ngram5": (21**5, 5, "bfloat16")}
+OPTIM_DIMS = (64, 256, 128, 64)
 RETILE_CARRY = (21, 194_481, 64)  # A, G, f: the 5-gram level's last layer at [256, 128, 64]
 TIER_N = 5
 TIER_DIMS = (256, 128, 64)
@@ -289,6 +305,17 @@ def emit(phase: str, **fields) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+def check_optimizer_routes(where: str, st: dict, adafactor: bool = False) -> None:
+    """A trained level's ``level_stats[n]["optimizer"]`` on the card: every
+    Adam leaf updated by the fused kernel (``csrc/optim.cu``), none by the
+    plain version, the Adam kernel launched, and the Adafactor group (the
+    factored node tables of tiers 3-4) used where ``adafactor``."""
+    opt = st["optimizer"]
+    if (opt["plain"]["leaves"] != 0 or opt["fused"]["leaves"] <= 0
+            or opt["launches"]["adam"] <= 0 or (opt["adafactor"]["leaves"] > 0) != adafactor):
+        fail(f"{where}: optimizer routes {opt}")
 
 
 # -----------------------------------------------------------------------------
@@ -590,6 +617,7 @@ def run_main_path(torch, hk, fasta: str, workdir: str):
         st = stats[n]
         if not _finite(st["losses"]):
             fail(f"level n={n} has non-finite losses {st['losses']}")
+        check_optimizer_routes(f"main path n={n}", st)
         emit("main_path_level", level=n, **st)
     if stats[1]["route"] != "dense":
         fail("level n=1 should take the dense route")
@@ -814,6 +842,7 @@ def run_ell_path(torch, ek, fasta: str, workdir: str):
                 fail(f"ell path: level n={n}: {kernel} {direction} was never launched")
             if st["launches"][other][direction] != 0:
                 fail(f"ell path: level n={n} launched {other} ({direction})")
+        check_optimizer_routes(f"ell path n={n}", st)
         emit("ell_path_level", level=n, **st)
     if ek.resident_supported(stats[4]["nodes"]):
         fail(f"ell path: the n = 4 level's {stats[4]['nodes']} nodes are in the resident regime")
@@ -1178,6 +1207,7 @@ def run_cluster_path(torch, ek, fasta: str, workdir: str):
         st = stats[n]
         if not _finite(st["losses"]):
             fail(f"cluster path: level n={n} has non-finite losses {st['losses']}")
+        check_optimizer_routes(f"cluster path n={n}", st)
         emit("cluster_path_level", level=n, **st)
     for n in (1, 2, 3):
         st = stats[n]
@@ -1263,7 +1293,7 @@ def check_cluster_reference(torch, ek, graph_path: str, classes: int):
     from protgram_directgcn_torch.config import Config
     from protgram_directgcn_torch.graph.structure import load_graph
     from protgram_directgcn_torch.models import directgcn
-    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer, _loss_fn
+    from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer, _primary_loss
 
     graph = load_graph(graph_path)
     n = graph.num_nodes
@@ -1293,8 +1323,8 @@ def check_cluster_reference(torch, ek, graph_path: str, classes: int):
                 params = _tree_to(torch, params_cpu, dev)
                 for p in directgcn.param_leaves(params):
                     p.requires_grad_(True)
-                loss, _ = _loss_fn(params, b.graph, b.x, b.y, b.mask, b.weight_factor, None, cfg,
-                                   config.gcn.l2_reg_lambda, b.original_indices)
+                loss = _primary_loss(params, b.graph, b.x, b.y, b.mask, None, cfg,
+                                     b.original_indices) * b.weight_factor
                 loss.backward()
                 grads[dev] = [loss.detach().cpu().reshape(1)] + [
                     p.grad.cpu() for p in directgcn.param_leaves(params)]
@@ -1506,6 +1536,114 @@ def check_retile_kernels(torch, rt):
     return records
 
 
+def check_optim_kernels(torch, ok):
+    """Adam and the sum of squares (``csrc/optim.cu``) over each of
+    ``OPTIM_CASES``' leaves: the benchmark cells' n = 4 level (58 f32
+    leaves over the hypercube's rows or the vocabulary) and the tier path's
+    5-gram level at tier 2 (bf16 node tables, f32 weights, in one launch).
+    One step of each kernel over every leaf, held against its plain version
+    from the same state, leaf by leaf: f32 leaves within rtol 2.5e-7 / atol
+    2e-9 and their moments within 2 f32 ulps of the terms each sums; bf16
+    leaves within one bf16 ulp of the value (2^-7 of it, plus 1e-2) and
+    their moments within 2^-7 of the terms (the card tests' bounds); the
+    sum within rtol 1e-6 of the plain sum and of a float64 sum.  Then
+    timed: kernel, plain version and wrapper, beside the bound (each
+    element's p, g, mu and nu read and p, mu and nu written once; read once
+    for the sum)."""
+    from protgram_directgcn_torch.models import directgcn
+    from protgram_directgcn_torch.models.mlp import adam_bias_corrections
+    from protgram_directgcn_torch.pipeline import trainer as tr
+
+    chunk = tr._UPDATE_CHUNK
+    b1, b2, c = tr._ADAM_B1, tr._ADAM_B2, 2e-7
+    args = (1e-3, b1, b2, tr._ADAM_EPS, *adam_bias_corrections(3), c)
+    records = []
+    for case, (nodes, n_gram, node_dtype) in OPTIM_CASES.items():
+        cfg = directgcn.DirectGCNConfig(layer_dims=OPTIM_DIMS, num_nodes=nodes, num_classes=4,
+                                        n_gram_len=n_gram, node_param_dtype=node_dtype)
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        params = directgcn.init_directgcn_params(gen, cfg, DEVICE)
+        if nodes == 21**n_gram:  # stored as the trainer stores a hypercube level's constants
+            for lp in params["layers"]:
+                lp["constant"] = lp["constant"].reshape(21, nodes // 21, -1)
+        ps = directgcn.param_leaves(params)
+        del params
+        for p in ps:
+            p.grad = torch.randn(p.shape, device=DEVICE, generator=gen).to(p.dtype)
+        mus = [torch.randn(p.shape, device=DEVICE, generator=gen).mul_(1e-2) for p in ps]
+        nus = [torch.rand(p.shape, device=DEVICE, generator=gen).mul_(1e-4) for p in ps]
+        elements = sum(p.numel() for p in ps)
+        bf16 = sum(p.numel() for p in ps if p.dtype == torch.bfloat16)
+        # The state before the step; the plain version steps it leaf by leaf.
+        ref = [(p.detach().clone(), mu.clone(), nu.clone()) for p, mu, nu in zip(ps, mus, nus)]
+        launches = ok.launch_counts()
+        l2 = float(ok.sum_squares(ps, chunk))
+        ok.adam(ps, mus, nus, *args, chunk)
+        launches = {k: v - launches[k] for k, v in ok.launch_counts().items()}
+        l2_plain = float(ok.sum_squares_plain([r[0] for r in ref], chunk))
+        l2_exact = sum(float(torch.sum(r[0].reshape(-1)[sl].double() ** 2))
+                       for r in ref for sl in ok.row_slices(r[0].reshape(-1), chunk))
+        worst = {"p": 0.0, "mu": 0.0, "nu": 0.0}
+        for i, (p, mu, nu) in enumerate(zip(ps, mus, nus)):
+            p0, mu0, nu0 = ref[i]
+            half = p.dtype == torch.bfloat16
+            ulps = 2.0**-7 if half else 2.0**-22
+            flat = [t.detach().reshape(-1) for t in (p0, mu0, nu0, p.grad)]
+            # Each moment's room from the terms it sums (b1 * mu and
+            # (1 - b1) * g' may cancel; one version fuses a multiply into an add).
+            rooms = [torch.empty(p.numel(), device=DEVICE) for _ in range(2)]
+            for sl in ok.row_slices(flat[0], chunk):
+                g = flat[3][sl].float().abs() + c * flat[0][sl].float().abs()
+                torch.mul(b1 * flat[1][sl].abs() + (1 - b1) * g, ulps, out=rooms[0][sl])
+                torch.mul(b2 * flat[2][sl] + (1 - b2) * g * g, ulps, out=rooms[1][sl])
+            p0.grad = p.grad
+            ok.adam_plain([p0], [mu0], [nu0], *args, chunk)
+            p0.grad = None
+            for sl in ok.row_slices(flat[0], chunk):
+                want = flat[0][sl].float()
+                room_p = 2.0**-7 * (want.abs() + 1e-2) if half else 2e-9 + 2.5e-7 * want.abs()
+                for key, got, w, room in (
+                        ("p", p.detach().reshape(-1)[sl].float(), want, room_p),
+                        ("mu", mu.reshape(-1)[sl], flat[1][sl], rooms[0][sl]),
+                        ("nu", nu.reshape(-1)[sl], flat[2][sl], rooms[1][sl])):
+                    err = (got - w).abs()
+                    worst[key] = max(worst[key], float(err.max()))
+                    if not bool((err <= room + 1e-30).all()):
+                        fail(f"optim {case}: adam's {key} of leaf {i} ({p.dtype}, "
+                             f"{tuple(p.shape)}) differs from its plain version "
+                             f"(max abs err {float(err.max())})")
+            del rooms
+        rec = {"case": case, "leaves": len(ps), "elements": elements, "bf16_elements": bf16,
+               "largest_leaf": max(p.numel() for p in ps), "launches_per_step": launches,
+               "l2": l2, "l2_plain": l2_plain, "l2_exact": l2_exact,
+               "l2_rel_err": abs(l2 - l2_plain) / l2_plain,
+               "l2_rel_err_exact": abs(l2 - l2_exact) / l2_exact,
+               "l2_plain_rel_err_exact": abs(l2_plain - l2_exact) / l2_exact,
+               "max_abs_err": worst}
+        if max(rec["l2_rel_err"], rec["l2_rel_err_exact"]) > 1e-6:
+            fail(f"optim {case}: sum of squares {l2} against the plain {l2_plain} and the "
+                 f"float64 {l2_exact}")
+        del ref
+        torch.cuda.empty_cache()
+        iters = 10 if not bf16 else 3
+        fns = {"adam": lambda: ok.adam(ps, mus, nus, *args, chunk),
+               "adam_plain": lambda: ok.adam_plain(ps, mus, nus, *args, chunk),
+               "l2": lambda: ok.sum_squares(ps, chunk),
+               "l2_plain": lambda: ok.sum_squares_plain(ps, chunk)}
+        for key, fn in fns.items():
+            rec[f"{key}_ms"] = _device_ms(torch, fn, iters)
+        for key in ("adam", "l2"):
+            rec[f"{key}_wrapper_ms"] = _wrapper_ms(torch, fns[key], iters)
+        # Adam: 28 bytes an f32 element, 22 a bf16 one (p and g 2 bytes); the sum 4 or 2.
+        rec["adam_bound_ms"] = (28 * elements - 6 * bf16) / HBM_BYTES_PER_S * 1e3
+        rec["l2_bound_ms"] = (4 * elements - 2 * bf16) / HBM_BYTES_PER_S * 1e3
+        emit("optim_kernels", **rec)
+        records.append(rec)
+        del ps, mus, nus, fns
+        torch.cuda.empty_cache()
+    return records
+
+
 # -----------------------------------------------------------------------------
 # Phase 12: tier path
 # -----------------------------------------------------------------------------
@@ -1552,6 +1690,7 @@ def run_tier_path(torch, hk, rt, fasta: str, workdir: str):
                                       "remat_paths", "factored"))
         if got != want:
             fail(f"tier path: level n={n} planned {got}, expected {want}")
+        check_optimizer_routes(f"tier path n={n}", st, adafactor=plan["factored"])
         emit("tier_path_level", level=n, **st)
     last = stats[TIER_N]
     for k in ("k1", "k2", "pack", "unpack"):
@@ -1593,6 +1732,7 @@ def run_free_memory_level(torch, config, graph_path: str, tier3_peak: int):
     st = trainer.level_stats[TIER_N]
     if not _finite(st["losses"]) or st["route"] != "hypercube":
         fail(f"free-memory level: route {st['route']}, losses {st['losses']}")
+    check_optimizer_routes("free-memory level", st, adafactor=st["plan"]["factored"])
     torch.cuda.empty_cache()
     emit("tier_plan_free_memory", level=TIER_N, hypercube_nodes=n_hyper,
          device_budget_bytes=budget, level_seconds=seconds, **st,
@@ -1803,6 +1943,7 @@ def run_tier4_level(torch, hk, rt, config, graph_path: str, tier3_peak: int):
         for direction in ("fwd", "bwd"):
             if st["launches"][k][direction] <= 0:
                 fail(f"tier-4 level: {k} {direction} was never launched")
+    check_optimizer_routes("tier-4 level", st, adafactor=st["plan"]["factored"])
     torch.cuda.empty_cache()
     swiss = {str(tier): need(SWISSPROT_HYPER_NODES, tier) + floor for tier in (3, 4)}
     emit("tier4_level", level=TIER_N, hypercube_nodes=n_hyper, pin_bytes=pin,
@@ -3286,6 +3427,7 @@ def main() -> int:
     from protgram_directgcn_torch.ops import ell_kernels as ek
     from protgram_directgcn_torch.ops import hyper_kernels as hk
     from protgram_directgcn_torch.ops import hypercube as hyper
+    from protgram_directgcn_torch.ops import optim_kernels as ok
     from protgram_directgcn_torch.ops import retile as rt
     from protgram_directgcn_torch.pipeline.trainer import HierarchicalTrainer
     from protgram_directgcn_torch.utils.device import resolve_device
@@ -3296,9 +3438,10 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     t_build = time.monotonic()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        infos = dict(zip(("hyper", "ell", "retile"),
-                         pool.map(lambda build: build(), (hk.build, ek.build, rt.build))))
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+        infos = dict(zip(("hyper", "ell", "retile", "optim"),
+                         pool.map(lambda build: build(), (hk.build, ek.build, rt.build,
+                                                          ok.build))))
     build_wall = time.monotonic() - t_build
     ptxas = {name: _ptxas_lines(info["log"]) for name, info in infos.items()}
     emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -3351,6 +3494,7 @@ def main() -> int:
         check_louvain(cluster_graphs, level4["louvain_seconds"])
         check_cluster_reference(torch, ek, cluster_graphs[3], level4["num_classes"])
         retile_records = check_retile_kernels(torch, rt)
+        check_optim_kernels(torch, ok)
         with _OperatorCache(HierarchicalTrainer):
             tier_counts, tier_config, tier_graphs, tier3_peak = run_tier_path(
                 torch, hk, rt, fasta, workdir)

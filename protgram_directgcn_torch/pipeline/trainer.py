@@ -68,7 +68,7 @@ from protgram_directgcn_torch.models.directgcn import (
     unpack_rg_carry,
 )
 from protgram_directgcn_torch.models.mlp import OptaxAdam, adam_bias_corrections
-from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, retile
+from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, optim_kernels, retile
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.ops.spmm import DenseAdj, EllAdj, _ell_one_sided
 from protgram_directgcn_torch.parallel import distributed as comm
@@ -158,9 +158,10 @@ def _factored_dims(shape) -> Optional[Tuple[int, int]]:
     return int(order[-2]), int(order[-1])
 
 
-# An update runs over slices of a parameter's first dim of at most this many
-# elements, so that its f32 temporaries stay at a few hundred MB where a
-# 5-gram constant holds 10^9 elements (XLA fuses the same update in place).
+# A plain update (CPU tensors; the Adafactor group on any device) runs over
+# slices of a parameter's first dim of at most this many elements, so that
+# its f32 temporaries stay at a few hundred MB where a 5-gram constant holds
+# 10^9 elements (XLA fuses the same update in place).
 _UPDATE_CHUNK = 1 << 25
 
 
@@ -169,7 +170,11 @@ class TrainOptimizer(torch.optim.Optimizer):
 
     - Weight decay is added to the gradient before the moments (optax
       ``add_decayed_weights``; torch.optim.Adam's L2), summed in f32 and
-      rounded to the parameter's type, the type of its gradient.
+      rounded to the parameter's type, the type of its gradient.  The L2
+      term of the loss, ``l2_lambda`` times the sum of squares of the
+      leaves, is added the same way, as ``2 * l2_lambda * p``: the step
+      factories set ``l2_lambda`` and take the term out of autograd
+      (``sum_of_squares`` gives its value).
     - Group "adam": Adam (b1 0.9, b2 0.999, eps 1e-8), its bias corrections
       in float32 as optax computes them (``adam_bias_corrections``).
     - Group "adafactor" (the node tables when factored): optax 0.2.6's
@@ -185,50 +190,58 @@ class TrainOptimizer(torch.optim.Optimizer):
       sum stored in the parameter's type (``optax.apply_updates``).
 
     A parameter without a gradient is skipped, as torch.optim does.  The
-    float32 Adam leaves of at most ``_UPDATE_CHUNK`` elements update
-    together, one ``torch._foreach_*`` launch per operation for all of them
-    (torch.optim.Adam's multi-tensor path); every other leaf updates on its
-    own, slice by slice.  On a node shard (``parallel/``) the Adafactor
-    group's leaves hold this rank's rows of ``n_global`` nodes: their
-    factoring follows the global shape and their means over the node axis
-    are summed over the ranks.
+    Adam leaves at one step count update together through
+    ``ops/optim_kernels.adam``: on the card one multi-tensor launch
+    (``csrc/optim.cu``), on the CPU its plain version.  ``updated`` counts
+    the leaves (by identity) and elements each route has updated: "fused"
+    (the kernel), "plain", "adafactor".  On a node shard (``parallel/``)
+    the Adafactor group's leaves hold this rank's rows of ``n_global``
+    nodes: their factoring follows the global shape and their means over
+    the node axis are summed over the ranks.
     """
+
+    def __init__(self, params, defaults):
+        super().__init__(params, defaults)
+        self.l2_lambda = 0.0
+        self.updated: Dict[str, Dict[int, int]] = {"fused": {}, "plain": {}, "adafactor": {}}
+
+    def _decay(self, group) -> float:
+        return group["weight_decay"] + 2.0 * self.l2_lambda
 
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
-            lr, wd = group["lr"], group["weight_decay"]
+            lr, c = group["lr"], self._decay(group)
             params = [p for p in group["params"] if p.grad is not None]
             if group["kind"] == "adafactor":
                 for p in params:
-                    _adafactor_update(self.state[p], p, lr, wd, group.get("n_global"),
+                    _adafactor_update(self.state[p], p, lr, c, group.get("n_global"),
                                       group.get("node_group"))
+                    self.updated["adafactor"][id(p)] = p.numel()
                 continue
             together: Dict[int, list] = {}
             for p in params:
-                if p.dtype == torch.float32 and p.numel() <= _UPDATE_CHUNK:
-                    step = _adam_begin(self.state[p], p)
-                    together.setdefault(step, []).append(p)
-                else:
-                    _adam_update(self.state[p], p, lr, wd)
+                together.setdefault(_adam_begin(self.state[p], p), []).append(p)
             for step, ps in together.items():
-                _adam_foreach([self.state[p] for p in ps], ps, step, lr, wd)
+                states = [self.state[p] for p in ps]
+                optim_kernels.adam(ps, [st["mu"] for st in states], [st["nu"] for st in states],
+                                   lr, _ADAM_B1, _ADAM_B2, _ADAM_EPS,
+                                   *adam_bias_corrections(step), c, _UPDATE_CHUNK)
+                route = self.updated["fused" if ps[0].is_cuda else "plain"]
+                route.update((id(p), p.numel()) for p in ps)
 
+    def sum_of_squares(self) -> Optional[torch.Tensor]:
+        """The sum of squares in f32 of every leaf that has a gradient (the
+        loss's L2 term, before the update; one launch on the card), or None
+        where none has."""
+        leaves = [p for group in self.param_groups for p in group["params"]
+                  if p.grad is not None]
+        return optim_kernels.sum_squares(leaves, _UPDATE_CHUNK) if leaves else None
 
-def _slices(t: torch.Tensor):
-    rows = max(1, _UPDATE_CHUNK // max(1, t[0].numel()))
-    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
-
-
-def _grad_f32(p: torch.Tensor, sl: slice, wd: float) -> torch.Tensor:
-    g = p.grad[sl].float()
-    if wd:
-        g = (g + wd * p[sl].float()).to(p.dtype).float()
-    return g
-
-
-def _apply(p: torch.Tensor, sl: slice, lr: float, direction: torch.Tensor) -> None:
-    p[sl] = (p[sl].float() - lr * direction).to(p.dtype)
+    def update_counts(self) -> Dict[str, Dict[str, int]]:
+        """Leaves and elements each route has updated."""
+        return {route: {"leaves": len(seen), "elements": sum(seen.values())}
+                for route, seen in self.updated.items()}
 
 
 def _adam_begin(state: dict, p: torch.Tensor) -> int:
@@ -238,37 +251,6 @@ def _adam_begin(state: dict, p: torch.Tensor) -> int:
                      nu=torch.zeros_like(p, dtype=torch.float32))
     state["step"] += 1
     return state["step"]
-
-
-def _adam_foreach(states: list, ps: list, step: int, lr: float, wd: float) -> None:
-    """``_adam_update`` for float32 leaves at one step count, together."""
-    bc1, bc2 = adam_bias_corrections(step)
-    grads = [p.grad for p in ps]
-    if wd:
-        grads = torch._foreach_add(grads, ps, alpha=wd)
-    mus, nus = [st["mu"] for st in states], [st["nu"] for st in states]
-    torch._foreach_mul_(mus, _ADAM_B1)
-    torch._foreach_add_(mus, grads, alpha=1.0 - _ADAM_B1)
-    torch._foreach_mul_(nus, _ADAM_B2)
-    torch._foreach_addcmul_(nus, grads, grads, value=1.0 - _ADAM_B2)
-    denom = torch._foreach_div(nus, bc2)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, _ADAM_EPS)
-    direction = torch._foreach_div(mus, bc1)
-    torch._foreach_div_(direction, denom)
-    torch._foreach_add_(ps, direction, alpha=-lr)
-
-
-def _adam_update(state: dict, p: torch.Tensor, lr: float, wd: float) -> None:
-    """optax ``scale_by_adam``: bias-corrected mu / (sqrt(nu) + eps), with
-    optax's float32 corrections."""
-    step = _adam_begin(state, p)
-    bc1, bc2 = adam_bias_corrections(step)
-    for sl in _slices(p):
-        g = _grad_f32(p, sl, wd)
-        mu = state["mu"][sl].mul_(_ADAM_B1).add_(g, alpha=1.0 - _ADAM_B1)
-        nu = state["nu"][sl].mul_(_ADAM_B2).addcmul_(g, g, value=1.0 - _ADAM_B2)
-        _apply(p, sl, lr, (mu / bc1) / (torch.sqrt(nu / bc2) + _ADAM_EPS))
 
 
 def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float,
@@ -298,15 +280,15 @@ def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float,
     beta = float(np.float32(1.0) - t ** np.float32(-_ADAFACTOR_DECAY))
     state["step"] += 1
     if dims is None:
-        for sl in _slices(p):
-            g = _grad_f32(p, sl, wd)
+        for sl in optim_kernels.row_slices(p, _UPDATE_CHUNK):
+            g = optim_kernels.grad_f32(p, sl, wd)
             v = state["v"][sl].mul_(beta).add_(g * g + _ADAFACTOR_EPS, alpha=1.0 - beta)
-            _apply(p, sl, lr, g * v.pow(-0.5))
+            optim_kernels.apply_direction(p, sl, lr, g * v.pow(-0.5))
         return
     d1, d0 = dims
     sums = {d: p.new_zeros(drop(d), dtype=torch.float32) for d in (d0, d1)}
-    for sl in _slices(p):
-        g = _grad_f32(p, sl, wd)
+    for sl in optim_kernels.row_slices(p, _UPDATE_CHUNK):
+        g = optim_kernels.grad_f32(p, sl, wd)
         sq = g * g + _ADAFACTOR_EPS
         for d, total in sums.items():
             if d == 0:
@@ -324,10 +306,11 @@ def _adafactor_update(state: dict, p: torch.Tensor, lr: float, wd: float,
         row_mean = v_row.mean(reduced_d1, keepdim=True)
     row_factor = (v_row / row_mean).pow(-0.5).unsqueeze(d0)
     col_factor = v_col.pow(-0.5).unsqueeze(d1)
-    for sl in _slices(p):
-        g = _grad_f32(p, sl, wd)
-        _apply(p, sl, lr, g * (row_factor if d0 == 0 else row_factor[sl])
-               * (col_factor if d1 == 0 else col_factor[sl]))
+    for sl in optim_kernels.row_slices(p, _UPDATE_CHUNK):
+        g = optim_kernels.grad_f32(p, sl, wd)
+        optim_kernels.apply_direction(p, sl, lr,
+                                      g * (row_factor if d0 == 0 else row_factor[sl])
+                                      * (col_factor if d1 == 0 else col_factor[sl]))
 
 
 def make_optimizer(params, lr: float, weight_decay: float,
@@ -358,17 +341,14 @@ def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _loss_fn(params, graph, x, y, mask, weight_factor, gen, model_cfg, l2_lambda,
-             original_indices=None):
-    """Masked next-node NLL plus ``l2_lambda`` times the sum of squares of
-    every parameter (in f32); returns (loss, primary).  ``original_indices``:
-    a Cluster-GCN batch's node ids (the model gathers its per-node
-    parameters there)."""
+def _primary_loss(params, graph, x, y, mask, gen, model_cfg, original_indices=None):
+    """The masked next-node NLL, the loss's term inside autograd (the L2
+    term is the optimizer's: ``TrainOptimizer``).  ``original_indices``: a
+    Cluster-GCN batch's node ids (the model gathers its per-node parameters
+    there)."""
     log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
                                 original_indices=original_indices, flatten_rg=False)
-    primary = _masked_nll(log_sm, y, mask)
-    l2 = sum(torch.sum(torch.square(p.float())) for p in param_leaves(params))
-    return primary * weight_factor + l2_lambda * l2, primary
+    return _masked_nll(log_sm, y, mask)
 
 
 def _masked_nll(log_sm: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -381,25 +361,35 @@ def _masked_nll(log_sm: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> to
     return torch.sum(per_node * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
-def make_train_step(model_cfg: DirectGCNConfig, opt: torch.optim.Optimizer, l2_lambda: float):
-    """One step on the full level or a Cluster-GCN batch: loss and
-    gradients, then the optimizer update.  Returns (loss, primary) as
-    computed before the update.  Spans (under a profiler): ``step``, with
-    ``step.optimizer`` (zero_grad), ``step.forward``, ``step.backward`` and
-    ``step.optimizer`` (the update)."""
+def make_train_step(model_cfg: DirectGCNConfig, opt: TrainOptimizer, l2_lambda: float):
+    """One step on the full level or a Cluster-GCN batch: the masked NLL
+    (times the batch's weight factor) and its gradients, then the optimizer
+    update, with the L2 term out of autograd: its value is the leaves' sum
+    of squares before the update (``opt.sum_of_squares``: the leaves with a
+    gradient, which on every level are all of them) and its gradient
+    ``2 * l2_lambda * p`` is added inside the update (``opt.l2_lambda``),
+    as the staged step adds it.  Returns (loss, primary) as computed before
+    the update: ``loss = primary * weight_factor + l2_lambda * l2``.  Spans
+    (under a profiler): ``step``, with ``step.optimizer`` (zero_grad),
+    ``step.forward``, ``step.backward`` and ``step.optimizer`` (the sum of
+    squares and the update)."""
 
     def step(params, graph, x, y, mask, weight_factor, gen, original_indices=None):
         with trace("step"):
             with trace("step.optimizer"):
                 opt.zero_grad(set_to_none=True)
+                opt.l2_lambda = l2_lambda
             with trace("step.forward"):
-                loss, primary = _loss_fn(params, graph, x, y, mask, weight_factor, gen,
-                                         model_cfg, l2_lambda, original_indices)
+                primary = _primary_loss(params, graph, x, y, mask, gen, model_cfg,
+                                        original_indices)
+                loss = primary * weight_factor
             with trace("step.backward"):
                 loss.backward()
             with trace("step.optimizer"):
+                l2 = opt.sum_of_squares() if l2_lambda else None
                 opt.step()
-        return loss.detach(), primary.detach()
+        loss = loss.detach()
+        return (loss if l2 is None else loss + l2_lambda * l2), primary.detach()
 
     return step
 
@@ -572,29 +562,6 @@ def make_train_step_sharded(model_cfg: DirectGCNConfig, opt: torch.optim.Optimiz
     return step
 
 
-def _l2_sum(leaves) -> torch.Tensor:
-    """Sum of squares of the leaves in f32, slice by slice (bounded f32
-    temporaries where a node table holds 10^9 elements)."""
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    with torch.no_grad():
-        for p in leaves:
-            for sl in _slices(p):
-                total += torch.sum(torch.square(p[sl].float()))
-    return total
-
-
-def _add_l2_grads(leaves, l2_lambda: float) -> None:
-    """The gradient of ``l2_lambda * sum(p.float() ** 2)`` added to each
-    leaf's gradient in f32 and rounded to the gradient's type, as the JAX
-    staged step adds it (trainer.py:350-357)."""
-    if not l2_lambda:
-        return
-    with torch.no_grad():
-        for p in leaves:
-            for sl in _slices(p):
-                p.grad[sl] = (p.grad[sl].float() + 2.0 * l2_lambda * p[sl].float()).to(p.grad.dtype)
-
-
 def _packable(width: int) -> bool:
     """Whether a carry of this width packs below 128 lanes (pack_rg_carry)."""
     return width < 128 and 128 % width == 0
@@ -620,8 +587,9 @@ def make_train_step_staged(model_cfg: DirectGCNConfig, opt: torch.optim.Optimize
 
     The update equals the fused step's: every gradient is taken at the
     step's starting parameters (a layer's recompute reads only layers below
-    it, not updated yet), L2 is added to the gradient (``_add_l2_grads``),
-    Adam and Adafactor update each leaf on its own with its own step count,
+    it, not updated yet), L2 is added to the gradient inside the update
+    (``TrainOptimizer.l2_lambda``), Adam and Adafactor update each layer's
+    leaves with their own step counts,
     and the dropout masks come from the same per-layer seeds.  No
     positional-encoding table (n = 1 levels train fused).  Returns (loss,
     primary) as computed before the update.  Spans (under a profiler):
@@ -636,11 +604,11 @@ def make_train_step_staged(model_cfg: DirectGCNConfig, opt: torch.optim.Optimize
     held = [True] + [_packable(dims[k]) for k in range(1, n_layers)] + [True]
 
     def update(leaves) -> torch.Tensor:
-        """Update ``leaves`` and free their gradients; returns their sum of
-        squares (the loss's L2 term) before the update."""
+        """Update ``leaves``, the leaves with a gradient, and free their
+        gradients; returns their sum of squares (the loss's L2 term) before
+        the update."""
         with trace("step.optimizer"):
-            l2_sum = _l2_sum(leaves)
-            _add_l2_grads(leaves, l2_lambda)
+            l2_sum = opt.sum_of_squares()
             opt.step()  # only the leaves with a gradient move
             for p in leaves:
                 p.grad = None
@@ -655,6 +623,7 @@ def make_train_step_staged(model_cfg: DirectGCNConfig, opt: torch.optim.Optimize
     def staged_step(params, graph, x, y, mask, weight_factor, gen):
         with trace("step.optimizer"):
             opt.zero_grad(set_to_none=True)
+            opt.l2_lambda = l2_lambda
         rg_lead = tuple(x.shape[:2]) if x.dim() == 3 else None
         seeds = dropout_seeds(gen, n_layers + 1)
 
@@ -1291,7 +1260,9 @@ class HierarchicalTrainer:
         ``level.checkpoint`` and, streaming, ``batch.to_device``.
         ``self.level_stats[n]`` is written as the level goes: the plan, then
         the route and ``operator_seconds``, and the set-up spans' seconds by
-        name (``spans``) after each stage."""
+        name (``spans``) after each stage; after training, ``optimizer``: the
+        leaves and elements each update route took (``TrainOptimizer.
+        update_counts``) and the optimizer kernels' launches."""
         gcn = self.gcn
         dev = self.device
         n_val = graph.n
@@ -1455,7 +1426,7 @@ class HierarchicalTrainer:
                          resident=resident, cluster_build_seconds=time.monotonic() - t_build,
                          spans=span_seconds(SETUP_SPANS))
             shuffle_rng = np.random.default_rng(self.config.random_state + n_val)
-            launches0 = _launch_counts()
+            launches0, optim0 = _launch_counts(), optim_kernels.launch_counts()
             t0 = time.monotonic()
             for epoch in range(1, gcn.epochs_per_level + 1):
                 outer, inner = epoch_spans(epoch == 1)
@@ -1492,7 +1463,7 @@ class HierarchicalTrainer:
                     start_epoch = restored[0] + 1
                     drop_gen.set_state(restored[1]["dropout_generator"])
             stats["start_epoch"] = start_epoch
-            launches0 = _launch_counts()
+            launches0, optim0 = _launch_counts(), optim_kernels.launch_counts()
             t0 = time.monotonic()
             for epoch in range(start_epoch, gcn.epochs_per_level + 1):
                 outer, inner = epoch_spans(epoch == start_epoch)
@@ -1518,6 +1489,11 @@ class HierarchicalTrainer:
             del x
         seconds = time.monotonic() - t0
         launches1 = _launch_counts()
+        optim1 = optim_kernels.launch_counts()
+        # The leaves and elements each update route took, and the training's
+        # launches of the optimizer's kernels.
+        stats["optimizer"] = {**opt.update_counts(),
+                              "launches": {k: optim1[k] - optim0[k] for k in optim1}}
         logger.info("n=%d %s training on %s (%s operators): %d epochs in %.2fs "
                     "(final loss %.5f)", n_val, stats["route"], dev, full_graph.route,
                     len(losses), seconds, losses[-1] if losses else float("nan"))
