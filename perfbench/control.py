@@ -2,7 +2,9 @@
 steps, and in the program's place the reference computed with TF32 on (the
 control: the nearest precision below the configuration's float32) and the
 reference whose loss is the mean over half the real nodes (a planted
-fault), each compared with the float32 reference by ``check.compare``.
+fault), each compared with the float32 reference by ``check.compare``.  The
+reference is the one of the model that the cell's configuration names
+(``models/<model>.py``: its ``first_steps`` with ``tf32`` or ``half_batch``).
 
     python3 perfbench/control.py --workload hyper.ngram4 --seeds 11 12 13 \\
         --out control_hyper.jsonl
@@ -26,7 +28,6 @@ sys.path[0] = str(Path(__file__).resolve().parents[1])
 import torch  # noqa: E402
 
 from perfbench.lib import check, corpus, manifest, runner  # noqa: E402
-from perfbench.reference import level as ref_level  # noqa: E402
 
 
 def as_program(ref: dict) -> dict:
@@ -40,6 +41,7 @@ def readings(bench: dict, cell: dict, seeds, device, mix=None, cache_root=corpus
     """Yield one dict of numbers a seed: ``sound`` (the program),
     ``control`` and ``half_batch``."""
     cfg = manifest.config(bench, cell["config"])
+    model = manifest.model(bench, cell["config"])
     mix = mix or manifest.traffic(cell["traffic"])
     fasta, graph_path = corpus.level_files(mix, cache_root)
     from protgram_directgcn_torch.graph.structure import load_graph
@@ -58,15 +60,14 @@ def readings(bench: dict, cell: dict, seeds, device, mix=None, cache_root=corpus
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        level = ref_level.build_level(str(fasta), mix["n"], cfg["node_space"],
-                                      cfg["propagation_epsilon"], device)
-        ref = ref_level.first_steps(level, cfg, x, y, mix["num_classes"], seed,
-                                    runner.CHECKED_STEPS, device)
+        level = runner.reference_level(model, cfg, mix, fasta, device)
+        ref = model.first_steps(level, cfg, x, y, mix["num_classes"], seed,
+                                runner.CHECKED_STEPS, device)
         out["sound"], out["sound_notes"] = check.compare(prog, ref)
         out["losses"] = {"reference": ref["losses"], "program": prog["losses"]}
         for name, kw in (("control", {"tf32": True}), ("half_batch", {"half_batch": True})):
-            other = ref_level.first_steps(level, cfg, x, y, mix["num_classes"], seed,
-                                          runner.CHECKED_STEPS, device, **kw)
+            other = model.first_steps(level, cfg, x, y, mix["num_classes"], seed,
+                                      runner.CHECKED_STEPS, device, **kw)
             out[name] = check.compare(as_program(other), ref)[0]
             out["losses"][name] = other["losses"]
         del level

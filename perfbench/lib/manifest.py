@@ -1,19 +1,22 @@
 """Finding a cell's pieces by name: the cell in ``BENCHMARK.json``, its
-configuration file, its traffic mix (``traffic/<mix>.json``), its limits
-(``limits/<cell>.json``) and the readers of its per-layer metrics
-(``metrics/<metric>.py``).  A later cell, mix, configuration or metric is a
-new file and a new entry; nothing here names one."""
+configuration file, the model that file names (``models/<model>.py``), its
+traffic mix (``traffic/<mix>.json``), its limits (``limits/<cell>.json``) and
+the readers of its per-layer metrics (``metrics/<metric>.py``).  A later
+cell, mix, configuration, model or metric is a new file and a new entry;
+nothing here names one."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from pathlib import Path
 from types import ModuleType
 from typing import List
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
+_MODEL_NAME = re.compile(r"^[A-Za-z0-9_]{1,64}$")
 
 
 def _json(path: Path) -> dict:
@@ -32,11 +35,32 @@ def workload(bench: dict, name: str) -> dict:
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 
 
-def config(bench: dict, name: str) -> dict:
+def _config_entry(bench: dict, name: str) -> dict:
     for c in bench["configs"]:
         if c["name"] == name:
-            return _json(ROOT / c["file"])
+            return c
     raise KeyError(f"no config {name!r} in BENCHMARK.json")
+
+
+def config(bench: dict, name: str) -> dict:
+    return _json(ROOT / _config_entry(bench, name)["file"])
+
+
+def model(bench: dict, name: str) -> ModuleType:
+    """The module of the model that configuration ``name`` states under
+    ``model``: ``models/<model>.py``, with ``reference_level``,
+    ``first_steps``, ``step_shape`` and ``step_flops`` (see README.md).
+    Raises, naming the configuration's file, where it states none or one
+    that has no module."""
+    file = _config_entry(bench, name)["file"]
+    stated = _json(ROOT / file).get("model")
+    if not isinstance(stated, str) or not _MODEL_NAME.match(stated):
+        raise ValueError(f"{file} states no model by name (its \"model\" key: {stated!r}); "
+                         "it names the module models/<model>.py")
+    path = BENCH_DIR / "models" / f"{stated}.py"
+    if not path.is_file():
+        raise ValueError(f"{file} states model {stated!r}, and there is no {path}")
+    return _load("perfbench_model_" + stated, path)
 
 
 def traffic(name: str) -> dict:
@@ -58,8 +82,12 @@ def per_layer(bench: dict, cell: str) -> List[dict]:
 
 
 def metric_reader(name: str) -> ModuleType:
-    path = BENCH_DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location("perfbench_metric_" + name.replace(".", "_"), path)
+    return _load("perfbench_metric_" + name.replace(".", "_"),
+                 BENCH_DIR / "metrics" / f"{name}.py")
+
+
+def _load(module_name: str, path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module

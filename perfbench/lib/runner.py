@@ -9,7 +9,8 @@ runs the trainer's epochs until it has lasted ``--seconds`` (untraced), or,
 traced, starts the profiler, lets ``TRACE_WARMUP_EPOCHS`` pass and traces
 ``TRACE_SECONDS``.  The level ends inside its loop, before its eval pass.
 After the window the peak is read, the program's state freed, and the
-reference run on the card.
+reference of the model that the configuration names (``models/<model>.py``,
+found by ``manifest.model``) run on the card.
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ import os
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import List, Optional
 
 import torch
 
-from perfbench.lib import check, corpus, counts, manifest
+from perfbench.lib import check, corpus, manifest
 from perfbench.lib import trace as trace_lib
 from perfbench.lib.window import EpochClock, StepRecorder, WindowClosed
 from perfbench.reference import level as ref_level
@@ -118,11 +120,20 @@ def check_plan(plan, cfg: dict) -> None:
         raise ValueError(f"the plan cut the hidden widths to {plan.layer_dims_override}")
 
 
+def reference_level(model: ModuleType, cfg: dict, mix: dict, fasta: Path, device):
+    """The model's reference level: the graph re-derived from the FASTA on
+    the configuration's node space, and the model's operators on it."""
+    level = ref_level.graph_level(str(fasta), mix["n"], cfg["node_space"], device)
+    return model.reference_level(level, cfg, device)
+
+
 @dataclasses.dataclass
 class RunContext:
-    """What a per-layer reader reads."""
+    """What a per-layer reader reads.  ``shape`` is the model's
+    ``step_shape``, whose ``dtype`` is the plan's compute type."""
 
-    shape: counts.StepShape
+    model: ModuleType
+    shape: object
     device_kind: str
     level_start_s: float
     peak_bytes: Optional[int]
@@ -138,6 +149,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool,
     configuration states (``check_plan``)."""
     age0, t0 = process_age_s(), time.perf_counter()
     cfg = manifest.config(bench, cell["config"])
+    model = manifest.model(bench, cell["config"])
     mix = mix or manifest.traffic(cell["traffic"])
     limits = manifest.limits(cell["name"])
     fasta, graph_path = corpus.level_files(mix, cache_root)
@@ -160,10 +172,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool,
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    level = ref_level.build_level(str(fasta), mix["n"], cfg["node_space"],
-                                  cfg["propagation_epsilon"], device)
-    ref = ref_level.first_steps(level, cfg, x, y, mix["num_classes"], seed, CHECKED_STEPS,
-                                device)
+    level = reference_level(model, cfg, mix, fasta, device)
+    ref = model.first_steps(level, cfg, x, y, mix["num_classes"], seed, CHECKED_STEPS, device)
     t_done = time.perf_counter()
     prog = {"losses": clock.losses, "grad_norms": run.recorder.grad_norms,
             "change_norms": run.recorder.change_norms, "numels": run.recorder.numels,
@@ -172,11 +182,9 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool,
     failed = sum(1 for v in clock.window_losses if not math.isfinite(v))
     correct = (failed == 0 and all(numbers[k] <= limits[k]["limit"] for k in check.NUMBERS))
 
-    dims = (mix["feat_dim"],) + tuple(cfg["gcn"]["hidden_layer_dims"])
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    ctx = RunContext(shape=counts.StepShape(rows=level.num_nodes, layer_dims=dims,
-                                            num_classes=mix["num_classes"], nnz=level.nnz,
-                                            dtype=run.plan.compute_dtype),
+    ctx = RunContext(model=model,
+                     shape=model.step_shape(level, cfg, mix, run.plan.compute_dtype),
                      device_kind=kind, level_start_s=clock.first_epoch_end - run.t_call,
                      peak_bytes=run.peak_bytes, trace=run.trace)
     if traced:

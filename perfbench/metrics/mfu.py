@@ -1,7 +1,7 @@
-"""The step's share of the card's peak: the operations one step needs
-(``counts.step_flops``: projections, propagations and decoder, forward and
-backward, remat not counted) over the traced step time times the published
-dense peak of the plan's compute type."""
+"""The step's share of the card's peak: the operations one step needs (the
+``step_flops`` of the configuration's model, ``models/<model>.py``) over the
+traced step time times the published dense peak of the plan's compute
+type."""
 
 from perfbench.lib import counts
 
@@ -14,4 +14,4 @@ def read(run):
     if run.trace is None:
         return None
     peak = counts.peaks_for(run.device_kind)[run.shape.dtype]
-    return 100.0 * counts.step_flops(run.shape) / (run.trace.step_s * peak)
+    return 100.0 * run.model.step_flops(run.shape) / (run.trace.step_s * peak)

@@ -1,6 +1,7 @@
-"""The reference level: the graph of the FASTA, its operators on the
-configuration's node space, and the first steps of full-batch training from
-a seed.  Imports NumPy, PyTorch and this folder only.
+"""The reference level: the graph of the FASTA and the configuration's node
+space, shared by every model (``graph_level``); DirectGCN's three operators
+on it (``with_operators``); and DirectGCN's first steps of full-batch
+training from a seed.  Imports NumPy, PyTorch and this folder only.
 
 The seed prescribes the drawing: the weights from a device generator
 seeded ``seed + n``, the dropout seeds from a host generator seeded
@@ -26,14 +27,16 @@ class Level:
     num_nodes: int  # real nodes
     n_space: int  # rows of the node space
     positions: torch.Tensor  # [num_nodes] row of each real node
-    ops: Tuple[ref_model.SparseOperator, ...]  # in, out, undirected
+    graph: ref_graph.Graph  # the vocabulary and the edge list (src, tgt, pair counts)
+    ops: Tuple[ref_model.SparseOperator, ...] = ()  # DirectGCN's: in, out, undirected
 
     @property
-    def nnz(self) -> Tuple[int, int, int]:
+    def nnz(self) -> Tuple[int, ...]:
         return tuple(op.nnz for op in self.ops)
 
 
-def build_level(fasta: str, n: int, node_space: str, eps: float, device) -> Level:
+def graph_level(fasta: str, n: int, node_space: str, device) -> Level:
+    """The n-gram graph of ``fasta`` placed on the node space, no operators."""
     g = ref_graph.ngram_graph(ref_graph.read_fasta(fasta), n, device)
     if node_space == "hypercube":
         positions, n_space = g.hypercube_positions()
@@ -41,9 +44,18 @@ def build_level(fasta: str, n: int, node_space: str, eps: float, device) -> Leve
         positions, n_space = torch.arange(g.num_nodes, device=device), g.num_nodes
     else:
         raise ValueError(f"unknown node space {node_space!r}")
-    ops = tuple(ref_model.SparseOperator(e, positions, n_space)
-                for e in ref_graph.operators(g, eps))
-    return Level(n=n, num_nodes=g.num_nodes, n_space=n_space, positions=positions, ops=ops)
+    return Level(n=n, num_nodes=g.num_nodes, n_space=n_space, positions=positions, graph=g)
+
+
+def with_operators(level: Level, eps: float) -> Level:
+    """``level`` with DirectGCN's three operators on its node space."""
+    ops = tuple(ref_model.SparseOperator(e, level.positions, level.n_space)
+                for e in ref_graph.operators(level.graph, eps))
+    return dataclasses.replace(level, ops=ops)
+
+
+def build_level(fasta: str, n: int, node_space: str, eps: float, device) -> Level:
+    return with_operators(graph_level(fasta, n, node_space, device), eps)
 
 
 @contextlib.contextmanager
