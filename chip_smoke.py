@@ -8,8 +8,8 @@ Phases, each printing one JSON line as it ends:
 
 0. device: the card's name and power limit (as nvidia-smi prints them), and
    the nvcc builds of csrc/hyper.cu (K1/K2), csrc/ell.cu (the ELL kernels)
-   csrc/retile.cu (pack/unpack) and csrc/optim.cu (Adam, the sum of
-   squares), started together, with their times,
+   csrc/retile.cu (pack/unpack), csrc/optim.cu (Adam, the sum of
+   squares) and csrc/gat.cu (GAT's attention), started together, with their times,
    ptxas's registers and spills, and the ELL plans' occupancy; then
    ``python -m protgram_directgcn_torch.doctor`` in a process of its own,
    started here and read after phase 2, every check ``[ok]`` (phase
@@ -113,6 +113,12 @@ Phases, each printing one JSON line as it ends:
    Every level the smoke trains through ``train_level`` on one card must
    read in ``level_stats[n]["optimizer"]`` every Adam leaf updated by the
    Adam kernel and none by the plain version;
+   ``gat``: GAT's attention (``csrc/gat.cu``: the edge softmax, the
+   aggregation both ways, the edge gradient) on the n = 4 level's in-edge
+   table (3,263,383 edges with the self loops) at the PPI model's layer
+   shapes, 4 heads x 256 and 6 x 121, forward and backward against the
+   plain versions and the benchmark's reference (``perfbench/reference/
+   gat.py``) within ``GAT_TOL``, then timed beside the bound;
 12. tier path: the entry point with ``graph_builder.ngram_max_n=5``, dims
    [256, 128, 64], ``gcn.default_task_type=closest_aa`` and the plan's
    device budget pinned to 32 GiB (``HierarchicalTrainer._hbm_override``),
@@ -1641,6 +1647,156 @@ def check_optim_kernels(torch, ok):
         records.append(rec)
         del ps, mus, nus, fns
         torch.cuda.empty_cache()
+    return records
+
+
+# -----------------------------------------------------------------------------
+# Phase 11b: GAT's attention kernels
+# -----------------------------------------------------------------------------
+
+GAT_LAYERS = ((4, 256), (6, 121))  # (heads, width a head): the PPI model's hidden and output layers
+# The output's and each gradient's allowance, a share of its largest
+# element: sums of ~20 terms in other orders, and d_a_dst a sum whose terms
+# mostly cancel (the softmax's derivative sums to 0 over a row's slots).
+GAT_TOL = 3e-5
+
+
+def _gat_records(torch, gk, table, lv, heads: int, width: int, seed: int) -> dict:
+    """One layer's attention at the level's table: the kernels' forward and
+    backward held against their plain versions and against the benchmark's
+    reference (explicit per-edge tensors, ``perfbench/reference/gat.py``),
+    then timed (forward: softmax + aggregation; backward: edge gradient +
+    transposed aggregation + the d_a_src sum) beside their bound and the
+    plain versions."""
+    from perfbench.models import gat as bench_gat
+    from perfbench.reference import gat as ref_gat
+
+    n = table.num_nodes
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    z = torch.randn((n, heads * width), generator=gen, device=DEVICE)
+    a_src = 2 * torch.randn((n, heads), generator=gen, device=DEVICE)
+    a_dst = 2 * torch.randn((n, heads), generator=gen, device=DEVICE)
+    cot = torch.randn((n, heads * width), generator=gen, device=DEVICE)
+    leaves = [t.clone().requires_grad_(True) for t in (z, a_src, a_dst)]
+    out = gk.gat_attention(*leaves, table)
+    got = [out.detach()] + list(torch.autograd.grad(out, leaves, cot))
+    del out, leaves
+
+    def plain():
+        alpha, lse = gk.softmax_plain(table.idx, table.mask, a_src, a_dst)
+        o = gk.aggregate_plain(table.idx, alpha, z)
+        dpre_t, alpha_t, d_a_dst = gk.edge_grad_plain(table.idx, table.mask, table.perm,
+                                                      table.k_t, z, cot, o, a_src, a_dst, lse)
+        return [o, gk.aggregate_plain(table.idx_t, alpha_t, cot), dpre_t.sum(1), d_a_dst]
+
+    rec = {"heads": heads, "width": width, "rows": n, "edges": table.num_edges, "k": table.k,
+           "k_t": table.k_t}
+    names = ("out", "dz", "d_a_src", "d_a_dst")
+    with torch.no_grad():
+        want = plain()
+    rec["max_rel_err_plain"] = {}
+    for name, g, w in zip(names, got, want):
+        rec["max_rel_err_plain"][name] = float((g - w).abs().max()) / float(w.abs().max())
+    del want
+    torch.cuda.empty_cache()
+    # The benchmark's reference: autograd through explicit per-edge tensors.
+    ref_leaves = [t.clone().requires_grad_(True) for t in (z, a_src, a_dst)]
+    ref = ref_gat.attention(ref_leaves[0].reshape(n, heads, width), ref_leaves[1],
+                            ref_leaves[2], lv).reshape(n, -1)
+    want = [ref.detach()] + list(torch.autograd.grad(ref, ref_leaves, cot))
+    del ref, ref_leaves
+    rec["max_rel_err_reference"] = {}
+    for name, g, w in zip(names, got, want):
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        rec["max_rel_err_reference"][name] = err
+        if err > GAT_TOL or rec["max_rel_err_plain"][name] > GAT_TOL:
+            fail(f"gat {heads} x {width}: {name} differs from the plain version or the "
+                 f"reference ({rec['max_rel_err_plain'][name]}, {err})")
+    del want, got
+    torch.cuda.empty_cache()
+
+    z.requires_grad_(True)
+    out_kept = {}
+
+    def forward():
+        alpha, lse = gk.softmax(table.idx, table.mask, a_src, a_dst)
+        out_kept["out"] = gk.aggregate(table.idx, alpha, z.detach())
+        out_kept["lse"] = lse
+
+    forward()
+
+    def edge_grad():
+        return gk.edge_grad(table.idx, table.mask, table.perm, table.k_t, z.detach(), cot,
+                            out_kept["out"], a_src, a_dst, out_kept["lse"])
+
+    def backward():
+        dpre_t, alpha_t, _ = edge_grad()
+        gk.aggregate(table.idx_t, alpha_t, cot, "bwd")
+        dpre_t.sum(1)
+
+    def fwd_plain():
+        alpha, _ = gk.softmax_plain(table.idx, table.mask, a_src, a_dst)
+        gk.aggregate_plain(table.idx, alpha, z.detach())
+
+    alpha, lse = gk.softmax(table.idx, table.mask, a_src, a_dst)
+    alpha_t = edge_grad()[1]
+    kernels = {
+        "gat_softmax": lambda: gk.softmax(table.idx, table.mask, a_src, a_dst),
+        "gat_aggregate": lambda: gk.aggregate(table.idx, alpha, z.detach()),
+        "gat_edge_grad": edge_grad,
+        "gat_aggregate_t": lambda: gk.aggregate(table.idx_t, alpha_t, cot, "bwd"),
+    }
+    with torch.no_grad():
+        rec["forward_ms"] = _device_ms(torch, forward, 5, 3)
+        rec["backward_ms"] = _device_ms(torch, backward, 5, 3)
+        rec["forward_wrapper_ms"] = _wrapper_ms(torch, forward, 5)
+        rec["forward_plain_ms"] = _device_ms(torch, fwd_plain, 2, 2)
+        for name, fn in kernels.items():
+            rec[f"{name}_ms"] = _device_ms(torch, fn, 5, 3)
+    shape = bench_gat.StepShape(rows=n, edges=table.num_edges, in_dim=0,
+                                layers=((0, heads, width, False),), dtype="float32")
+    peaks = {"float32": PEAK_OPS_PER_S["float32"], "bytes_per_s": HBM_BYTES_PER_S}
+    bounds = [max(b / HBM_BYTES_PER_S, o / PEAK_OPS_PER_S["float32"]) * 1e3
+              for _, b, o in bench_gat.attention_launches(shape)]
+    rec["bound_ms"] = dict(zip(("gat_softmax", "gat_aggregate", "gat_edge_grad",
+                                "gat_aggregate_t"), bounds))
+    rec["forward_bound_ms"] = bounds[0] + bounds[1]
+    rec["backward_bound_ms"] = bounds[2] + bounds[3]
+    rec["least_ms"] = bench_gat.attention_least_seconds(shape, peaks) * 1e3
+    # Rows of z gathered by the aggregation, and its rate.
+    rec["gathered_gb"] = table.num_edges * heads * width * 4 / 1e9
+    rec["gathered_tb_per_s"] = rec["gathered_gb"] / rec["gat_aggregate_ms"]
+    del z, a_src, a_dst, cot, alpha, alpha_t, lse, out_kept, kernels
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_gat_kernels(torch, gk, graph_path: str) -> list:
+    """GAT's attention (``csrc/gat.cu``) on the n = 4 level's table at the
+    PPI model's layer shapes (4 x 256, 6 x 121; the second takes the
+    one-element body): each launch held to its plain version and the
+    benchmark's reference within ``GAT_TOL`` of the largest element, and
+    timed.  One ``gat`` line a shape."""
+    from protgram_directgcn_torch.graph.structure import load_graph
+
+    graph = load_graph(graph_path)
+    from perfbench.reference import gat as ref_gat
+
+    table = gk.build_table(graph.src, graph.tgt, graph.num_nodes, device=DEVICE)
+    lv = ref_gat.from_edges(torch.from_numpy(graph.src.astype("int64")).to(DEVICE),
+                            torch.from_numpy(graph.tgt.astype("int64")).to(DEVICE),
+                            graph.num_nodes, graph.n)
+    if lv.num_edges != table.num_edges:
+        fail(f"gat: the table holds {table.num_edges} edges, the reference {lv.num_edges}")
+    gk.reset_launches()
+    records = []
+    for i, (heads, width) in enumerate(GAT_LAYERS):
+        rec = _gat_records(torch, gk, table, lv, heads, width, seed=40 + i)
+        emit("gat", **rec)
+        records.append(rec)
+    launches = gk.launch_counts()
+    if min(c for per in launches.values() for c in per.values()) <= 0:
+        fail(f"gat: a kernel was not launched ({launches})")
     return records
 
 
@@ -3425,6 +3581,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from protgram_directgcn_torch.ops import ell_kernels as ek
+    from protgram_directgcn_torch.ops import gat_kernels as gk
     from protgram_directgcn_torch.ops import hyper_kernels as hk
     from protgram_directgcn_torch.ops import hypercube as hyper
     from protgram_directgcn_torch.ops import optim_kernels as ok
@@ -3438,10 +3595,10 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     t_build = time.monotonic()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
-        infos = dict(zip(("hyper", "ell", "retile", "optim"),
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, started together
+        infos = dict(zip(("hyper", "ell", "retile", "optim", "gat"),
                          pool.map(lambda build: build(), (hk.build, ek.build, rt.build,
-                                                          ok.build))))
+                                                          ok.build, gk.build))))
     build_wall = time.monotonic() - t_build
     ptxas = {name: _ptxas_lines(info["log"]) for name, info in infos.items()}
     emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -3495,6 +3652,7 @@ def main() -> int:
         check_cluster_reference(torch, ek, cluster_graphs[3], level4["num_classes"])
         retile_records = check_retile_kernels(torch, rt)
         check_optim_kernels(torch, ok)
+        check_gat_kernels(torch, gk, graph_paths[3])
         with _OperatorCache(HierarchicalTrainer):
             tier_counts, tier_config, tier_graphs, tier3_peak = run_tier_path(
                 torch, hk, rt, fasta, workdir)

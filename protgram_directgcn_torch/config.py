@@ -143,6 +143,12 @@ class GCNConfig:
     remat: Any = "auto"
     spmm_mode: str = "auto"
     oversize_policy: str = "degrade"
+    # The level model: "directgcn", or "gat" (models/gat.py: GAT of the PPI
+    # paper; hidden_layer_dims are its hidden widths a head, gat_heads the
+    # heads of each hidden layer and of the output layer; a linear skip on
+    # every hidden layer after the first; dropout_rate must be 0).
+    architecture: str = "directgcn"
+    gat_heads: List[int] = field(default_factory=lambda: [4, 4, 6])
 
 
 @dataclass

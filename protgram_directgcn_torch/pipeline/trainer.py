@@ -39,6 +39,12 @@ and writes the pooled embeddings (H5 where h5py imports, else ``.npz``)
 and, under ``gcn.apply_pca``, their PCA; under ``gcn.run_sanity_check_ppi``
 it then runs the PPI sanity check on the last file written
 (``pipeline/ppi.py``).
+
+``gcn.architecture = "gat"`` trains GAT (``models/gat.py``) in place of
+DirectGCN at every level: full batch at tier 0 (``_gat_plan``) on the
+level's attention table (``ops/gat_kernels.py``), with the same loop,
+optimizer, checkpoints, metric log, pooling and export; the level's
+embeddings are GAT's last hidden layer.
 """
 
 from __future__ import annotations
@@ -67,8 +73,10 @@ from protgram_directgcn_torch.models.directgcn import (
     param_leaves,
     unpack_rg_carry,
 )
+from protgram_directgcn_torch.models.gat import GATConfig, gat_apply, init_gat_params, param_count
 from protgram_directgcn_torch.models.mlp import OptaxAdam, adam_bias_corrections
-from protgram_directgcn_torch.ops import ell_kernels, hyper_kernels, optim_kernels, retile
+from protgram_directgcn_torch.ops import (ell_kernels, gat_kernels, hyper_kernels, optim_kernels,
+                                          retile)
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.ops.spmm import DenseAdj, EllAdj, _ell_one_sided
 from protgram_directgcn_torch.parallel import distributed as comm
@@ -345,9 +353,13 @@ def _primary_loss(params, graph, x, y, mask, gen, model_cfg, original_indices=No
     """The masked next-node NLL, the loss's term inside autograd (the L2
     term is the optimizer's: ``TrainOptimizer``).  ``original_indices``: a
     Cluster-GCN batch's node ids (the model gathers its per-node parameters
-    there)."""
-    log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
-                                original_indices=original_indices, flatten_rg=False)
+    there).  Under a ``GATConfig`` ``graph`` is the level's attention table
+    (``ops/gat_kernels.py``)."""
+    if isinstance(model_cfg, GATConfig):
+        log_sm, _ = gat_apply(params, graph, x, model_cfg)
+    else:
+        log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
+                                    original_indices=original_indices, flatten_rg=False)
     return _masked_nll(log_sm, y, mask)
 
 
@@ -950,8 +962,13 @@ class HierarchicalTrainer:
 
         Under ``parallel.mesh_nodes`` every tier is sized per shard, without
         the levers a node-sharded step does not take (per-path remat, the
-        staged step; trainer.py:1478-1490)."""
+        staged step; trainer.py:1478-1490).
+
+        A GAT level (``gcn.architecture="gat"``) takes tier 0 or raises:
+        ``_gat_plan``."""
         gcn = self.gcn
+        if self._architecture() == "gat":
+            return self._gat_plan(graph, feat_dim, num_classes)
         _, alpha = vocab_char_codes(graph.vocab)
         n_hyper = int(alpha) ** graph.n if alpha else graph.num_nodes
         n_nodes = max(n_hyper, graph.num_nodes)
@@ -1030,6 +1047,85 @@ class HierarchicalTrainer:
                          residency=int(residency), stage_split=split,
                          layer_dims_override=dims_override)
 
+    def _attention_stats(self, cfg: GATConfig, table: gat_kernels.GatTable,
+                         launches: Dict[str, Dict[str, int]], steps: int) -> dict:
+        """A GAT level's ``level_stats[n]["attention"]``: heads and widths a
+        layer, the in-edges with their self loops, the table's widths, the
+        route of the attention (the CUDA kernels or the plain versions) and
+        the kernels' launches, in all and a step."""
+        return {"heads": [s.heads for s in cfg.layers()],
+                "widths": [s.width for s in cfg.layers()],
+                "edges": table.num_edges, "k": table.k, "k_t": table.k_t,
+                "route": "cuda" if table.idx.is_cuda else "plain",
+                "launches": launches,
+                "launches_per_step": {k: {d: c / max(steps, 1) for d, c in per.items()}
+                                      for k, per in launches.items()}}
+
+    def _architecture(self) -> str:
+        arch = self.gcn.architecture
+        if arch not in ("directgcn", "gat"):
+            raise ValueError(f"gcn.architecture={arch!r}: the level models are 'directgcn' and "
+                             "'gat'")
+        return arch
+
+    def _gat_config(self, feat_dim: int, num_classes: int) -> GATConfig:
+        gcn = self.gcn
+        return GATConfig(in_dim=feat_dim, hidden_dims=tuple(gcn.hidden_layer_dims),
+                         heads=tuple(gcn.gat_heads), num_classes=num_classes)
+
+    # Full-width [N, H*F] buffers a GAT step holds at its peak, beyond the
+    # saved activations: the backward's output gradient, dz and the input
+    # gradient of a layer, and the allocator's slack.
+    _GAT_WORKSPACE_BUFFERS = 4
+
+    def _gat_residency(self, graph: NgramGraph, cfg: GATConfig) -> int:
+        """Bytes of one full-batch GAT step at tier 0 (float32, Adam): the
+        parameters, their gradients and two moments; the saved activations
+        (the input; a hidden layer's z, attention output, pre-activation and
+        ELU output; the output layer's z, attention output and logits with
+        their log-softmax), ``_GAT_WORKSPACE_BUFFERS`` of the widest layer,
+        and four [E + N, H] per-edge arrays of the backward (with the ELL
+        table's padding, about a quarter).  At the n = 4 level and the PPI
+        widths: 9.92 GB, against a peak of 8.18 GB on an NVIDIA H100
+        (PERF.md §6)."""
+        n = graph.num_nodes
+        specs = cfg.layers()
+        widths = [s.heads * s.width for s in specs]
+        saved = cfg.in_dim + 4 * sum(widths[:-1]) + 2 * widths[-1] + 3 * cfg.num_classes
+        workspace = self._GAT_WORKSPACE_BUFFERS * max(widths)
+        edges = 4 * (graph.num_edges + n) * 5 // 4 * max(cfg.heads)
+        return 4 * (4 * param_count(cfg) + n * (saved + workspace) + edges)
+
+    def _gat_plan(self, graph: NgramGraph, feat_dim: int,
+                  num_classes: Optional[int]) -> LevelPlan:
+        """Tier 0 (float32, Adam), the one tier a GAT level takes: no forced
+        lever, no dropout (the PPI model has none, and GAT takes no mask),
+        and a residency (``_gat_residency``) that fits the device, or
+        ValueError."""
+        gcn = self.gcn
+        forced = {k: getattr(gcn, k) for k in ("compute_dtype", "node_param_dtype")
+                  if getattr(gcn, k) not in ("auto", "float32")}
+        if gcn.remat not in ("auto", None, False):
+            forced["remat"] = gcn.remat
+        if gcn.dropout_rate:
+            forced["dropout_rate"] = gcn.dropout_rate
+        if forced:
+            raise ValueError(f"level n={graph.n}: a GAT level trains at tier 0 (float32, Adam, "
+                             f"no remat, no dropout); the configuration forces {forced}")
+        cfg = self._gat_config(feat_dim, graph.num_nodes if num_classes is None else num_classes)
+        chip = self._device_memory()
+        need = self._gat_residency(graph, cfg)
+        if need + self._PLAN_SLACK + self._MIN_BANK > chip:
+            raise ValueError(
+                f"level n={graph.n}: GAT at heads {list(cfg.heads)} and hidden widths "
+                f"{list(cfg.hidden_dims)} needs {need / 2**30:.1f} GB at tier 0 (float32, Adam), "
+                f"the only tier a GAT level takes, and {chip / 2**30:.1f} GB are free "
+                f"({graph.num_nodes} nodes)")
+        return LevelPlan(tier=0, compute_dtype="float32", node_param_dtype="float32",
+                         remat=False, remat_paths=False, factored=False,
+                         bank_budget=int(max(self._MIN_BANK, chip - need - self._PLAN_SLACK)),
+                         residency=int(need))
+
     def _takes_hypercube(self, graph: NgramGraph) -> bool:
         """Whether ``_to_device_graph`` tries the hypercube format for this
         level: n >= 2 under "hypercube", and under "auto" only while
@@ -1050,7 +1146,16 @@ class HierarchicalTrainer:
         "auto" and "hypercube" the hypercube is tried at n >= 2 ("auto": only
         while alpha^n <= 4x the vocabulary) within ``plan.bank_budget``, and
         where it is not taken or cannot be built (auto only) the format is
-        ``graph.to_device(mode="auto", feat_dim=...)``'s choice."""
+        ``graph.to_device(mode="auto", feat_dim=...)``'s choice.
+
+        A GAT level takes none of these: its attention table
+        (``gat_kernels.build_table``: the raw in-edges with one self loop a
+        node, unweighted, as an ELL table and its transpose) on the
+        vocabulary's node space, inside the span ``operators.build``."""
+        if self._architecture() == "gat":
+            with trace("operators.build", always=True):
+                return gat_kernels.build_table(graph.src, graph.tgt, graph.num_nodes,
+                                               self.device)
         mode = self.gcn.spmm_mode if self.gcn.spmm_mode != "pallas" else "ell"
         dtype = torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32
         if self._takes_hypercube(graph):
@@ -1262,7 +1367,9 @@ class HierarchicalTrainer:
         the route and ``operator_seconds``, and the set-up spans' seconds by
         name (``spans``) after each stage; after training, ``optimizer``: the
         leaves and elements each update route took (``TrainOptimizer.
-        update_counts``) and the optimizer kernels' launches."""
+        update_counts``) and the optimizer kernels' launches; a GAT level
+        (``gcn.architecture="gat"``, one device, full batch) adds
+        ``attention`` (``_attention_stats``)."""
         gcn = self.gcn
         dev = self.device
         n_val = graph.n
@@ -1273,6 +1380,10 @@ class HierarchicalTrainer:
             plan = self._level_plan(graph, feat_dim, num_classes)
             if layout is not None and (plan.remat_paths or plan.stage_split):
                 plan = dataclasses.replace(plan, remat_paths=False, stage_split=0)
+        gat = self._architecture() == "gat"
+        if gat and layout is not None:
+            raise ValueError("a GAT level trains on one device; parallel.mesh_nodes and "
+                             "parallel.mesh_feats are for DirectGCN")
         # The degrade policy's dims replace the configured ones (trainer.py:1830-1833).
         hidden = plan.layer_dims_override or tuple(gcn.hidden_layer_dims)
         layer_dims = tuple([feat_dim] + list(hidden))
@@ -1302,6 +1413,9 @@ class HierarchicalTrainer:
         if use_cluster and shard is not None:
             logger.info("cluster training off under node sharding (full batch over the shards)")
             use_cluster = False
+        if use_cluster and gat:
+            logger.info("a GAT level trains full batch (gcn.use_cluster_training is DirectGCN's)")
+            use_cluster = False
         if use_cluster and gcn.cluster_auto_fullbatch and full_graph.route == "hypercube":
             logger.info("auto-routing n=%d to full-batch (hypercube operators built)", n_val)
             use_cluster = False
@@ -1330,27 +1444,31 @@ class HierarchicalTrainer:
             return out
 
         with trace("level.init", always=True):
-            model_cfg = DirectGCNConfig(
-                layer_dims=layer_dims,
-                num_nodes=total_nodes,
-                num_classes=num_classes,
-                n_gram_len=n_val,
-                one_gram_dim=(gcn.one_gram_init_dim if n_val == 1 else 0),
-                max_pe_len=gcn.max_pe_len,
-                dropout=gcn.dropout_rate,
-                use_vector_coeffs=gcn.use_vector_coeffs,
-                remat=plan.remat,
-                remat_paths=plan.remat_paths,
-                compute_dtype=plan.compute_dtype,
-                node_param_dtype=plan.node_param_dtype,
-            )
             init_gen = torch.Generator(device=dev).manual_seed(self.config.random_state + n_val)
-            params = init_directgcn_params(init_gen, model_cfg, device=dev)
-            if shard is not None:  # trainer.py:1931-1934
-                params = mesh.shard_model_params(params, shard.adj.node_rows(), shard.n_global,
-                                                 layout.feat)
+            if gat:
+                model_cfg = self._gat_config(feat_dim, num_classes)
+                params = init_gat_params(init_gen, model_cfg, device=dev)
             else:
-                params = _node_params_to_rg(params, full_graph)
+                model_cfg = DirectGCNConfig(
+                    layer_dims=layer_dims,
+                    num_nodes=total_nodes,
+                    num_classes=num_classes,
+                    n_gram_len=n_val,
+                    one_gram_dim=(gcn.one_gram_init_dim if n_val == 1 else 0),
+                    max_pe_len=gcn.max_pe_len,
+                    dropout=gcn.dropout_rate,
+                    use_vector_coeffs=gcn.use_vector_coeffs,
+                    remat=plan.remat,
+                    remat_paths=plan.remat_paths,
+                    compute_dtype=plan.compute_dtype,
+                    node_param_dtype=plan.node_param_dtype,
+                )
+                params = init_directgcn_params(init_gen, model_cfg, device=dev)
+                if shard is not None:  # trainer.py:1931-1934
+                    params = mesh.shard_model_params(params, shard.adj.node_rows(),
+                                                     shard.n_global, layout.feat)
+                else:
+                    params = _node_params_to_rg(params, full_graph)
             for p in param_leaves(params):
                 p.requires_grad_(True)
 
@@ -1415,6 +1533,7 @@ class HierarchicalTrainer:
             return outer, trace("epoch")
 
         losses: List[float] = []
+        gat0 = gat_kernels.launch_counts()
         if use_cluster:
             t_build = time.monotonic()
             with trace("level.cluster_batches", always=True):
@@ -1494,6 +1613,11 @@ class HierarchicalTrainer:
         # launches of the optimizer's kernels.
         stats["optimizer"] = {**opt.update_counts(),
                               "launches": {k: optim1[k] - optim0[k] for k in optim1}}
+        if gat:
+            stats["attention"] = self._attention_stats(model_cfg, full_graph,
+                                                       _launch_diff(gat0,
+                                                                    gat_kernels.launch_counts()),
+                                                       stats["steps"])
         logger.info("n=%d %s training on %s (%s operators): %d epochs in %.2fs "
                     "(final loss %.5f)", n_val, stats["route"], dev, full_graph.route,
                     len(losses), seconds, losses[-1] if losses else float("nan"))
@@ -1511,6 +1635,9 @@ class HierarchicalTrainer:
                     _, embeds = directgcn_apply(params, full_graph, x_eval, model_cfg,
                                                 train=False)
                     embeds = shard.gather(embeds)
+                elif gat:
+                    _, embeds = gat_apply(params, full_graph, torch.from_numpy(x_eval).to(dev),
+                                          model_cfg)
                 else:
                     _, embeds = directgcn_apply(params, full_graph,
                                                 torch.from_numpy(x_eval).to(dev), model_cfg,
