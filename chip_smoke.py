@@ -9,7 +9,8 @@ Phases, each printing one JSON line as it ends:
 0. device: the card's name and power limit (as nvidia-smi prints them), and
    the nvcc builds of csrc/hyper.cu (K1/K2), csrc/ell.cu (the ELL kernels)
    csrc/retile.cu (pack/unpack), csrc/optim.cu (Adam, the sum of
-   squares) and csrc/gat.cu (GAT's attention), started together, with their times,
+   squares), csrc/gat.cu (GAT's attention) and csrc/epilogue.cu (the
+   DirectGCN layer's tail), started together, with their times,
    ptxas's registers and spills, and the ELL plans' occupancy; then
    ``python -m protgram_directgcn_torch.doctor`` in a process of its own,
    started here and read after phase 2, every check ``[ok]`` (phase
@@ -113,6 +114,19 @@ Phases, each printing one JSON line as it ends:
    Every level the smoke trains through ``train_level`` on one card must
    read in ``level_stats[n]["optimizer"]`` every Adam leaf updated by the
    Adam kernel and none by the plain version;
+   ``epilogue_kernels``: the DirectGCN layer's tail (``csrc/epilogue.cu``:
+   bias adds, gating, constant, residual, leaky ReLU, dropout, one kernel
+   each way) at the benchmark cells' layer outputs (194,481 rows as the
+   rg carry [21, 9261, F], 167,325 flat; F = 256 / 128 / 64), forward
+   equal to the plain ATen chain to the bit, the backward's path
+   cotangents and ``ds`` to the bit and its gate and bias sums within
+   ``EPILOGUE_SUM_RTOL``; each way timed beside the plain chain's forward
+   and forward-and-backward and the bound (62 bytes an element).  The
+   main, ell, cluster and tier paths' DirectGCN levels must read in
+   ``level_stats[n]["epilogue"]`` the route the engage rule gives: the
+   kernels (two launches a layer a step at tier 0), the plain chain at the
+   5-gram level's bf16 tier 3; the distributed phase's feature-sharded
+   levels the plain chain;
    ``gat``: GAT's attention (``csrc/gat.cu``: the edge softmax, the
    aggregation both ways, the edge gradient) on the n = 4 level's in-edge
    table (3,263,383 edges with the self loops) at the PPI model's layer
@@ -257,6 +271,11 @@ W2V_EPOCHS = 2  # word2vec.epochs cut from 5
 OPTIM_CASES = {"hyper.ngram4": (21**4, 4, "float32"), "ell.ngram4": (167_325, 4, "float32"),
                "tier2.ngram5": (21**5, 5, "bfloat16")}
 OPTIM_DIMS = (64, 256, 128, 64)
+# The layer tail's cases: the benchmark cells' layer outputs.
+EPILOGUE_SHAPES = {"hyper.ngram4": [(21, 9261, f) for f in (256, 128, 64)],
+                   "ell.ngram4": [(167_325, f) for f in (256, 128, 64)]}
+EPILOGUE_SUM_RTOL = 1e-5  # the gate and bias sums' allowance, a share of the largest
+EPILOGUE_BYTES = 62  # an element, both ways (csrc/epilogue.cu)
 RETILE_CARRY = (21, 194_481, 64)  # A, G, f: the 5-gram level's last layer at [256, 128, 64]
 TIER_N = 5
 TIER_DIMS = (256, 128, 64)
@@ -311,6 +330,23 @@ def emit(phase: str, **fields) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+def check_epilogue_route(where: str, st: dict, fused: bool = True) -> None:
+    """A trained DirectGCN level's ``level_stats[n]["epilogue"]`` on the
+    card: every layer's tail through the kernels of ``csrc/epilogue.cu``
+    where ``fused``, two launches a layer a step (more under remat, which
+    runs the forward again), else the plain chain and no launch."""
+    epi = st["epilogue"]
+    want = 2 * (len(st["layer_dims"]) - 1) * st["steps"]
+    if fused:
+        ok = epi["route"] == "fused" and (
+            epi["launches"] == want or (st["plan"]["remat"] and epi["launches"] > want))
+    else:
+        ok = epi == {"route": "plain", "launches": 0}
+    if not ok:
+        fail(f"{where}: layer tail {epi}, expected the {'fused' if fused else 'plain'} route"
+             f"{f' with {want} launches' if fused else ''}")
 
 
 def check_optimizer_routes(where: str, st: dict, adafactor: bool = False) -> None:
@@ -624,6 +660,7 @@ def run_main_path(torch, hk, fasta: str, workdir: str):
         if not _finite(st["losses"]):
             fail(f"level n={n} has non-finite losses {st['losses']}")
         check_optimizer_routes(f"main path n={n}", st)
+        check_epilogue_route(f"main path n={n}", st)
         emit("main_path_level", level=n, **st)
     if stats[1]["route"] != "dense":
         fail("level n=1 should take the dense route")
@@ -849,6 +886,7 @@ def run_ell_path(torch, ek, fasta: str, workdir: str):
             if st["launches"][other][direction] != 0:
                 fail(f"ell path: level n={n} launched {other} ({direction})")
         check_optimizer_routes(f"ell path n={n}", st)
+        check_epilogue_route(f"ell path n={n}", st)
         emit("ell_path_level", level=n, **st)
     if ek.resident_supported(stats[4]["nodes"]):
         fail(f"ell path: the n = 4 level's {stats[4]['nodes']} nodes are in the resident regime")
@@ -1214,6 +1252,7 @@ def run_cluster_path(torch, ek, fasta: str, workdir: str):
         if not _finite(st["losses"]):
             fail(f"cluster path: level n={n} has non-finite losses {st['losses']}")
         check_optimizer_routes(f"cluster path n={n}", st)
+        check_epilogue_route(f"cluster path n={n}", st)
         emit("cluster_path_level", level=n, **st)
     for n in (1, 2, 3):
         st = stats[n]
@@ -1650,6 +1689,107 @@ def check_optim_kernels(torch, ok):
     return records
 
 
+def _epilogue_case(torch, shape, seed: int):
+    """A layer tail's operands at ``shape`` on the card: paths, residual,
+    constant (rg like the carry), biases, [N, 1] gates (viewed rg on an rg
+    carry) near 1, the dropout's uniforms and an output gradient; the
+    leaves require grad."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    f = shape[-1]
+    rows = 1
+    for d in shape[:-1]:
+        rows *= d
+
+    def leaf(sh, scale=1.0, loc=0.0):
+        return (loc + scale * torch.randn(sh, generator=gen, device=DEVICE)).requires_grad_(True)
+
+    lv = {k: leaf(shape) for k in ("pi", "po", "pu", "res")}
+    lv.update({k: leaf((f,), 0.3) for k in ("b_in", "b_out", "b_und")})
+    lv.update({k: leaf((rows, 1), 0.3, 1.0) for k in ("c_in", "c_out", "c_dir", "c_und", "c_all")})
+    lv["const"] = leaf(shape, 0.5)
+    gates = tuple(lv[k].reshape(shape[:-1] + (1,)) for k in ("c_in", "c_out", "c_dir", "c_und",
+                                                              "c_all"))
+    u = torch.rand(shape, generator=gen, device=DEVICE)
+    dout = torch.randn(shape, generator=gen, device=DEVICE)
+    args = (lv["pi"], lv["po"], lv["pu"], lv["b_in"], lv["b_out"], lv["b_und"], gates,
+            lv["const"], lv["res"])
+    return lv, args, u, dout
+
+
+def check_epilogue_kernels(torch, epk):
+    """The layer tail (``csrc/epilogue.cu``) at ``EPILOGUE_SHAPES``, dropout
+    0.5: the op's forward against the plain chain (``tail_plain``) bit for
+    bit; its gradients against the chain's under autograd, the paths',
+    constant's and residual's bit for bit, the gates' and biases' within
+    ``EPILOGUE_SUM_RTOL`` of their largest element; two launches.  Then
+    timed: each kernel as the op calls it and the plain chain's forward
+    (CUDA graphs), the plain chain's forward and backward and the op's
+    through its wrapper (a host loop), beside the bound (each operand read and each output written once: 29
+    bytes an element forward, 33 backward)."""
+    slope, keep = 0.01, 0.5
+    records = []
+    for case, shapes in EPILOGUE_SHAPES.items():
+        for shape in shapes:
+            lv, args, u, dout = _epilogue_case(torch, shape, seed=7)
+            names = list(lv)
+            launches = epk.launch_counts()["layer_tail"]
+            out = epk.layer_tail(*args, slope, keep, u)
+            got = torch.autograd.grad(out, [lv[k] for k in names], dout)
+            launches = {d: v - launches[d] for d, v in epk.launch_counts()["layer_tail"].items()}
+            ref_out = epk.tail_plain(*args, slope, keep, u)
+            ref = torch.autograd.grad(ref_out, [lv[k] for k in names], dout)
+            torch.cuda.synchronize()
+            errs = {k: float((g - r).abs().max()) for k, g, r in zip(names, got, ref)}
+            rel = {k: errs[k] / max(float(r.abs().max()), 1e-30) for k, r in zip(names, ref)}
+            exact = ("pi", "po", "pu", "res", "const")
+            if not torch.equal(out, ref_out):
+                fail(f"epilogue {shape}: the forward differs from the plain chain "
+                     f"(max abs err {float((out - ref_out).abs().max())})")
+            bad = [k for k in names if (errs[k] != 0 if k in exact
+                                        else rel[k] > EPILOGUE_SUM_RTOL)]
+            if bad or launches != {"fwd": 1, "bwd": 1}:
+                fail(f"epilogue {shape}: gradients {bad} past their allowance ({rel}); "
+                     f"launches {launches}")
+            del out, got, ref_out, ref
+            rows = u.numel() // shape[-1]
+            flat = [t.detach().reshape(rows, shape[-1]) for t in args[:3]]
+            biases = [t.detach() for t in args[3:6]]
+            gates = [lv[k].detach().reshape(-1) for k in ("c_in", "c_out", "c_dir", "c_und",
+                                                          "c_all")]
+            const, res = (lv[k].detach().reshape(rows, shape[-1]) for k in ("const", "res"))
+            uf, df = u.reshape(rows, shape[-1]), dout.reshape(rows, shape[-1])
+            fwd_args = (*flat, *biases, gates, const, res, slope, keep, uf)
+            _, code = epk._forward(*fwd_args, keep_code=True)
+            inv = epk.inverse_keep(keep)
+            leaves = [lv[k] for k in names]
+            fns = {
+                "fwd": lambda: epk._forward(*fwd_args, keep_code=True),
+                "bwd": lambda: epk._backward(df, code, *flat, *biases, gates, slope, inv),
+                "plain_fwd": lambda: epk.tail_plain(*args, slope, keep, u),
+            }
+            rec = {"case": case, "shape": list(shape), "rows": rows, "f": shape[-1],
+                   "launches": launches, "max_abs_err": errs, "rel_err": rel,
+                   "plan": epk.launch_plan(shape[-1], True)._asdict()}
+            for key, fn in fns.items():
+                rec[f"{key}_ms"] = _device_ms(torch, fn, 10)
+            # Autograd's backward does not capture into a CUDA graph here (it
+            # touches the legacy stream): both ways from a host loop, which
+            # the chain's ~50 full passes keep busy.
+            for key, tail in (("plain_fwd_bwd", epk.tail_plain), ("wrapper_fwd_bwd",
+                                                                   epk.layer_tail)):
+                rec[f"{key}_ms"] = _wrapper_ms(torch, lambda t=tail: torch.autograd.grad(
+                    t(*args, slope, keep, u), leaves, dout), 10)
+            elems = rows * shape[-1]
+            rec["bound_fwd_ms"] = 29 * elems / HBM_BYTES_PER_S * 1e3
+            rec["bound_bwd_ms"] = 33 * elems / HBM_BYTES_PER_S * 1e3
+            rec["bound_ms"] = EPILOGUE_BYTES * elems / HBM_BYTES_PER_S * 1e3
+            emit("epilogue_kernels", **rec)
+            records.append(rec)
+            del lv, args, u, dout, fns, code, leaves, flat, const, res, uf, df, fwd_args
+            torch.cuda.empty_cache()
+    return records
+
+
 # -----------------------------------------------------------------------------
 # Phase 11b: GAT's attention kernels
 # -----------------------------------------------------------------------------
@@ -1847,6 +1987,7 @@ def run_tier_path(torch, hk, rt, fasta: str, workdir: str):
         if got != want:
             fail(f"tier path: level n={n} planned {got}, expected {want}")
         check_optimizer_routes(f"tier path n={n}", st, adafactor=plan["factored"])
+        check_epilogue_route(f"tier path n={n}", st, fused=n != TIER_N)
         emit("tier_path_level", level=n, **st)
     last = stats[TIER_N]
     for k in ("k1", "k2", "pack", "unpack"):
@@ -2843,7 +2984,8 @@ def _sharded_run(torch, kind: str, ws: int, graphs_dir: str, out: str, fasta: st
         torch.cuda.synchronize()
     levels = {n: {k: st[k] for k in ("route", "losses", "train_seconds", "epochs", "launches",
                                       "eval_launches", "operator_seconds", "eval_seconds",
-                                      "rank_nodes", "feat_shards", "peak_device_bytes")
+                                      "rank_nodes", "feat_shards", "peak_device_bytes",
+                                      "epilogue")
                   if k in st}
               for n, st in trainer.level_stats.items()}
     return {"seconds": time.monotonic() - t0, "levels": levels, "path": path,
@@ -3163,6 +3305,9 @@ def run_distributed(torch, graph_paths, workdir: str, fasta: str) -> dict:
                     if lv["route"] != route or lv.get("feat_shards", 1) != feats:
                         fail(f"{phase}: {kind} level n={n} took {lv['route']} over "
                              f"{lv.get('feat_shards')} feature shards, not {route} over {feats}")
+                    if feats > 1 and lv["epilogue"]["route"] != "plain":
+                        fail(f"{phase}: {kind} level n={n}'s layer tails took the kernels on "
+                             f"a feature shard: {lv['epilogue']}")
                     for names in groups:
                         for direction in ("fwd", "bwd"):
                             if sum(lv["launches"][k][direction] for k in names) <= 0:
@@ -3581,6 +3726,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from protgram_directgcn_torch.ops import ell_kernels as ek
+    from protgram_directgcn_torch.ops import epilogue_kernels as epk
     from protgram_directgcn_torch.ops import gat_kernels as gk
     from protgram_directgcn_torch.ops import hyper_kernels as hk
     from protgram_directgcn_torch.ops import hypercube as hyper
@@ -3595,10 +3741,10 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     t_build = time.monotonic()
-    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, started together
-        infos = dict(zip(("hyper", "ell", "retile", "optim", "gat"),
+    with ThreadPoolExecutor(6) as pool:  # one nvcc per source, started together
+        infos = dict(zip(("hyper", "ell", "retile", "optim", "gat", "epilogue"),
                          pool.map(lambda build: build(), (hk.build, ek.build, rt.build,
-                                                          ok.build, gk.build))))
+                                                          ok.build, gk.build, epk.build))))
     build_wall = time.monotonic() - t_build
     ptxas = {name: _ptxas_lines(info["log"]) for name, info in infos.items()}
     emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -3652,6 +3798,7 @@ def main() -> int:
         check_cluster_reference(torch, ek, cluster_graphs[3], level4["num_classes"])
         retile_records = check_retile_kernels(torch, rt)
         check_optim_kernels(torch, ok)
+        check_epilogue_kernels(torch, epk)
         check_gat_kernels(torch, gk, graph_paths[3])
         with _OperatorCache(HierarchicalTrainer):
             tier_counts, tier_config, tier_graphs, tier3_peak = run_tier_path(

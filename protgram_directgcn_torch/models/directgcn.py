@@ -9,7 +9,11 @@ onto the other leaf by leaf.
 Per layer: one fused projection per path, ``x @ (W_main + W_shared)``, then
 one propagation per edge set (propagation is linear, so
 P(X·W_main) + P(X·W_shared) == P(X·(W_main + W_shared))), the per-path biases
-``b_main + b_shared``, and the hierarchical gates and per-node constant.  On
+``b_main + b_shared``, and the hierarchical gates and per-node constant.
+From the propagated paths to the activation (with the residual, leaky ReLU
+and dropout) a layer with no feature shard runs one op,
+``ops/epilogue_kernels.layer_tail``: a CUDA kernel each way on float32
+tensors on the card, the plain ATen chain elsewhere.  On
 hypercube levels the carry stays in the kernels' rg layout [A, G, F] through
 every layer; per-node parameters are viewed [A, G, ·] to match (a constant
 may also be stored rg, as the trainer does on those levels).  A Cluster-GCN
@@ -45,7 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from protgram_directgcn_torch.ops import retile
+from protgram_directgcn_torch.ops import epilogue_kernels, retile
 from protgram_directgcn_torch.ops.hypercube import HypercubeAdj
 from protgram_directgcn_torch.ops.spmm import propagate, propagate3
 
@@ -250,21 +254,44 @@ def _gather_node_params(p: Params, original_indices: Optional[torch.Tensor]):
     return gates, const
 
 
+def _node_params(p: Params, x: torch.Tensor, width: int,
+                 original_indices: Optional[torch.Tensor] = None, feat=None):
+    """The gates and constant as the paths take them: gathered at a batch's
+    node ids, the constant cut to this feature shard's ``width`` columns
+    (``feat``), and viewed rg ``[A, G, ·]`` on an rg carry ``x``."""
+    gates, const = _gather_node_params(p, original_indices)
+    if feat is not None and isinstance(const, torch.Tensor):
+        const = const[..., feat.cols(width)]
+    if x.dim() == 3:
+        lead = x.shape[:2]
+        gates = tuple(_rg_view(lead, t) for t in gates)
+        const = _rg_view(lead, const)
+    return gates, const
+
+
 def _combine_paths(p: Params, x: torch.Tensor, ic, oc, uc,
                    original_indices: Optional[torch.Tensor] = None, feat=None) -> torch.Tensor:
     """Hierarchical gating + per-node constant
     (reference combine: protgram_directgcn.py:131-135).  ``feat``: the paths
     hold this feature shard's columns, and so does the constant's share."""
-    (c_in, c_out, c_dir, c_und, c_all), const = _gather_node_params(p, original_indices)
-    if feat is not None and isinstance(const, torch.Tensor):
-        const = const[..., feat.cols(ic.shape[-1])]
-    if x.dim() == 3:
-        lead = x.shape[:2]
-        c_in, c_out, c_dir, c_und, c_all, const = (
-            _rg_view(lead, t) for t in (c_in, c_out, c_dir, c_und, c_all, const))
-    directed = c_dir * (c_in * ic + c_out * oc)
-    undirected = c_und * uc
-    return c_all * (undirected + directed) + const
+    gates, const = _node_params(p, x, ic.shape[-1], original_indices, feat)
+    return epilogue_kernels.combine_plain(gates, ic, oc, uc, const)
+
+
+def _propagated_paths(p: Params, graph, xc: torch.Tensor, ct: torch.dtype):
+    """The three paths' fused projections, propagated (one product each)."""
+    x_in = xc @ (p["w_main_in"] + p["w_shared"]).to(ct)
+    x_out = xc @ (p["w_main_out"] + p["w_shared"]).to(ct)
+    x_und = xc @ (p["w_und"] + p["w_shared"]).to(ct)
+    return propagate3(graph, x_in, x_out, x_und)
+
+
+def _bias_sums(p: Params, ct: torch.dtype):
+    """The paths' bias sums in the compute type, so that under bf16 the adds
+    keep the propagated paths bf16 (directgcn.py:263-269)."""
+    return ((p["b_main_in"] + p["b_shared_in"]).to(ct),
+            (p["b_main_out"] + p["b_shared_out"]).to(ct),
+            (p["b_und"] + p["b_shared_und"]).to(ct))
 
 
 def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig,
@@ -278,16 +305,35 @@ def _layer_apply(p: Params, graph, x: torch.Tensor, cfg: DirectGCNConfig,
         return _layer_literal(p, graph, xc, ct, original_indices)
     if x.dim() == 3 and cfg.remat_paths:
         return _layer_paths_remat(p, graph, xc, cfg, ct, original_indices)
-    x_in = xc @ (p["w_main_in"] + p["w_shared"]).to(ct)
-    x_out = xc @ (p["w_main_out"] + p["w_shared"]).to(ct)
-    x_und = xc @ (p["w_und"] + p["w_shared"]).to(ct)
-    pi, po, pu = propagate3(graph, x_in, x_out, x_und)
-    # The bias sums are cast to the compute type, so under bf16 the adds
-    # keep the propagated paths bf16 (directgcn.py:263-269).
-    ic = pi + (p["b_main_in"] + p["b_shared_in"]).to(ct)
-    oc = po + (p["b_main_out"] + p["b_shared_out"]).to(ct)
-    uc = pu + (p["b_und"] + p["b_shared_und"]).to(ct)
-    return _combine_paths(p, x, ic, oc, uc, original_indices, getattr(graph, "feat", None))
+    pi, po, pu = _propagated_paths(p, graph, xc, ct)
+    b_in, b_out, b_und = _bias_sums(p, ct)
+    return _combine_paths(p, x, pi + b_in, po + b_out, pu + b_und, original_indices,
+                          getattr(graph, "feat", None))
+
+
+def _residual(rp: Optional[Params], h: torch.Tensor, feat=None, width: int = 0) -> torch.Tensor:
+    """The residual branch, its weights cast to the carry type
+    (directgcn.py:547-551); an identity one on feature shards (``feat``)
+    keeps this shard's ``width`` columns."""
+    if rp is not None:
+        return h @ rp["w"].to(h.dtype) + rp["b"].to(h.dtype)
+    return h if feat is None else h[..., feat.cols(width)]
+
+
+def _layer_tail(p: Params, rp: Optional[Params], graph, x: torch.Tensor, cfg: DirectGCNConfig,
+                seed: Optional[int],
+                original_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A fused layer through its activation: the projections and
+    propagations, then the bias adds, gating, constant, residual (``rp``),
+    leaky ReLU and dropout (mask from ``seed``; None: none) in one op,
+    ``epilogue_kernels.layer_tail``."""
+    ct = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else x.dtype
+    pi, po, pu = _propagated_paths(p, graph, x.to(ct), ct)
+    gates, const = _node_params(p, x, pi.shape[-1], original_indices)
+    u = _uniforms(pi.shape, seed, pi.device) if seed is not None else None
+    return epilogue_kernels.layer_tail(pi, po, pu, *_bias_sums(p, ct), gates, const,
+                                       _residual(rp, x), cfg.leaky_relu_slope,
+                                       1.0 - cfg.dropout, u)
 
 
 def _layer_literal(p: Params, graph, xc: torch.Tensor, ct: torch.dtype,
@@ -339,14 +385,19 @@ def _layer_paths_remat(p: Params, graph, xc: torch.Tensor, cfg: DirectGCNConfig,
     return acc + const
 
 
+def _uniforms(shape, seed: int, device) -> torch.Tensor:
+    """The uniforms of a dropout mask drawn from ``seed``: the same seed gives
+    the same mask, so a recompute replays the forward's."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device)
+
+
 def _dropout(t: torch.Tensor, rate: float, seed: int, feat=None) -> torch.Tensor:
-    """Inverted dropout with a mask drawn from ``seed``: the same seed gives
-    the same mask, so a recompute replays the forward's.  ``feat``: ``t``
+    """Inverted dropout with a mask drawn from ``seed``.  ``feat``: ``t``
     holds a feature shard's columns; the mask is the whole rows' one, cut."""
     keep = 1.0 - rate
-    gen = torch.Generator(device=t.device).manual_seed(seed)
     shape = t.shape if feat is None else t.shape[:-1] + (t.shape[-1] * feat.shards,)
-    mask = torch.rand(shape, generator=gen, device=t.device) < keep
+    mask = _uniforms(shape, seed, t.device) < keep
     if feat is not None:
         mask = mask[..., feat.cols(t.shape[-1])]
     return torch.where(mask, t / keep, torch.zeros((), dtype=t.dtype, device=t.device))
@@ -380,21 +431,21 @@ def apply_layer_range(params: Params, graph, h: torch.Tensor, cfg: DirectGCNConf
     def layer_block(layer_p, rp, hh, seed):
         if pack:
             hh = unpack_rg_carry(hh, layer_p["w_main_in"].shape[0], rg_lead[1])
+        seed = seed if train and cfg.dropout > 0 else None
+        if cfg.fused and feat is None and not (hh.dim() == 3 and cfg.remat_paths):
+            # The three-path layer with no gather before its activation: its
+            # whole tail in one op (the kernels where they apply).
+            out = _layer_tail(layer_p, rp, graph, hh, cfg, seed, original_indices)
+            return out.to(ct) if ct is not None else out
         gcn_out = _layer_apply(layer_p, graph, hh, cfg, original_indices)
-        # Residual weights cast to the carry type (directgcn.py:547-551).
-        if rp is not None:
-            res_out = hh @ rp["w"].to(hh.dtype) + rp["b"].to(hh.dtype)
-        else:
-            res_out = hh if feat is None else hh[..., feat.cols(gcn_out.shape[-1])]
-        s = gcn_out + res_out
+        s = gcn_out + _residual(rp, hh, feat, gcn_out.shape[-1])
         if feat is not None:
             s = feat.gather(s)
         # Pack before the activation tail: packing is a permutation with zero
         # pad slots, which leaky ReLU and dropout keep zero (directgcn.py:556-561).
         s = pack_rg_carry(s, pack)
-        out = F.leaky_relu(s, negative_slope=cfg.leaky_relu_slope)
-        if train and seed is not None and cfg.dropout > 0:
-            out = _dropout(out, cfg.dropout, seed)
+        u = _uniforms(s.shape, seed, s.device) if seed is not None else None
+        out = epilogue_kernels.activate_plain(s, cfg.leaky_relu_slope, 1.0 - cfg.dropout, u)
         return out.to(ct) if ct is not None else out
 
     for i in range(start, stop):

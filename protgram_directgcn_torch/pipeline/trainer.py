@@ -75,8 +75,8 @@ from protgram_directgcn_torch.models.directgcn import (
 )
 from protgram_directgcn_torch.models.gat import GATConfig, gat_apply, init_gat_params, param_count
 from protgram_directgcn_torch.models.mlp import OptaxAdam, adam_bias_corrections
-from protgram_directgcn_torch.ops import (ell_kernels, gat_kernels, hyper_kernels, optim_kernels,
-                                          retile)
+from protgram_directgcn_torch.ops import (ell_kernels, epilogue_kernels, gat_kernels, hyper_kernels,
+                                          optim_kernels, retile)
 from protgram_directgcn_torch.ops.hypercube import BlockStructureError, vocab_char_codes
 from protgram_directgcn_torch.ops.spmm import DenseAdj, EllAdj, _ell_one_sided
 from protgram_directgcn_torch.parallel import distributed as comm
@@ -723,6 +723,11 @@ def _launch_counts() -> Dict[str, Dict[str, int]]:
             **retile.launch_counts()}
 
 
+def _tail_launches() -> int:
+    """Launches so far of the layer tail's kernels, both ways."""
+    return sum(epilogue_kernels.launch_counts()["layer_tail"].values())
+
+
 def _launch_diff(before, after) -> Dict[str, Dict[str, int]]:
     return {k: {d: after[k][d] - before[k][d] for d in after[k]} for k in after}
 
@@ -1367,7 +1372,10 @@ class HierarchicalTrainer:
         the route and ``operator_seconds``, and the set-up spans' seconds by
         name (``spans``) after each stage; after training, ``optimizer``: the
         leaves and elements each update route took (``TrainOptimizer.
-        update_counts``) and the optimizer kernels' launches; a GAT level
+        update_counts``) and the optimizer kernels' launches; a DirectGCN level
+        adds ``epilogue``: ``route`` "fused" where the layers' tails took the
+        kernels of ``ops/epilogue_kernels.py``, else "plain", and their
+        ``launches`` both ways over the training; a GAT level
         (``gcn.architecture="gat"``, one device, full batch) adds
         ``attention`` (``_attention_stats``)."""
         gcn = self.gcn
@@ -1534,6 +1542,7 @@ class HierarchicalTrainer:
 
         losses: List[float] = []
         gat0 = gat_kernels.launch_counts()
+        tails0 = _tail_launches()
         if use_cluster:
             t_build = time.monotonic()
             with trace("level.cluster_batches", always=True):
@@ -1613,6 +1622,10 @@ class HierarchicalTrainer:
         # launches of the optimizer's kernels.
         stats["optimizer"] = {**opt.update_counts(),
                               "launches": {k: optim1[k] - optim0[k] for k in optim1}}
+        if not gat:
+            # Whether the layers' tails took the kernels, and their launches.
+            tails = _tail_launches() - tails0
+            stats["epilogue"] = {"route": "fused" if tails else "plain", "launches": tails}
         if gat:
             stats["attention"] = self._attention_stats(model_cfg, full_graph,
                                                        _launch_diff(gat0,
