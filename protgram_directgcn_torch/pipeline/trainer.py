@@ -40,11 +40,10 @@ and, under ``gcn.apply_pca``, their PCA; under ``gcn.run_sanity_check_ppi``
 it then runs the PPI sanity check on the last file written
 (``pipeline/ppi.py``).
 
-``gcn.architecture = "gat"`` trains GAT (``models/gat.py``) in place of
-DirectGCN at every level: full batch at tier 0 (``_gat_plan``) on the
-level's attention table (``ops/gat_kernels.py``), with the same loop,
-optimizer, checkpoints, metric log, pooling and export; the level's
-embeddings are GAT's last hidden layer.
+The level model is one seam: ``gcn.architecture`` picks its object in
+``_LEVEL_MODELS`` (``_DirectGCNLevel``, ``_GATLevel``), which gives a
+level's plan, operators, parameters, loss, embeddings and stats; the loop,
+optimizer, checkpoints, metric log, pooling and export are shared.
 """
 
 from __future__ import annotations
@@ -353,30 +352,30 @@ def _primary_loss(params, graph, x, y, mask, gen, model_cfg, original_indices=No
     """The masked next-node NLL, the loss's term inside autograd (the L2
     term is the optimizer's: ``TrainOptimizer``).  ``original_indices``: a
     Cluster-GCN batch's node ids (the model gathers its per-node parameters
-    there).  Under a ``GATConfig`` ``graph`` is the level's attention table
-    (``ops/gat_kernels.py``)."""
-    if isinstance(model_cfg, GATConfig):
-        log_sm, _ = gat_apply(params, graph, x, model_cfg)
-    else:
-        log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
-                                    original_indices=original_indices, flatten_rg=False)
+    there)."""
+    log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
+                                original_indices=original_indices, flatten_rg=False)
     return _masked_nll(log_sm, y, mask)
 
 
-def _masked_nll(log_sm: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The mean negative log-likelihood of the labels over the masked nodes;
-    an rg output ``[A, G, C]`` views the label and mask vectors ``[A, G]``."""
+def _masked_nll(log_sm: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                total: Optional[float] = None) -> torch.Tensor:
+    """The mean negative log-likelihood of the labels over the masked nodes
+    (``total``: the mask's count where it is not this mask's sum); an rg
+    output ``[A, G, C]`` views the label and mask vectors ``[A, G]``."""
     if log_sm.dim() == 3:
         y = y.reshape(log_sm.shape[:2])
         mask = mask.reshape(log_sm.shape[:2])
     per_node = -torch.gather(log_sm, -1, y[..., None])[..., 0]
-    return torch.sum(per_node * mask) / torch.clamp(mask.sum(), min=1.0)
+    count = torch.clamp(mask.sum(), min=1.0) if total is None else max(total, 1.0)
+    return torch.sum(per_node * mask) / count
 
 
-def make_train_step(model_cfg: DirectGCNConfig, opt: TrainOptimizer, l2_lambda: float):
+def make_train_step(model_cfg, opt: TrainOptimizer, l2_lambda: float, primary_loss=_primary_loss):
     """One step on the full level or a Cluster-GCN batch: the masked NLL
-    (times the batch's weight factor) and its gradients, then the optimizer
-    update, with the L2 term out of autograd: its value is the leaves' sum
+    (``primary_loss``: the level model's, DirectGCN's by default; times the
+    batch's weight factor) and its gradients, then the optimizer update,
+    with the L2 term out of autograd: its value is the leaves' sum
     of squares before the update (``opt.sum_of_squares``: the leaves with a
     gradient, which on every level are all of them) and its gradient
     ``2 * l2_lambda * p`` is added inside the update (``opt.l2_lambda``),
@@ -392,8 +391,8 @@ def make_train_step(model_cfg: DirectGCNConfig, opt: TrainOptimizer, l2_lambda: 
                 opt.zero_grad(set_to_none=True)
                 opt.l2_lambda = l2_lambda
             with trace("step.forward"):
-                primary = _primary_loss(params, graph, x, y, mask, gen, model_cfg,
-                                        original_indices)
+                primary = primary_loss(params, graph, x, y, mask, gen, model_cfg,
+                                       original_indices)
                 loss = primary * weight_factor
             with trace("step.backward"):
                 loss.backward()
@@ -539,11 +538,7 @@ def make_train_step_sharded(model_cfg: DirectGCNConfig, opt: torch.optim.Optimiz
         with trace("step.forward"):
             log_sm, _ = directgcn_apply(params, graph, x, model_cfg, train=True, gen=gen,
                                         flatten_rg=False)
-            if log_sm.dim() == 3:
-                y = y.reshape(log_sm.shape[:2])
-                mask = mask.reshape(log_sm.shape[:2])
-            per_node = -torch.gather(log_sm, -1, y[..., None])[..., 0]
-            primary = torch.sum(per_node * mask) / max(mask_total, 1.0)
+            primary = _masked_nll(log_sm, y, mask, total=mask_total)
             leaves = named_leaves(params)
             l2 = sum(torch.sum(torch.square(p.float())) * (1.0 / copies(n, p))
                      for n, p in leaves)
@@ -723,11 +718,6 @@ def _launch_counts() -> Dict[str, Dict[str, int]]:
             **retile.launch_counts()}
 
 
-def _tail_launches() -> int:
-    """Launches so far of the layer tail's kernels, both ways."""
-    return sum(epilogue_kernels.launch_counts()["layer_tail"].values())
-
-
 def _launch_diff(before, after) -> Dict[str, Dict[str, int]]:
     return {k: {d: after[k][d] - before[k][d] for d in after[k]} for k in after}
 
@@ -810,6 +800,259 @@ def _batch_arrays(b: ClusterBatch) -> List[np.ndarray]:
     leaves = [a for m in mats for a in ((m.at,) if isinstance(m, DenseAdj)
                                         else (m.idx, m.w, m.idx_t, m.w_t))]
     return leaves + [b.x, b.y, b.mask, b.original_indices]
+
+
+class _DirectGCNLevel:
+    """DirectGCN as a level's model (``models/directgcn.py``): memory tiers,
+    three propagation operators, node and feature shards, Cluster-GCN batches."""
+
+    takes_shards = True  # parallel.mesh_nodes x parallel.mesh_feats
+    takes_clusters = True  # gcn.use_cluster_training
+    loss = staticmethod(_primary_loss)
+
+    def plan(self, trainer, graph: NgramGraph, feat_dim: int, num_classes: int) -> LevelPlan:
+        """The first memory tier of the module's ladder whose residency
+        estimate fits the device (trainer.py:1455-1597; tier 4 where the net
+        has two layers or more).  The knobs ``gcn.compute_dtype``,
+        ``node_param_dtype``, ``remat`` and ``node_param_factored``, where not
+        "auto", override their field at every tier.
+
+        Where no tier fits, ``gcn.oversize_policy``: "degrade" halves the
+        hidden dims (floor 16) until tier 4 fits, records them in
+        ``layer_dims_override`` and takes the first tier that fits them,
+        with a warning; "error", or no dims that fit, raises ValueError
+        naming the node shards that would fit the configured dims and the
+        degraded dims (trainer.py:1535-1576).
+
+        Under ``parallel.mesh_nodes`` every tier is sized per shard, without
+        the levers a node-sharded step does not take (per-path remat, the
+        staged step; trainer.py:1478-1490)."""
+        gcn = trainer.gcn
+        _, alpha = vocab_char_codes(graph.vocab)
+        n_hyper = int(alpha) ** graph.n if alpha else graph.num_nodes
+        n_nodes = max(n_hyper, graph.num_nodes)
+        chip = trainer._device_memory()
+        n_layers = len(gcn.hidden_layer_dims)
+        mesh_nodes = trainer.config.parallel.mesh_nodes
+        level_shards = 1 if mesh_nodes is None else max(1, int(mesh_nodes))
+
+        def resolve(tier: int):
+            cd, nd, rm, fc, rp = TIER_LEVERS[tier]
+            rp = rp and level_shards == 1
+            split = ((n_layers + 1) // 2
+                     if tier >= _STAGED_TIER and n_layers >= 2 and level_shards == 1 else 0)
+            if gcn.compute_dtype != "auto":
+                cd = gcn.compute_dtype
+            if gcn.node_param_dtype != "auto":
+                nd = gcn.node_param_dtype
+            if gcn.remat not in ("auto", None):
+                rm = bool(gcn.remat)
+            if gcn.node_param_factored in ("on", "off"):
+                fc = gcn.node_param_factored == "on"
+            return cd, nd, rm, fc, rp, split
+
+        # Per-path remat recomputes one path at a time only on an rg carry
+        # (a hypercube level); elsewhere tier 3 keeps a layer's paths live.
+        rg = trainer._takes_hypercube(graph)
+
+        def need(tier: int, dims=None, shards: int = level_shards) -> int:
+            cd, nd, rm, fc, rp, split = resolve(tier)
+            return sum(trainer._residency(n_nodes, feat_dim, num_classes, cd, nd, rm, fc, rp and rg,
+                                          staged=split > 0, out_dims=dims, shards=shards))
+
+        def fits(tier: int, dims=None, shards: int = level_shards) -> bool:
+            return need(tier, dims, shards) + trainer._PLAN_SLACK + trainer._MIN_BANK <= chip
+
+        tiers = range(len(TIER_LEVERS))
+        tier = next((t for t in tiers if fits(t)), None)
+        dims_override = None
+        if tier is None:
+            shards = level_shards
+            while shards <= 4096 and not fits(_STAGED_TIER, shards=shards):
+                shards *= 2
+            degraded = list(gcn.hidden_layer_dims)
+            while not fits(_STAGED_TIER, degraded) and max(degraded) > 16:
+                degraded = [max(16, d // 2) for d in degraded]
+            deg_ok = fits(_STAGED_TIER, degraded)
+            if gcn.oversize_policy == "error" or not deg_ok:
+                dim_fix = (f" or gcn.hidden_layer_dims={degraded} (or smaller)" if deg_ok else
+                           " (no hidden-dim reduction fits: the input width or a forced type "
+                           "sets the floor)")
+                raise ValueError(
+                    f"level n={graph.n}: gcn.hidden_layer_dims={list(gcn.hidden_layer_dims)} "
+                    f"does not fit {chip / 2**30:.1f} GB at any memory tier ({n_nodes} nodes, "
+                    f"tier 4 needs {need(_STAGED_TIER) / 2**30:.1f} GB); set "
+                    f"parallel.mesh_nodes>={shards} (node shards, one process a device: "
+                    f"torchrun --nproc-per-node {shards}){dim_fix}")
+            dims_override = tuple(degraded)
+            tier = next(t for t in tiers if fits(t, degraded))
+            logger.warning(
+                "level n=%d: gcn.hidden_layer_dims=%s does not fit %.1f GB at any memory tier "
+                "(%d nodes): DEGRADING to %s (gcn.oversize_policy='degrade'); to train the "
+                "configured dims set parallel.mesh_nodes>=%d, or set gcn.hidden_layer_dims",
+                graph.n, list(gcn.hidden_layer_dims), chip / 2**30, n_nodes, degraded, shards)
+        cd, nd, rm, fc, rp, split = resolve(tier)
+        residency = need(tier, dims_override)
+        budget = max(trainer._MIN_BANK, chip - residency - trainer._PLAN_SLACK)
+        if tier > 0:
+            logger.info(
+                "level n=%d auto-plan tier %d: compute=%s node_params=%s remat=%s "
+                "remat_paths=%s factored=%s stage_split=%d (residency %.1f GB of %.1f GB; "
+                "banks get %.1f GB)", graph.n, tier, cd, nd, rm, rp, fc, split,
+                residency / 2**30, chip / 2**30, budget / 2**30)
+        return LevelPlan(tier=tier, compute_dtype=cd, node_param_dtype=nd, remat=rm,
+                         remat_paths=rp, factored=fc, bank_budget=int(budget),
+                         residency=int(residency), stage_split=split,
+                         layer_dims_override=dims_override)
+
+    def operators(self, trainer, graph: NgramGraph, plan: LevelPlan, feat_dim: int):
+        """The level's propagation operators (trainer.py:1602-1633), in the
+        plan's compute type (the hypercube banks and a dense matrix; the
+        edge-list formats keep f32 weights): "pallas" means "ell"; under
+        "auto" and "hypercube" the hypercube is tried at n >= 2 ("auto": only
+        while alpha^n <= 4x the vocabulary) within ``plan.bank_budget``, and
+        where it is not taken or cannot be built (auto only) the format is
+        ``graph.to_device(mode="auto", feat_dim=...)``'s choice."""
+        mode = trainer.gcn.spmm_mode if trainer.gcn.spmm_mode != "pallas" else "ell"
+        dtype = torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32
+        if trainer._takes_hypercube(graph):
+            try:
+                return graph.to_device(mode="hypercube", feat_dim=feat_dim, dtype=dtype,
+                                       device=trainer.device, hbm_budget=plan.bank_budget)
+            except BlockStructureError as exc:
+                if mode == "hypercube":
+                    raise
+                logger.info("hypercube format unavailable (%s); falling back", exc)
+        return graph.to_device(mode="auto" if mode == "hypercube" else mode, feat_dim=feat_dim,
+                               dtype=dtype, device=trainer.device)
+
+    def init(self, trainer, gen, graph, plan, layer_dims, num_classes, full_graph, shard):
+        """The level's ``DirectGCNConfig`` and parameters (trainer.py:1931-1934)."""
+        gcn = trainer.gcn
+        model_cfg = DirectGCNConfig(
+            layer_dims=layer_dims, num_classes=num_classes, n_gram_len=graph.n,
+            num_nodes=full_graph.num_nodes if shard is None else shard.n_global,
+            one_gram_dim=gcn.one_gram_init_dim if graph.n == 1 else 0,
+            max_pe_len=gcn.max_pe_len, dropout=gcn.dropout_rate,
+            use_vector_coeffs=gcn.use_vector_coeffs, remat=plan.remat,
+            remat_paths=plan.remat_paths, compute_dtype=plan.compute_dtype,
+            node_param_dtype=plan.node_param_dtype)
+        params = init_directgcn_params(gen, model_cfg, device=trainer.device)
+        if shard is not None:
+            return model_cfg, mesh.shard_model_params(params, shard.adj.node_rows(),
+                                                      shard.n_global, shard.feat)
+        return model_cfg, _node_params_to_rg(params, full_graph)
+
+    def embed(self, params, graph, x: torch.Tensor, model_cfg) -> torch.Tensor:
+        return directgcn_apply(params, graph, x, model_cfg, train=False)[1]
+
+    launches = staticmethod(epilogue_kernels.launch_counts)
+
+    def stats(self, before, model_cfg, graph, steps: int) -> dict:
+        """``epilogue``: ``route`` "fused" where the layers' tails took their
+        kernels since ``before``, else "plain", and those ``launches``."""
+        tails = sum(_launch_diff(before, self.launches())["layer_tail"].values())
+        return {"epilogue": {"route": "fused" if tails else "plain", "launches": tails}}
+
+
+class _GATLevel:
+    """GAT as a level's model (``models/gat.py``): full batch on one device
+    at tier 0, on the level's attention table (``ops/gat_kernels.py``)."""
+
+    takes_shards = False
+    takes_clusters = False
+    # Full-width [N, H*F] buffers a step holds at its peak, beyond the saved
+    # activations: the backward's output gradient, dz and the input gradient
+    # of a layer, and the allocator's slack.
+    _WORKSPACE_BUFFERS = 4
+
+    def config(self, trainer, feat_dim: int, num_classes: int) -> GATConfig:
+        return GATConfig(in_dim=feat_dim, hidden_dims=tuple(trainer.gcn.hidden_layer_dims),
+                         heads=tuple(trainer.gcn.gat_heads), num_classes=num_classes)
+
+    def residency(self, graph: NgramGraph, cfg: GATConfig) -> int:
+        """Bytes of one full-batch step at tier 0 (float32, Adam): the
+        parameters, their gradients and two moments; the saved activations
+        (the input; a hidden layer's z, attention output, pre-activation and
+        ELU output; the output layer's z, attention output and logits with
+        their log-softmax), ``_WORKSPACE_BUFFERS`` of the widest layer, and
+        four [E + N, H] per-edge arrays of the backward (with the ELL
+        table's padding, about a quarter).  At the n = 4 level and the PPI
+        widths: 9.92 GB, against a peak of 8.18 GB on an NVIDIA H100
+        (PERF.md §6)."""
+        n = graph.num_nodes
+        widths = [s.heads * s.width for s in cfg.layers()]
+        saved = cfg.in_dim + 4 * sum(widths[:-1]) + 2 * widths[-1] + 3 * cfg.num_classes
+        workspace = self._WORKSPACE_BUFFERS * max(widths)
+        edges = 4 * (graph.num_edges + n) * 5 // 4 * max(cfg.heads)
+        return 4 * (4 * param_count(cfg) + n * (saved + workspace) + edges)
+
+    def plan(self, trainer, graph: NgramGraph, feat_dim: int, num_classes: int) -> LevelPlan:
+        """Tier 0 (float32, Adam), the one tier the level takes: no forced
+        lever, no dropout (the PPI model has none, and GAT takes no mask),
+        and a residency (``residency``) that fits the device, or
+        ValueError."""
+        gcn = trainer.gcn
+        forced = {k: getattr(gcn, k) for k in ("compute_dtype", "node_param_dtype")
+                  if getattr(gcn, k) not in ("auto", "float32")}
+        if gcn.remat not in ("auto", None, False):
+            forced["remat"] = gcn.remat
+        if gcn.dropout_rate:
+            forced["dropout_rate"] = gcn.dropout_rate
+        if forced:
+            raise ValueError(f"level n={graph.n}: a GAT level trains at tier 0 (float32, Adam, "
+                             f"no remat, no dropout); the configuration forces {forced}")
+        cfg = self.config(trainer, feat_dim, num_classes)
+        chip = trainer._device_memory()
+        need = self.residency(graph, cfg)
+        budget = chip - need - trainer._PLAN_SLACK
+        if budget < trainer._MIN_BANK:
+            raise ValueError(
+                f"level n={graph.n}: GAT at heads {list(cfg.heads)} and hidden widths "
+                f"{list(cfg.hidden_dims)} needs {need / 2**30:.1f} GB at tier 0 (float32, Adam), "
+                f"the only tier a GAT level takes, and {chip / 2**30:.1f} GB are free "
+                f"({graph.num_nodes} nodes)")
+        return LevelPlan(tier=0, compute_dtype="float32", node_param_dtype="float32",
+                         remat=False, remat_paths=False, factored=False,
+                         bank_budget=int(budget), residency=int(need))
+
+    def operators(self, trainer, graph: NgramGraph, plan: LevelPlan, feat_dim: int):
+        """The attention table (``gat_kernels.build_table``: the raw in-edges
+        and one self loop a node, unweighted) on the vocabulary's nodes."""
+        with trace("operators.build", always=True):
+            return gat_kernels.build_table(graph.src, graph.tgt, graph.num_nodes, trainer.device)
+
+    def init(self, trainer, gen, graph, plan, layer_dims, num_classes, full_graph, shard):
+        model_cfg = self.config(trainer, layer_dims[0], num_classes)
+        return model_cfg, init_gat_params(gen, model_cfg, device=trainer.device)
+
+    @staticmethod
+    def loss(params, graph, x, y, mask, gen, model_cfg, original_indices=None):
+        """The masked NLL; ``graph`` is the attention table."""
+        return _masked_nll(gat_apply(params, graph, x, model_cfg)[0], y, mask)
+
+    def embed(self, params, graph, x: torch.Tensor, model_cfg) -> torch.Tensor:
+        return gat_apply(params, graph, x, model_cfg)[1]
+
+    launches = staticmethod(gat_kernels.launch_counts)
+
+    def stats(self, before, model_cfg, graph, steps: int) -> dict:
+        """``attention``: heads and widths a layer, the in-edges with their
+        self loops, the table's widths, the route of the attention (the CUDA
+        kernels or the plain versions) and the kernels' launches since
+        ``before``, in all and a step."""
+        launches = _launch_diff(before, self.launches())
+        return {"attention": {
+            "heads": [s.heads for s in model_cfg.layers()],
+            "widths": [s.width for s in model_cfg.layers()],
+            "edges": graph.num_edges, "k": graph.k, "k_t": graph.k_t,
+            "route": "cuda" if graph.idx.is_cuda else "plain",
+            "launches": launches,
+            "launches_per_step": {k: {d: c / max(steps, 1) for d, c in per.items()}
+                                  for k, per in launches.items()}}}
+
+
+_LEVEL_MODELS = {"directgcn": _DirectGCNLevel(), "gat": _GATLevel()}
 
 
 class HierarchicalTrainer:
@@ -949,187 +1192,17 @@ class HierarchicalTrainer:
 
     def _level_plan(self, graph: NgramGraph, feat_dim: int,
                     num_classes: Optional[int] = None) -> LevelPlan:
-        """The first memory tier whose residency estimate fits the device
-        (trainer.py:1455-1597): tier 0 (f32, Adam), 1 (+ remat), 2 (+ bf16
-        compute and node tables), 3 (+ factored node moments and per-path
-        remat), 4 (+ the layer-staged step, where the net has two layers or
-        more).  The knobs ``gcn.compute_dtype``, ``node_param_dtype``,
-        ``remat`` and ``node_param_factored``, where not "auto", override
-        their field at every tier.  ``num_classes`` sizes the logits
-        (default: one class per node, the next_node task's count).
+        """The level model's plan; ``num_classes`` sizes the logits (default:
+        one class per node, the next_node task's count)."""
+        return self._model.plan(self, graph, feat_dim,
+                                graph.num_nodes if num_classes is None else num_classes)
 
-        Where no tier fits, ``gcn.oversize_policy``: "degrade" halves the
-        hidden dims (floor 16) until tier 4 fits, records them in
-        ``layer_dims_override`` and takes the first tier that fits them,
-        with a warning; "error", or no dims that fit, raises ValueError
-        naming the node shards that would fit the configured dims and the
-        degraded dims (trainer.py:1535-1576).
-
-        Under ``parallel.mesh_nodes`` every tier is sized per shard, without
-        the levers a node-sharded step does not take (per-path remat, the
-        staged step; trainer.py:1478-1490).
-
-        A GAT level (``gcn.architecture="gat"``) takes tier 0 or raises:
-        ``_gat_plan``."""
-        gcn = self.gcn
-        if self._architecture() == "gat":
-            return self._gat_plan(graph, feat_dim, num_classes)
-        _, alpha = vocab_char_codes(graph.vocab)
-        n_hyper = int(alpha) ** graph.n if alpha else graph.num_nodes
-        n_nodes = max(n_hyper, graph.num_nodes)
-        chip = self._device_memory()
-        classes = graph.num_nodes if num_classes is None else num_classes
-        n_layers = len(gcn.hidden_layer_dims)
-        mesh_nodes = self.config.parallel.mesh_nodes
-        level_shards = 1 if mesh_nodes is None else max(1, int(mesh_nodes))
-
-        def resolve(tier: int):
-            cd, nd, rm, fc, rp = TIER_LEVERS[tier]
-            rp = rp and level_shards == 1
-            split = ((n_layers + 1) // 2
-                     if tier >= _STAGED_TIER and n_layers >= 2 and level_shards == 1 else 0)
-            if gcn.compute_dtype != "auto":
-                cd = gcn.compute_dtype
-            if gcn.node_param_dtype != "auto":
-                nd = gcn.node_param_dtype
-            if gcn.remat not in ("auto", None):
-                rm = bool(gcn.remat)
-            if gcn.node_param_factored in ("on", "off"):
-                fc = gcn.node_param_factored == "on"
-            return cd, nd, rm, fc, rp, split
-
-        # Per-path remat recomputes one path at a time only on an rg carry
-        # (a hypercube level); elsewhere tier 3 keeps a layer's paths live.
-        rg = self._takes_hypercube(graph)
-
-        def need(tier: int, dims=None, shards: int = level_shards) -> int:
-            cd, nd, rm, fc, rp, split = resolve(tier)
-            return sum(self._residency(n_nodes, feat_dim, classes, cd, nd, rm, fc, rp and rg,
-                                       staged=split > 0, out_dims=dims, shards=shards))
-
-        def fits(tier: int, dims=None, shards: int = level_shards) -> bool:
-            return need(tier, dims, shards) + self._PLAN_SLACK + self._MIN_BANK <= chip
-
-        tiers = range(len(TIER_LEVERS))
-        tier = next((t for t in tiers if fits(t)), None)
-        dims_override = None
-        if tier is None:
-            shards = level_shards
-            while shards <= 4096 and not fits(_STAGED_TIER, shards=shards):
-                shards *= 2
-            degraded = list(gcn.hidden_layer_dims)
-            while not fits(_STAGED_TIER, degraded) and max(degraded) > 16:
-                degraded = [max(16, d // 2) for d in degraded]
-            deg_ok = fits(_STAGED_TIER, degraded)
-            if gcn.oversize_policy == "error" or not deg_ok:
-                dim_fix = (f" or gcn.hidden_layer_dims={degraded} (or smaller)" if deg_ok else
-                           " (no hidden-dim reduction fits: the input width or a forced type "
-                           "sets the floor)")
-                raise ValueError(
-                    f"level n={graph.n}: gcn.hidden_layer_dims={list(gcn.hidden_layer_dims)} "
-                    f"does not fit {chip / 2**30:.1f} GB at any memory tier ({n_nodes} nodes, "
-                    f"tier 4 needs {need(_STAGED_TIER) / 2**30:.1f} GB); set "
-                    f"parallel.mesh_nodes>={shards} (node shards, one process a device: "
-                    f"torchrun --nproc-per-node {shards}){dim_fix}")
-            dims_override = tuple(degraded)
-            tier = next(t for t in tiers if fits(t, degraded))
-            logger.warning(
-                "level n=%d: gcn.hidden_layer_dims=%s does not fit %.1f GB at any memory tier "
-                "(%d nodes): DEGRADING to %s (gcn.oversize_policy='degrade'); to train the "
-                "configured dims set parallel.mesh_nodes>=%d, or set gcn.hidden_layer_dims",
-                graph.n, list(gcn.hidden_layer_dims), chip / 2**30, n_nodes, degraded, shards)
-        cd, nd, rm, fc, rp, split = resolve(tier)
-        residency = need(tier, dims_override)
-        budget = max(self._MIN_BANK, chip - residency - self._PLAN_SLACK)
-        if tier > 0:
-            logger.info(
-                "level n=%d auto-plan tier %d: compute=%s node_params=%s remat=%s "
-                "remat_paths=%s factored=%s stage_split=%d (residency %.1f GB of %.1f GB; "
-                "banks get %.1f GB)", graph.n, tier, cd, nd, rm, rp, fc, split,
-                residency / 2**30, chip / 2**30, budget / 2**30)
-        return LevelPlan(tier=tier, compute_dtype=cd, node_param_dtype=nd, remat=rm,
-                         remat_paths=rp, factored=fc, bank_budget=int(budget),
-                         residency=int(residency), stage_split=split,
-                         layer_dims_override=dims_override)
-
-    def _attention_stats(self, cfg: GATConfig, table: gat_kernels.GatTable,
-                         launches: Dict[str, Dict[str, int]], steps: int) -> dict:
-        """A GAT level's ``level_stats[n]["attention"]``: heads and widths a
-        layer, the in-edges with their self loops, the table's widths, the
-        route of the attention (the CUDA kernels or the plain versions) and
-        the kernels' launches, in all and a step."""
-        return {"heads": [s.heads for s in cfg.layers()],
-                "widths": [s.width for s in cfg.layers()],
-                "edges": table.num_edges, "k": table.k, "k_t": table.k_t,
-                "route": "cuda" if table.idx.is_cuda else "plain",
-                "launches": launches,
-                "launches_per_step": {k: {d: c / max(steps, 1) for d, c in per.items()}
-                                      for k, per in launches.items()}}
-
-    def _architecture(self) -> str:
-        arch = self.gcn.architecture
-        if arch not in ("directgcn", "gat"):
-            raise ValueError(f"gcn.architecture={arch!r}: the level models are 'directgcn' and "
-                             "'gat'")
-        return arch
-
-    def _gat_config(self, feat_dim: int, num_classes: int) -> GATConfig:
-        gcn = self.gcn
-        return GATConfig(in_dim=feat_dim, hidden_dims=tuple(gcn.hidden_layer_dims),
-                         heads=tuple(gcn.gat_heads), num_classes=num_classes)
-
-    # Full-width [N, H*F] buffers a GAT step holds at its peak, beyond the
-    # saved activations: the backward's output gradient, dz and the input
-    # gradient of a layer, and the allocator's slack.
-    _GAT_WORKSPACE_BUFFERS = 4
-
-    def _gat_residency(self, graph: NgramGraph, cfg: GATConfig) -> int:
-        """Bytes of one full-batch GAT step at tier 0 (float32, Adam): the
-        parameters, their gradients and two moments; the saved activations
-        (the input; a hidden layer's z, attention output, pre-activation and
-        ELU output; the output layer's z, attention output and logits with
-        their log-softmax), ``_GAT_WORKSPACE_BUFFERS`` of the widest layer,
-        and four [E + N, H] per-edge arrays of the backward (with the ELL
-        table's padding, about a quarter).  At the n = 4 level and the PPI
-        widths: 9.92 GB, against a peak of 8.18 GB on an NVIDIA H100
-        (PERF.md §6)."""
-        n = graph.num_nodes
-        specs = cfg.layers()
-        widths = [s.heads * s.width for s in specs]
-        saved = cfg.in_dim + 4 * sum(widths[:-1]) + 2 * widths[-1] + 3 * cfg.num_classes
-        workspace = self._GAT_WORKSPACE_BUFFERS * max(widths)
-        edges = 4 * (graph.num_edges + n) * 5 // 4 * max(cfg.heads)
-        return 4 * (4 * param_count(cfg) + n * (saved + workspace) + edges)
-
-    def _gat_plan(self, graph: NgramGraph, feat_dim: int,
-                  num_classes: Optional[int]) -> LevelPlan:
-        """Tier 0 (float32, Adam), the one tier a GAT level takes: no forced
-        lever, no dropout (the PPI model has none, and GAT takes no mask),
-        and a residency (``_gat_residency``) that fits the device, or
-        ValueError."""
-        gcn = self.gcn
-        forced = {k: getattr(gcn, k) for k in ("compute_dtype", "node_param_dtype")
-                  if getattr(gcn, k) not in ("auto", "float32")}
-        if gcn.remat not in ("auto", None, False):
-            forced["remat"] = gcn.remat
-        if gcn.dropout_rate:
-            forced["dropout_rate"] = gcn.dropout_rate
-        if forced:
-            raise ValueError(f"level n={graph.n}: a GAT level trains at tier 0 (float32, Adam, "
-                             f"no remat, no dropout); the configuration forces {forced}")
-        cfg = self._gat_config(feat_dim, graph.num_nodes if num_classes is None else num_classes)
-        chip = self._device_memory()
-        need = self._gat_residency(graph, cfg)
-        if need + self._PLAN_SLACK + self._MIN_BANK > chip:
-            raise ValueError(
-                f"level n={graph.n}: GAT at heads {list(cfg.heads)} and hidden widths "
-                f"{list(cfg.hidden_dims)} needs {need / 2**30:.1f} GB at tier 0 (float32, Adam), "
-                f"the only tier a GAT level takes, and {chip / 2**30:.1f} GB are free "
-                f"({graph.num_nodes} nodes)")
-        return LevelPlan(tier=0, compute_dtype="float32", node_param_dtype="float32",
-                         remat=False, remat_paths=False, factored=False,
-                         bank_budget=int(max(self._MIN_BANK, chip - need - self._PLAN_SLACK)),
-                         residency=int(need))
+    @property
+    def _model(self):
+        if self.gcn.architecture not in _LEVEL_MODELS:
+            raise ValueError(f"gcn.architecture={self.gcn.architecture!r}: the level models are "
+                             f"{sorted(_LEVEL_MODELS)}")
+        return _LEVEL_MODELS[self.gcn.architecture]
 
     def _takes_hypercube(self, graph: NgramGraph) -> bool:
         """Whether ``_to_device_graph`` tries the hypercube format for this
@@ -1145,34 +1218,8 @@ class HierarchicalTrainer:
 
     def _to_device_graph(self, graph: NgramGraph, plan: LevelPlan,
                          feat_dim: int = 128) -> DeviceGraph:
-        """The level's propagation operators (trainer.py:1602-1633), in the
-        plan's compute type (the hypercube banks and a dense matrix; the
-        edge-list formats keep f32 weights): "pallas" means "ell"; under
-        "auto" and "hypercube" the hypercube is tried at n >= 2 ("auto": only
-        while alpha^n <= 4x the vocabulary) within ``plan.bank_budget``, and
-        where it is not taken or cannot be built (auto only) the format is
-        ``graph.to_device(mode="auto", feat_dim=...)``'s choice.
-
-        A GAT level takes none of these: its attention table
-        (``gat_kernels.build_table``: the raw in-edges with one self loop a
-        node, unweighted, as an ELL table and its transpose) on the
-        vocabulary's node space, inside the span ``operators.build``."""
-        if self._architecture() == "gat":
-            with trace("operators.build", always=True):
-                return gat_kernels.build_table(graph.src, graph.tgt, graph.num_nodes,
-                                               self.device)
-        mode = self.gcn.spmm_mode if self.gcn.spmm_mode != "pallas" else "ell"
-        dtype = torch.bfloat16 if plan.compute_dtype == "bfloat16" else torch.float32
-        if self._takes_hypercube(graph):
-            try:
-                return graph.to_device(mode="hypercube", feat_dim=feat_dim, dtype=dtype,
-                                       device=self.device, hbm_budget=plan.bank_budget)
-            except BlockStructureError as exc:
-                if mode == "hypercube":
-                    raise
-                logger.info("hypercube format unavailable (%s); falling back", exc)
-        return graph.to_device(mode="auto" if mode == "hypercube" else mode, feat_dim=feat_dim,
-                               dtype=dtype, device=self.device)
+        """The level model's operators on one device."""
+        return self._model.operators(self, graph, plan, feat_dim)
 
     def _rank_layout(self) -> Optional[mesh.RankLayout]:
         """This process's place in the rank grid when the level trains
@@ -1372,14 +1419,11 @@ class HierarchicalTrainer:
         the route and ``operator_seconds``, and the set-up spans' seconds by
         name (``spans``) after each stage; after training, ``optimizer``: the
         leaves and elements each update route took (``TrainOptimizer.
-        update_counts``) and the optimizer kernels' launches; a DirectGCN level
-        adds ``epilogue``: ``route`` "fused" where the layers' tails took the
-        kernels of ``ops/epilogue_kernels.py``, else "plain", and their
-        ``launches`` both ways over the training; a GAT level
-        (``gcn.architecture="gat"``, one device, full batch) adds
-        ``attention`` (``_attention_stats``)."""
+        update_counts``) and the optimizer kernels' launches; and the level
+        model's ``stats`` (``epilogue``, ``attention``)."""
         gcn = self.gcn
         dev = self.device
+        model = self._model
         n_val = graph.n
         feat_dim = x_np.shape[1]
         reset_spans()
@@ -1388,10 +1432,11 @@ class HierarchicalTrainer:
             plan = self._level_plan(graph, feat_dim, num_classes)
             if layout is not None and (plan.remat_paths or plan.stage_split):
                 plan = dataclasses.replace(plan, remat_paths=False, stage_split=0)
-        gat = self._architecture() == "gat"
-        if gat and layout is not None:
-            raise ValueError("a GAT level trains on one device; parallel.mesh_nodes and "
-                             "parallel.mesh_feats are for DirectGCN")
+        if layout is not None and not model.takes_shards:
+            raise ValueError(f"gcn.architecture={gcn.architecture!r} trains on one device; "
+                             "parallel.mesh_nodes and parallel.mesh_feats do not apply")
+        use_cluster = (gcn.use_cluster_training and layout is None and model.takes_clusters
+                       and graph.num_nodes > gcn.cluster_training_threshold_nodes)
         # The degrade policy's dims replace the configured ones (trainer.py:1830-1833).
         hidden = plan.layer_dims_override or tuple(gcn.hidden_layer_dims)
         layer_dims = tuple([feat_dim] + list(hidden))
@@ -1416,14 +1461,6 @@ class HierarchicalTrainer:
         operator_seconds = time.monotonic() - t_ops
         node_map = None if full_graph.node_map is None else full_graph.node_map.cpu().numpy()
 
-        use_cluster = (gcn.use_cluster_training
-                       and graph.num_nodes > gcn.cluster_training_threshold_nodes)
-        if use_cluster and shard is not None:
-            logger.info("cluster training off under node sharding (full batch over the shards)")
-            use_cluster = False
-        if use_cluster and gat:
-            logger.info("a GAT level trains full batch (gcn.use_cluster_training is DirectGCN's)")
-            use_cluster = False
         if use_cluster and gcn.cluster_auto_fullbatch and full_graph.route == "hypercube":
             logger.info("auto-routing n=%d to full-batch (hypercube operators built)", n_val)
             use_cluster = False
@@ -1453,30 +1490,8 @@ class HierarchicalTrainer:
 
         with trace("level.init", always=True):
             init_gen = torch.Generator(device=dev).manual_seed(self.config.random_state + n_val)
-            if gat:
-                model_cfg = self._gat_config(feat_dim, num_classes)
-                params = init_gat_params(init_gen, model_cfg, device=dev)
-            else:
-                model_cfg = DirectGCNConfig(
-                    layer_dims=layer_dims,
-                    num_nodes=total_nodes,
-                    num_classes=num_classes,
-                    n_gram_len=n_val,
-                    one_gram_dim=(gcn.one_gram_init_dim if n_val == 1 else 0),
-                    max_pe_len=gcn.max_pe_len,
-                    dropout=gcn.dropout_rate,
-                    use_vector_coeffs=gcn.use_vector_coeffs,
-                    remat=plan.remat,
-                    remat_paths=plan.remat_paths,
-                    compute_dtype=plan.compute_dtype,
-                    node_param_dtype=plan.node_param_dtype,
-                )
-                params = init_directgcn_params(init_gen, model_cfg, device=dev)
-                if shard is not None:  # trainer.py:1931-1934
-                    params = mesh.shard_model_params(params, shard.adj.node_rows(),
-                                                     shard.n_global, layout.feat)
-                else:
-                    params = _node_params_to_rg(params, full_graph)
+            model_cfg, params = model.init(self, init_gen, graph, plan, layer_dims, num_classes,
+                                           full_graph, shard)
             for p in param_leaves(params):
                 p.requires_grad_(True)
 
@@ -1491,11 +1506,11 @@ class HierarchicalTrainer:
                                  n_global=None if shard is None else shard.n_global,
                                  node_group=None if shard is None else shard.node_group)
             if shard is not None:
-                mask_total = float(graph.num_nodes)
-                step = make_train_step_sharded(model_cfg, opt, l2_lambda, shard, mask_total)
+                step = make_train_step_sharded(model_cfg, opt, l2_lambda, shard,
+                                               float(graph.num_nodes))
             else:
-                step = (make_train_step_staged if staged else make_train_step)(model_cfg, opt,
-                                                                                l2_lambda)
+                step = (make_train_step_staged(model_cfg, opt, l2_lambda) if staged else
+                        make_train_step(model_cfg, opt, l2_lambda, model.loss))
             sched = (PlateauScheduler(gcn.lr, gcn.lr_scheduler_patience,
                                       gcn.lr_scheduler_factor)
                      if gcn.use_lr_scheduler else None)
@@ -1541,8 +1556,7 @@ class HierarchicalTrainer:
             return outer, trace("epoch")
 
         losses: List[float] = []
-        gat0 = gat_kernels.launch_counts()
-        tails0 = _tail_launches()
+        model_launches0 = model.launches()
         if use_cluster:
             t_build = time.monotonic()
             with trace("level.cluster_batches", always=True):
@@ -1622,15 +1636,7 @@ class HierarchicalTrainer:
         # launches of the optimizer's kernels.
         stats["optimizer"] = {**opt.update_counts(),
                               "launches": {k: optim1[k] - optim0[k] for k in optim1}}
-        if not gat:
-            # Whether the layers' tails took the kernels, and their launches.
-            tails = _tail_launches() - tails0
-            stats["epilogue"] = {"route": "fused" if tails else "plain", "launches": tails}
-        if gat:
-            stats["attention"] = self._attention_stats(model_cfg, full_graph,
-                                                       _launch_diff(gat0,
-                                                                    gat_kernels.launch_counts()),
-                                                       stats["steps"])
+        stats.update(model.stats(model_launches0, model_cfg, full_graph, stats["steps"]))
         logger.info("n=%d %s training on %s (%s operators): %d epochs in %.2fs "
                     "(final loss %.5f)", n_val, stats["route"], dev, full_graph.route,
                     len(losses), seconds, losses[-1] if losses else float("nan"))
@@ -1645,16 +1651,10 @@ class HierarchicalTrainer:
                     x_eval = mesh.shard_training_inputs(x_eval, np.zeros(total_nodes, np.int64),
                                                         np.zeros(total_nodes, np.float32),
                                                         shard.adj, dev)[0]
-                    _, embeds = directgcn_apply(params, full_graph, x_eval, model_cfg,
-                                                train=False)
-                    embeds = shard.gather(embeds)
-                elif gat:
-                    _, embeds = gat_apply(params, full_graph, torch.from_numpy(x_eval).to(dev),
-                                          model_cfg)
+                    embeds = shard.gather(model.embed(params, full_graph, x_eval, model_cfg))
                 else:
-                    _, embeds = directgcn_apply(params, full_graph,
-                                                torch.from_numpy(x_eval).to(dev), model_cfg,
-                                                train=False)
+                    embeds = model.embed(params, full_graph, torch.from_numpy(x_eval).to(dev),
+                                         model_cfg)
             embeds = embeds.cpu().numpy()
             if node_map is not None:
                 embeds = embeds[node_map]

@@ -234,7 +234,7 @@ def test_model_matches_the_reference_on_seeded_weights():
     mask = torch.ones(n)
     table = gk.build_table(src, tgt, n, device="cpu")
     leaves = [p.requires_grad_(True) for _, p in named_leaves(params)]
-    loss = t_trainer._primary_loss(params, table, x, y, mask, None, cfg)
+    loss = t_trainer._GATLevel.loss(params, table, x, y, mask, None, cfg)
     got = torch.autograd.grad(loss, leaves)
     ref_leaves = [p.requires_grad_(True) for _, p in ref_gat.named_leaves(ref_params)]
     log_sm = ref_gat.forward(ref_params, specs, _ref_level(src, tgt, n), x)
@@ -315,8 +315,8 @@ def test_plan_is_tier0_float32_or_raises(graphs):
     plan = tt._level_plan(graphs[2], 6, 5)
     assert (plan.tier, plan.compute_dtype, plan.node_param_dtype, plan.remat,
             plan.layer_dims_override) == (0, "float32", "float32", False, None)
-    cfg = tt._gat_config(6, 5)
-    assert plan.residency == tt._gat_residency(graphs[2], cfg) > 0
+    gat = t_trainer._LEVEL_MODELS["gat"]
+    assert plan.residency == gat.residency(graphs[2], gat.config(tt, 6, 5)) > 0
     tt._hbm_override = plan.residency
     with pytest.raises(ValueError, match="tier 0"):
         tt._level_plan(graphs[2], 6, 5)
